@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port's query path, at MS MARCO passage scale.
+"""On-card smoke run of the PyTorch port: the query path at MS MARCO passage
+scale and the encode path at BERT-base width.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -7,24 +8,45 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.
-2. Build: both CUDA kernels of the query path from ``csrc/``, one ``nvcc`` per
-   source, started together.
-3. Set-up, then kernels against their plain versions: a synthetic index at
-   MS MARCO passage geometry is generated on the card from a seed (8.8M docs,
-   30k-term Zipf vocabulary, ~388M postings, impacts 1..255), saved with the
-   port's ``save``, and loaded into an engine through ``build_engine``.  Each
-   kernel runs on the inputs the first 64-query batch gives it and must equal
-   its plain PyTorch version exactly; kernel, plain and library-call times
-   (CUDA events) are printed beside the least time the card could take.
-4. Main path: ``cli.rank.main`` ranks every query (k=1000) on the card, with
-   the kernels' launch counts set to 0 just before and read just after.
-   Every query has one planted relevant doc holding all its terms at impact
-   255, so MRR@10 must be ~1; four sampled queries must match an independent
-   numpy scorer rank by rank; ``score_stream`` (depth 2) over 64-query
-   batches must reproduce the run file and gives the pipelined q/s.
+2. Build: the three CUDA kernels (``gather_rows``, ``scatter_scores``,
+   ``short_attention``) from ``csrc/``, one ``nvcc`` per source, started
+   together.
+3. Query set-up, then the query kernels against their plain versions: a
+   synthetic index at MS MARCO passage geometry is generated on the card
+   from a seed (8.8M docs, 30k-term Zipf vocabulary, ~388M postings,
+   impacts 1..255), saved with the port's ``save``, and loaded into an
+   engine through ``build_engine``.  Each kernel runs on the inputs the
+   first 64-query batch gives it and must equal its plain PyTorch version
+   exactly; kernel, plain and library-call times (CUDA events) are printed
+   beside the least time the card could take.
+4. Query main path: ``cli.rank.main`` ranks every query (k=1000) on the
+   card, with the kernels' launch counts set to 0 just before and read just
+   after.  Every query has one planted relevant doc holding all its terms
+   at impact 255, so MRR@10 must be ~1; four sampled queries must match an
+   independent numpy scorer rank by rank; ``score_stream`` (depth 2) over
+   64-query batches must reproduce the run file and gives the pipelined q/s.
+5. Encode set-up, then ``short_attention`` against its plain version: a
+   seeded synthetic corpus of 32,768 passages (Zipf words from a generated
+   word list, ~60 words a passage, some past 256 tokens) and its
+   ``vocab.txt`` from ``cli.build_vocab``.  The kernel runs at B=512, H=12,
+   S=256, D=64 bf16 on seeded inputs, once with the padding mask of the
+   first real batch and once with the packed segment ids of the corpus's
+   first ``SequencePacker`` batch, and must agree within two bf16 ulps of
+   the largest output.
+6. Encode main path: ``cli.index`` (BERT-base, seeded random init,
+   ``--max_length 256 --model_batch_size 512``) -> ``cli.quantize`` ->
+   ``cli.invert`` -> ``cli.rank``, with the launch counts set to 0 just
+   before ``cli.index`` and read just after: ``short_attention`` must have
+   launched 12 times per batch.  Checks: on 512 passages the kernel route
+   equals ``use_kernels=False`` (term lists identical, impacts within a
+   stated tolerance) and the CLI's forward index; the inverted index equals
+   a numpy inversion of the quantized file; four ranked queries equal the
+   numpy scorer rank by rank; ``cli.index --pack`` gives the same term
+   lists with impacts within that tolerance.  Steady-state encode docs/s
+   (unpacked and packed) and a profiler window over 4 encode batches.
 
-The second-to-last line is the ``kernels`` JSON object, the last line
-``{"ok": true, "device": {...}}``.
+The second-to-last line is the ``kernels`` JSON object (three rows), the
+last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -34,6 +56,7 @@ import shutil
 import subprocess
 import sys
 import time
+from itertools import islice
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -47,8 +70,17 @@ SMOKE = SimpleNamespace(
     docs=8_800_000, terms=30_000, postings=387_717_182, batches=8, nq=64,
     query_terms=8, dense_budget_gb=4.0, seed=0, workdir=REPO / "build" / "chip_smoke",
 )
+# The encode configuration: BERT-base (EncoderConfig.bert_base) at the JAX
+# package's encode geometry (bench.py: B=512, S=256) over a synthetic corpus
+# of MS MARCO passage shape (~60 words a passage).
+ENCODE = SimpleNamespace(
+    passages=32_768, words=50_000, mean_words=60, max_length=256, batch=512,
+    check_docs=512, profile_batches=4, rank_queries=4, query_terms=4, seed=0,
+    device="cuda", workdir=REPO / "build" / "chip_smoke_encode",
+)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
 
 
 def log(msg: str) -> None:
@@ -175,8 +207,8 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(bytes_moved: float, ops: float) -> tuple:
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_ms(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -262,18 +294,18 @@ def scatter_row(base, tail):
     return row
 
 
-def profile_stream(engine, batches, top: int = 12) -> dict:
-    """Where a pipelined window's time goes: torch.profiler over
-    ``score_stream`` of ``batches``; device time by kernel (device-side
-    events only, so an operator and its kernel never count twice) and the
-    device's busy share of the window's wall time (one stream: its kernels
-    do not overlap).  The profiler's own overhead stretches the wall time."""
+def profile_window(fn, top: int = 12) -> dict:
+    """Where a window's time goes: torch.profiler over ``fn()``; device time
+    by kernel (device-side events only, so an operator and its kernel never
+    count twice) and the device's busy share of the window's wall time (one
+    stream: its kernels do not overlap).  The profiler's own overhead
+    stretches the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        list(engine.score_stream(batches, top_k=1000, depth=2))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ops = [
@@ -284,35 +316,45 @@ def profile_stream(engine, batches, top: int = 12) -> dict:
     ops = sorted((o for o in ops if o[2] > 0), key=lambda o: -o[2])
     device_ms = sum(o[2] for o in ops)
     return {
-        "batches": len(batches),
         "wall_ms": wall_ms,
         "device_ms": device_ms if ops else "not measured",
         "device_busy_share": device_ms / wall_ms if ops else "not measured",
-        "top_kernels": [{"kernel": k[:100], "calls": c, "ms": ms} for k, c, ms in ops[:top]],
+        "top_kernels": [{"kernel": k[:100], "calls": c, "ms": ms,
+                         "share": ms / device_ms} for k, c, ms in ops[:top]],
     }
 
 
 # -- phases ------------------------------------------------------------------------
 
 
-def run(cfg) -> dict:
-    from improving_learned_index_tpu_torch.cli.rank import main as rank_main
-    from improving_learned_index_tpu_torch.evaluation.run_metrics import Metrics
-    from improving_learned_index_tpu_torch.ops import _kernels, gather_rows, scatter_scores
-    from improving_learned_index_tpu_torch.search.select import build_engine
-    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+def all_kernels():
+    from improving_learned_index_tpu_torch.ops import gather_rows, scatter_scores, short_attention
 
-    kernels = [gather_rows.KERNEL, scatter_scores.KERNEL]
-    dev = torch.device("cuda")
+    return [gather_rows.KERNEL, scatter_scores.KERNEL, short_attention.KERNEL]
+
+
+def build_kernels() -> None:
+    from improving_learned_index_tpu_torch.ops import _kernels
 
     log("== phase 2: build kernels")
+    kernels = all_kernels()
     t0 = time.perf_counter()
     _kernels.build(kernels)
     for k in kernels:
         k.lib()
     log(f"built {[k.name for k in kernels]} in {time.perf_counter() - t0:.1f} s")
 
-    log("== set-up: synthetic index on the card")
+
+def run_query(cfg) -> dict:
+    from improving_learned_index_tpu_torch.cli.rank import main as rank_main
+    from improving_learned_index_tpu_torch.evaluation.run_metrics import Metrics
+    from improving_learned_index_tpu_torch.search.select import build_engine
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    kernels = all_kernels()
+    dev = torch.device("cuda")
+
+    log("== phase 3: synthetic index on the card")
     n_queries = cfg.batches * cfg.nq
     t0 = time.perf_counter()
     offsets, docs, vals, queries, planted = make_corpus(
@@ -344,7 +386,7 @@ def run(cfg) -> dict:
             for i in range(0, n_queries, cfg.nq)
         ]
 
-        log("== phase 3: kernels against their plain versions (first batch)")
+        log("== phase 3: query kernels against their plain versions (first batch)")
         heavy, tail = engine.stage_inputs(batches[0])
         if heavy is None or tail is None:
             raise AssertionError("the first batch must reach both stages")
@@ -354,7 +396,7 @@ def run(cfg) -> dict:
         for row in (g_row, s_row):
             log(f"{row['name']}: equal to plain; {json.dumps(row)}")
 
-        log("== phase 4: main path (cli.rank on the card)")
+        log("== phase 4: query main path (cli.rank on the card)")
         run_file = workdir / "run.tsv"
         for k in kernels:
             k.launches = 0
@@ -369,9 +411,9 @@ def run(cfg) -> dict:
         launches = {k.name: k.launches for k in kernels}
         log(f"cli.rank: {n_queries} queries in {time.perf_counter() - t0:.1f} s "
             f"(index load and engine build included); launches {launches}")
-        for name, n in launches.items():
-            if n == 0:
-                raise AssertionError(f"main path never launched {name}")
+        for name in ("gather_rows", "scatter_scores"):
+            if launches[name] == 0:
+                raise AssertionError(f"query main path never launched {name}")
         g_row["launches"], s_row["launches"] = launches["gather_rows"], launches["scatter_scores"]
 
         metrics = Metrics(run_file, qrels).evaluate()
@@ -405,7 +447,8 @@ def run(cfg) -> dict:
         qps = n_queries / dt
         log(f"pipelined: {n_queries} queries in {dt:.3f} s = {qps:.1f} q/s "
             f"(k=1000, {cfg.nq}-query batches) on {torch.cuda.get_device_name(0)}")
-        log(json.dumps({"profile": profile_stream(engine, batches[:2])}))
+        prof = profile_window(lambda: list(engine.score_stream(batches[:2], top_k=1000, depth=2)))
+        log(json.dumps({"profile": dict(prof, batches=2)}))
         return {
             "kernels": [g_row, s_row],
             "mrr10": metrics["MRR@10"],
@@ -415,8 +458,368 @@ def run(cfg) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def main() -> int:
+# -- encode path -------------------------------------------------------------------
 
+
+def make_passages(cfg) -> list:
+    """Seeded synthetic passages: words drawn Zipf(1) over a generated list of
+    ``cfg.words`` pronounceable words (rare ones fall outside a 30,522-token
+    vocabulary and split into WordPiece characters), lengths lognormal
+    around ``cfg.mean_words`` (the longest pass 256 tokens and truncate),
+    sentences ended by punctuation."""
+    rng = np.random.default_rng(cfg.seed)
+    cons, vows, tails = "bcdfghjklmnprstvwz", "aeiouy", ("", "s", "n", "r")
+    words, seen = [], set()
+    while len(words) < cfg.words:  # 2-5 syllables: ~5M possible words
+        m = 2 * cfg.words
+        syl = rng.integers(2, 6, m)
+        c, v, t = rng.integers(0, 18, (m, 5)), rng.integers(0, 6, (m, 5)), rng.integers(0, 4, m)
+        for i in range(m):
+            w = "".join(cons[c[i, j]] + vows[v[i, j]] for j in range(syl[i])) + tails[t[i]]
+            if w not in seen and len(words) < cfg.words:
+                seen.add(w)
+                words.append(w)
+    words = np.array(words)
+    p = 1.0 / np.arange(1, cfg.words + 1)
+    n_words = np.clip(rng.lognormal(np.log(cfg.mean_words) - 0.18, 0.6, cfg.passages), 5, 400).astype(int)
+    ids = rng.choice(cfg.words, size=int(n_words.sum()), p=p / p.sum())
+    ends = rng.random(len(ids)) < 1 / 15
+    toks = np.where(ends, np.char.add(words[ids], "."), words[ids])
+    out, at = [], 0
+    for n in n_words:
+        out.append(" ".join(toks[at : at + n].tolist()))
+        at += n
+    return out
+
+
+def write_bert_checkpoint(directory: Path, config, seed: int) -> None:
+    """A seeded BERT trunk in HuggingFace layout (``bert.``-prefixed keys, no
+    impact head) as ``directory/pytorch_model.bin``: weights and embeddings
+    N(0, 0.02) (BERT's ``initializer_range``), biases 0, LayerNorms 1 and 0.
+    At the flax initializer scales a random 12-layer trunk collapses every
+    token to nearly one vector, and the ReLU head then zeroes every impact;
+    at BERT's scale the tokens stay apart and about half the terms score."""
+    g = torch.Generator()
+    g.manual_seed(seed)
+    h, inter = config.hidden_size, config.intermediate_size
+    sd = {}
+
+    def lin(name, n_out, n_in):
+        sd[f"{name}.weight"] = torch.randn(n_out, n_in, generator=g) * 0.02
+        sd[f"{name}.bias"] = torch.zeros(n_out)
+
+    def norm(name):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = torch.ones(h), torch.zeros(h)
+
+    for name, rows in (("word", config.vocab_size), ("position", config.max_position_embeddings),
+                       ("token_type", config.type_vocab_size)):
+        sd[f"bert.embeddings.{name}_embeddings.weight"] = torch.randn(rows, h, generator=g) * 0.02
+    norm("bert.embeddings.LayerNorm")
+    for i in range(config.num_layers):
+        p = f"bert.encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            lin(f"{p}.attention.self.{name}", h, h)
+        lin(f"{p}.attention.output.dense", h, h)
+        norm(f"{p}.attention.output.LayerNorm")
+        lin(f"{p}.intermediate.dense", inter, h)
+        lin(f"{p}.output.dense", h, inter)
+        norm(f"{p}.output.LayerNorm")
+    directory.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, directory / "pytorch_model.bin")
+
+
+def parse_forward(path: Path) -> list:
+    from improving_learned_index_tpu_torch.index.forward_index import parse_line
+
+    with open(path, encoding="utf-8") as f:
+        return [parse_line(line) for line in f]
+
+
+def impacts_close(got: list, want: list, tol_max: float, tol_mean: float, what: str) -> dict:
+    """Identical term lists; the largest impact difference within
+    ``tol_max`` and the mean difference over all terms within ``tol_mean``
+    (a wrong mask or position would move every impact, not a few)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} documents against {len(want)}")
+    diffs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if list(g) != list(w):
+            raise AssertionError(f"{what}: document {i} has other terms")
+        diffs.extend(abs(g[t] - w[t]) for t in g)
+    d = np.asarray(diffs or [0.0])
+    out = {"max": float(d.max()), "mean": float(d.mean()), "p99": float(np.quantile(d, 0.99)),
+           "terms": len(diffs)}
+    if out["max"] > tol_max or out["mean"] > tol_mean:
+        raise AssertionError(f"{what}: impact differences {out} beyond {tol_max} / {tol_mean}")
+    return out
+
+
+def attention_row(q, k, v, pad_mask, seg_ids) -> dict:
+    """``short_attention`` against its plain version at the encoder's
+    shapes, both masks; times of the kernel, the plain version and SDPA
+    (timed only, never called by the port) on the padding mask."""
+    import torch.nn.functional as F
+
+    from improving_learned_index_tpu_torch.ops import short_attention as sa
+
+    b, h, s, d = q.shape
+    scale = d ** -0.5
+    errs, tols = {}, {}
+    for name, mask, packed in (("padding", pad_mask, False), ("packed", seg_ids, True)):
+        got = sa.short_attention(q, k, v, mask, scale, packed)
+        want = sa.short_attention_plain(q, k, v, mask, scale, packed)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        # both round the same fp32 context to bf16 once; the fp32 summation
+        # order may move a value (or a bf16 probability) by one ulp
+        peak = float(want.float().abs().max())
+        tols[name] = 2 * 2.0 ** (np.floor(np.log2(peak)) - 7)
+        errs[name] = err
+        if not err <= tols[name]:
+            raise AssertionError(f"short_attention kernel != plain ({name}): {err} > {tols[name]}")
+        del got, want
+    keep = pad_mask.bool()[:, None, None, :]
+    same = (seg_ids[:, None, :, None] == seg_ids[:, None, None, :])
+    b_bound, by = bound_ms(4 * b * h * s * d * q.element_size() + pad_mask.numel() * 4,
+                           4 * b * h * s * s * d, BF16_OPS_PER_S)
+    row = {
+        "name": "short_attention",
+        "route": "cuda",
+        "source": "improving_learned_index_tpu_torch/csrc/short_attention.cu",
+        "replaces": "improving_learned_index_tpu/ops/short_attention.py:40",
+        "max_abs_err": max(errs.values()),
+        "ms": cuda_ms(lambda: sa.short_attention(q, k, v, pad_mask, scale)),
+        "plain_ms": cuda_ms(lambda: sa.short_attention_plain(q, k, v, pad_mask, scale), iters=3),
+        "bound_ms": b_bound,
+        "bound_by": by,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep, scale=scale)),
+        "shape": {"q": [b, h, s, d], "dtype": str(q.dtype), "layout": "[B, S, H, D] memory",
+                  "max_abs_err": errs, "tolerance": tols,
+                  "packed_ms": cuda_ms(lambda: sa.short_attention(q, k, v, seg_ids, scale, True)),
+                  "packed_library_ms": cuda_ms(
+                      lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale))},
+    }
+    return row
+
+
+def steady_docs_per_s(indexer, docs, first_batch_docs: int) -> dict:
+    """Encode ``docs`` through ``Indexer.encode_document_rows``.  Steady
+    docs/s counts the documents after the first batch over the time from the
+    first batch's first yielded document to the last one, so the model's
+    first batch (tokenized before any device work) is left out."""
+    t_first, n = None, 0
+    t0 = time.perf_counter()
+    for _ in indexer.encode_document_rows(docs):
+        n += 1
+        if t_first is None:
+            t_first = time.perf_counter()
+    t_end = time.perf_counter()
+    return {"docs": n, "wall_s": t_end - t0,
+            "steady_docs_per_s": (n - first_batch_docs) / (t_end - t_first)}
+
+
+def run_encode(cfg) -> dict:
+    from improving_learned_index_tpu_torch.cli.build_vocab import main as build_vocab_main
+    from improving_learned_index_tpu_torch.cli.index import main as index_main
+    from improving_learned_index_tpu_torch.cli.invert import main as invert_main
+    from improving_learned_index_tpu_torch.cli.quantize import main as quantize_main
+    from improving_learned_index_tpu_torch.cli.rank import main as rank_main
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig, IndexConfig
+    from improving_learned_index_tpu_torch.index.indexer import Indexer
+    from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
+    from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
+    from improving_learned_index_tpu_torch.ops import short_attention as sa
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, SequencePacker, WordPieceVocab
+
+    kernels = all_kernels()
+    dev = torch.device(cfg.device)
+    workdir = Path(cfg.workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    config = EncoderConfig.bert_base()
+    heads, hd = config.num_heads, config.hidden_size // config.num_heads
+    timings = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        timings[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        log("== phase 5: synthetic corpus, vocab, short_attention against its plain version")
+        passages = timed("corpus_s", lambda: make_passages(cfg))
+        coll = workdir / "collection.tsv"
+        coll.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages)), encoding="utf-8")
+        vocab_path = workdir / "vocab.txt"
+        timed("cli_build_vocab_s", lambda: build_vocab_main(
+            ["--collection_path", str(coll), "--output_path", str(vocab_path)]))
+        tok = ImpactTokenizer(WordPieceVocab.load(vocab_path), max_length=cfg.max_length)
+        encs = timed("tokenize_s", lambda: [tok.process_document(p) for p in passages])
+        lengths = np.array([sum(e.attention_mask) for e in encs])
+        packer = SequencePacker(cfg.max_length, cfg.batch, cfg.max_length)
+        packed_batches = [bt for e in encs for bt in packer.add(e)] + list(packer.flush())
+        corpus = {"passages": len(passages), "vocab": len(tok.vocab),
+                  "mean_tokens": float(lengths.mean()), "truncated": int((lengths == cfg.max_length).sum()),
+                  "batches": -(-len(passages) // cfg.batch), "packed_batches": len(packed_batches)}
+        log(f"corpus: {json.dumps(corpus)}")
+
+        rng = np.random.default_rng(cfg.seed + 1)
+        b, s = cfg.batch, cfg.max_length
+        q, k, v = (
+            torch.from_numpy(rng.standard_normal((b, s, heads, hd), dtype=np.float32) * 1.5)
+            .to(dev, torch.bfloat16).permute(0, 2, 1, 3)
+            for _ in range(3)
+        )
+        pad_mask = torch.from_numpy(np.asarray([e.attention_mask for e in encs[:b]], np.int32)).to(dev)
+        seg_ids = torch.from_numpy(packed_batches[0].segment_ids).to(dev)
+        a_row = attention_row(q, k, v, pad_mask, seg_ids)
+        del q, k, v
+        log(f"short_attention: within tolerance of plain; {json.dumps(a_row)}")
+
+        log("== phase 6: encode main path (cli.index -> quantize -> invert -> rank on the card)")
+        fwd, qfwd, idx = workdir / "forward.txt", workdir / "forward.q.txt", workdir / "index"
+        bert = workdir / "bert"
+        timed("checkpoint_s", lambda: write_bert_checkpoint(bert, config, cfg.seed))
+        common = ["--collection_path", str(coll), "--vocab_path", str(vocab_path),
+                  "--max_length", str(cfg.max_length), "--model_batch_size", str(cfg.batch),
+                  "--hf_name", str(bert), "--device", cfg.device]
+        for kern in kernels:
+            kern.launches = 0
+        timed("cli_index_s", lambda: index_main(common + ["--output_file_path", str(fwd)]))
+        launches = {kern.name: kern.launches for kern in kernels}
+        log(f"cli.index: {len(passages)} passages in {timings['cli_index_s']:.1f} s; launches {launches}")
+        want = config.num_layers * corpus["batches"]
+        if launches["short_attention"] != want:
+            raise AssertionError(f"short_attention launched {launches['short_attention']} times, want {want}")
+        a_row["launches"] = launches["short_attention"]
+
+        timed("cli_quantize_s", lambda: quantize_main(["-i", str(fwd), "-o", str(qfwd)]))
+        timed("cli_invert_s", lambda: invert_main(["-i", str(qfwd), "-o", str(idx)]))
+
+        # the kernel route against the plain one on the first passages, and
+        # both against the CLI's forward index (same seed, same batches)
+        weights = load_hf_checkpoint(bert, config)
+        model = DeepImpact(config, tok, state_dict=weights, device=cfg.device)
+        plain = DeepImpact(config, tok, state_dict=weights, device=cfg.device, use_kernels=False)
+        head = passages[: cfg.check_docs]
+        got = [dict(x) for x in model.get_impact_scores_batch(head)]
+        ref = [dict(x) for x in plain.get_impact_scores_batch(head)]
+        peak = max(max(d.values(), default=0.0) for d in ref)
+        scored = sum(v > 0 for d in ref for v in d.values()) / max(sum(map(len, ref)), 1)
+        if not 0.05 < scored < 0.95:
+            raise AssertionError(f"degenerate model: {scored:.3f} of the terms score above 0")
+        # The two routes differ only in attention's fp32 summation order, but
+        # every activation is bf16: where one attention output lands one bf16
+        # ulp (2^-8 relative) apart, the difference rides through 12 layers
+        # of bf16 roundings, and the head sums 768 such hidden values (one
+        # ulp of each, with random signs, moves an impact by ~0.01 at this
+        # head's scale).  Tolerance: every impact within 5% of the largest,
+        # the mean difference within 0.2% of it.
+        tol = (0.05 * peak, 0.002 * peak)
+        err_plain = impacts_close(got, ref, *tol, "kernel route vs plain")
+        fwd_docs = parse_forward(fwd)
+        # the same batch through the same kernels: equal up to round(v, 3)
+        err_cli = impacts_close(fwd_docs[: cfg.check_docs], [{t: round(x, 3) for t, x in d.items()} for d in got],
+                                1.5e-3, 1.5e-3, "cli.index vs the kernel route")
+        log(f"kernel route vs plain on {len(head)} passages: max |diff| {err_plain} "
+            f"(tolerance {tol}, largest impact {peak}, {scored:.3f} of terms above 0); "
+            f"vs cli.index {err_cli}")
+        del plain
+
+        index = InvertedIndexData.load(idx)
+        postings = {}
+        for doc, d in enumerate(parse_forward(qfwd)):
+            for t, val in d.items():
+                postings.setdefault(t, []).append((-int(val), doc))
+        if index.vocab != sorted(postings):
+            raise AssertionError("inverted vocabulary != the quantized forward index's terms")
+        for t, term in enumerate(index.vocab):
+            ref_docs = sorted(postings[term])
+            s0, e0 = index.offsets[t], index.offsets[t + 1]
+            if (index.doc_ids[s0:e0].tolist() != [dd for _, dd in ref_docs]
+                    or index.impacts[s0:e0].tolist() != [-vv for vv, _ in ref_docs]):
+                raise AssertionError(f"postings of {term!r} differ from the numpy inversion")
+        if index.num_postings < len(passages):
+            raise AssertionError(f"only {index.num_postings} postings for {len(passages)} passages")
+        log(f"inverted index: {len(index.vocab)} terms, {index.num_postings} postings, "
+            "equal to the numpy inversion")
+
+        qrng = np.random.default_rng(cfg.seed + 2)
+        lens = np.diff(index.offsets)
+        pick = np.argsort(-lens, kind="stable")[:2000]
+        queries = [qrng.choice(pick, cfg.query_terms, replace=False).tolist() for _ in range(cfg.rank_queries)]
+        qpath, run_file = workdir / "queries.tsv", workdir / "run.tsv"
+        qpath.write_text("".join(f"{i}\t{' '.join(index.vocab[t] for t in qt)}\n"
+                                 for i, qt in enumerate(queries)), encoding="utf-8")
+        timed("cli_rank_s", lambda: rank_main([
+            "--index_path", str(idx), "--queries_path", str(qpath), "--output_path", str(run_file),
+            "--vocab_path", str(vocab_path), "--top_k", "1000", "--device", cfg.device]))
+        ranked = {}
+        for line in run_file.read_text().splitlines():
+            qid, pid, _, score = line.split("\t")
+            ranked.setdefault(qid, []).append((pid, float(score)))
+        for qi, qt in enumerate(queries):
+            want_q = numpy_topk(index.offsets, index.doc_ids, index.impacts, index.num_docs, qt, 1000)
+            if not want_q or ranked.get(str(qi), []) != want_q:
+                raise AssertionError(f"encode-path query {qi}: run file differs from the numpy scorer")
+        log(f"{cfg.rank_queries} queries over the port-built index match the numpy scorer rank by rank")
+
+        fwd_p = workdir / "forward.packed.txt"
+        for kern in kernels:
+            kern.launches = 0
+        timed("cli_index_packed_s", lambda: index_main(common + ["--output_file_path", str(fwd_p), "--pack"]))
+        packed_launches = sa.KERNEL.launches
+        if packed_launches != config.num_layers * corpus["packed_batches"]:
+            raise AssertionError(f"packed: short_attention launched {packed_launches} times, "
+                                 f"want {config.num_layers * corpus['packed_batches']}")
+        # other rows, other batch composition: the same bf16 argument, plus
+        # the two files' round(v, 3)
+        err_packed = impacts_close(parse_forward(fwd_p), fwd_docs, tol[0] + 1e-3, tol[1] + 5e-4,
+                                   "packed vs unpacked")
+        log(f"cli.index --pack: same term lists, max |diff| {err_packed} against unpacked; "
+            f"{packed_launches} launches")
+
+        log("== encode throughput and profile")
+        unpacked_cfg = IndexConfig(max_length=cfg.max_length, max_terms=cfg.max_length,
+                                   model_batch_size=cfg.batch)
+        packed_cfg = IndexConfig(max_length=cfg.max_length, max_terms=cfg.max_length,
+                                 model_batch_size=cfg.batch, pack_sequences=True)
+        rate = steady_docs_per_s(Indexer(model, unpacked_cfg), passages, cfg.batch)
+        rate_p = steady_docs_per_s(Indexer(model, packed_cfg), passages, packed_batches[0].n_docs)
+        log(f"encode: {json.dumps({'unpacked': rate, 'packed': rate_p})} on {torch.cuda.get_device_name(0)}")
+        profiles = {}
+        for name, icfg, per_batch in (("unpacked", unpacked_cfg, cfg.batch),
+                                      ("packed", packed_cfg, packed_batches[0].n_docs)):
+            # skip two batches, profile the next profile_batches (a steady
+            # window, the producer already ahead of the device), drain the rest
+            n_win = cfg.profile_batches * per_batch
+            stream = Indexer(model, icfg).encode_document_rows(passages[: n_win + 3 * per_batch])
+            list(islice(stream, 2 * per_batch))
+            before = sa.KERNEL.launches
+            profiles[name] = dict(profile_window(lambda: list(islice(stream, n_win)), top=15), docs=n_win)
+            # batches whose forward ran inside the window
+            profiles[name]["batches"] = (sa.KERNEL.launches - before) / config.num_layers
+            list(stream)
+        log(json.dumps({"encode_profile": profiles}))
+        return {
+            "row": a_row,
+            "corpus": corpus,
+            "timings_s": timings,
+            "unpacked": rate,
+            "packed": rate_p,
+            "profiles": {k: {"device_busy_share": v["device_busy_share"], "wall_ms": v["wall_ms"]}
+                         for k, v in profiles.items()},
+            "errors": {"kernel_vs_plain": err_plain, "tolerance": tol, "cli_vs_api": err_cli,
+                       "packed_vs_unpacked": err_packed},
+        }
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def main() -> int:
     log("== phase 1: environment")
     if shutil.which("nvidia-smi"):
         smi = subprocess.run(
@@ -432,8 +835,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    result = run(SMOKE)
-    print(json.dumps({"kernels": result["kernels"]}))
+    build_kernels()
+    query = run_query(SMOKE)
+    torch.cuda.empty_cache()
+    encode = run_encode(ENCODE)
+    log(json.dumps({"encode": {k: v for k, v in encode.items() if k != "row"}}))
+    print(json.dumps({"kernels": query["kernels"] + [encode["row"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
-"""Shared CLI plumbing: tokenizer construction from flags.
+"""Shared CLI plumbing: tokenizer and model construction from flags.
 
-Counterpart of ``improving_learned_index_tpu/cli/common.py`` for the query
-path: the built-in tokenizer over a WordPiece ``vocab.txt``
-(``--vocab_path``) with the whitespace/punctuation segmenter.  The HF
-tokenizer route, the VnCoreNLP segmenter and model construction come with
-the encoder slice.
+Counterpart of ``improving_learned_index_tpu/cli/common.py``: the built-in
+tokenizer over a WordPiece ``vocab.txt`` (``--vocab_path``) with the
+whitespace/punctuation segmenter, and the DeepImpact model kinds
+``deepimpact``, ``phobert`` and ``xlmr`` with random init, ``--tiny`` or
+``--hf_name`` (a local directory's ``pytorch_model.bin``).  Not ported yet:
+the ``pairwise`` and ``cross_encoder`` kinds, ``--hf_tokenizer``,
+``--segmenter vncorenlp`` and ``--checkpoint`` (msgpack); each raises.
+``--device`` picks the torch device (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -12,7 +15,18 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from ..core.config import EncoderConfig
 from ..text import ImpactTokenizer, WordPieceVocab
+
+# kind -> (config factory, impact activation); the JAX package's table
+MODEL_KINDS = {
+    "deepimpact": ("bert_base", "relu"),
+    "xlmr": ("xlmr_base", "softplus"),
+    "phobert": ("phobert_base", "relu"),
+    "pairwise": ("bert_base", "relu"),
+    "cross_encoder": ("bert_base", "relu"),
+}
+_NOT_PORTED_KINDS = ("pairwise", "cross_encoder")
 
 
 def add_tokenizer_args(parser: argparse.ArgumentParser) -> None:
@@ -22,4 +36,49 @@ def add_tokenizer_args(parser: argparse.ArgumentParser) -> None:
 
 
 def build_tokenizer(args) -> ImpactTokenizer:
+    if getattr(args, "hf_tokenizer", None):
+        raise NotImplementedError("--hf_tokenizer (text/hf_adapter.py) is not ported yet")
+    if getattr(args, "segmenter", "whitespace") != "whitespace":
+        raise NotImplementedError("--segmenter vncorenlp is not ported yet")
+    if not args.vocab_path:
+        raise SystemExit("--vocab_path is required")
     return ImpactTokenizer(WordPieceVocab.load(args.vocab_path), args.max_length or 512)
+
+
+def add_model_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--model_kind", choices=sorted(MODEL_KINDS), default="deepimpact")
+    parser.add_argument("--checkpoint", type=Path, default=None,
+                        help="msgpack params checkpoint (not ported yet)")
+    parser.add_argument("--hf_name", type=str, default=None,
+                        help="local HF model directory (pytorch_model.bin) to "
+                        "import trunk weights from")
+    parser.add_argument("--vocab_path", type=Path, default=None,
+                        help="WordPiece vocab.txt for the built-in tokenizer")
+    parser.add_argument("--hf_tokenizer", type=str, default=None,
+                        help="HF tokenizer id/dir (not ported yet)")
+    parser.add_argument("--segmenter", choices=["whitespace", "vncorenlp"],
+                        default="whitespace")
+    parser.add_argument("--vncorenlp_path", type=Path, default=None)
+    parser.add_argument("--max_length", type=int, default=None)
+    parser.add_argument("--tiny", action="store_true",
+                        help="tiny random model (tests/smoke)")
+    parser.add_argument("--device", default=None,
+                        help="torch device; default cuda (cpu only when asked for)")
+
+
+def build_model(args):
+    from ..models.deep_impact import DeepImpact
+    from ..models.hf_import import load_hf_checkpoint
+
+    if args.model_kind in _NOT_PORTED_KINDS:
+        raise NotImplementedError(f"--model_kind {args.model_kind} is not ported yet")
+    if args.checkpoint:
+        raise NotImplementedError("--checkpoint (msgpack, core/checkpoint.py) is not ported yet")
+    tokenizer = build_tokenizer(args)
+    cfg_factory, activation = MODEL_KINDS[args.model_kind]
+    if args.tiny:
+        config = EncoderConfig.tiny(vocab_size=len(tokenizer.vocab), impact_activation=activation)
+    else:
+        config = getattr(EncoderConfig, cfg_factory)()
+    state_dict = load_hf_checkpoint(args.hf_name, config) if args.hf_name else None
+    return DeepImpact(config, tokenizer, state_dict=state_dict, device=args.device)

@@ -2,9 +2,9 @@
 
 The PyTorch port's own copy of ``improving_learned_index_tpu/core/config.py``
 (no framework code inside), kept field for field so both packages read the
-same configs and write the same on-disk index format.  Comments on the
-encoder fields describe the JAX package's kernels; the port's counterparts
-come with the encoder slice.
+same configs and write the same on-disk index format.  The encoder fields
+drive the port's encoder (``models/encoder.py``) as they drive the JAX
+package's.
 
 The reference scatters constants through ``src/utils/defaults.py`` (absolute
 paths, binary formats, CUDA device strings).  Here every subsystem takes a
@@ -77,19 +77,14 @@ class EncoderConfig:
     impact_activation: str = "relu"
     # Compute dtype for matmuls (params stay fp32).
     dtype: str = "bfloat16"
-    # Short-sequence Pallas attention (TPU backend, S <= 512): the whole
-    # [S, S] attention matrix per (batch, head) stays VMEM-resident, so the
-    # fp32 logits never hit HBM (profiled as ~64% of the bert-base S=256
-    # forward on the XLA path).  ops/short_attention.py; backward recomputes
-    # via XLA so training works through it.
+    # Short-sequence attention (ops/short_attention.py): with a mask, S <= 256,
+    # S % 128 == 0 and head dim % 8 == 0 the encoder calls the hand-written
+    # kernel (csrc/short_attention.cu on the card), which keeps the fp32
+    # [S, S] logits out of device memory; otherwise plain torch attention.
+    # The backward recomputes through the plain version.
     use_short_attention: bool = True
-    # Pallas flash attention (TPU backend only; falls back to the XLA path
-    # off-TPU, for seq lengths not divisible by 128, or when attention
-    # dropout is active / attention maps are requested).  Default OFF:
-    # measured on v5e-1 the XLA fused attention beats the long-sequence
-    # flash kernel at retrieval sequence lengths (S=256: 1778 vs 1289
-    # docs/s at B=512, bert-base) — its streaming-KV machinery only pays
-    # at S >= ~2K.  The short-sequence kernel above covers S <= 512.
+    # The JAX package's library flash-attention route (TPU only, off by
+    # default).  Not ported: the port's encoder ignores it.
     use_flash_attention: bool = False
 
     @staticmethod

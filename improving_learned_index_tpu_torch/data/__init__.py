@@ -1,3 +1,17 @@
-from .datasets import Queries, QueryParser, QueryRelevanceDataset, RunFile
+from .datasets import (
+    CollectionParser,
+    Queries,
+    QueryParser,
+    QueryRelevanceDataset,
+    RunFile,
+    stream_collection,
+)
 
-__all__ = ["Queries", "QueryParser", "QueryRelevanceDataset", "RunFile"]
+__all__ = [
+    "CollectionParser",
+    "Queries",
+    "QueryParser",
+    "QueryRelevanceDataset",
+    "RunFile",
+    "stream_collection",
+]

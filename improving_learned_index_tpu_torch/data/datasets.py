@@ -1,10 +1,11 @@
-"""Query / qrels / run-file I/O for the query path.
+"""Collection / query / qrels / run-file I/O for the encode and query paths.
 
-The port's copy of the query-path classes of
-``improving_learned_index_tpu/data/datasets.py``, format-compatible with the
-reference's data layer (src/utils/datasets.py): TSV or BEIR-JSONL queries,
-qrels ``qid\\t0\\tpid\\t1`` and 4-column run files.  All ids are strings.
-Collections, triples and distillation scores come with the training slice.
+The port's copy of the streaming collection reader and the query-path
+classes of ``improving_learned_index_tpu/data/datasets.py``,
+format-compatible with the reference's data layer (src/utils/datasets.py):
+TSV or BEIR-JSONL collections and queries, qrels ``qid\\t0\\tpid\\t1`` and
+4-column run files.  All ids are strings.  In-memory collections, triples
+and distillation scores come with the training slice.
 """
 
 from __future__ import annotations
@@ -14,6 +15,29 @@ from pathlib import Path
 from typing import Dict, Iterator, Sequence, Set, Tuple, Union
 
 PathLike = Union[str, Path]
+
+
+class CollectionParser:
+    @staticmethod
+    def parse(line: str, collection_type: str = "msmarco") -> Tuple[str, str]:
+        if collection_type == "msmarco":
+            pid, passage = line.rstrip("\n").split("\t", 1)
+            return str(pid), passage
+        if collection_type == "beir":
+            item = json.loads(line)
+            return str(item["_id"]), (item.get("title", "") + " " + item["text"]).strip()
+        raise ValueError(f"unknown collection type {collection_type}")
+
+
+def stream_collection(
+    collection_path: PathLike, dataset_type: str = "msmarco"
+) -> Iterator[Tuple[str, str]]:
+    """Stream (pid, passage) without materializing the corpus -- the encode
+    pipeline's input path (reference index.py:33-44)."""
+    with open(collection_path, encoding="utf-8") as f:
+        for line in f:
+            if line.strip():
+                yield CollectionParser.parse(line, dataset_type)
 
 
 class QueryParser:

@@ -1,10 +1,11 @@
 """Inverted index: CSR postings + reference-compatible binary serialization.
 
 The port's copy of ``improving_learned_index_tpu/index/inverted.py`` for the
-query path: the constructor, ``save``/``load`` and the duplicate-posting
-merge.  Building an index (``build``, ``from_forward_index``,
-``from_impact_store``, ``merge``, ``filter_docs``, ``split_docs``) comes with
-the index-build slice.
+query and encode paths: the constructor, ``save``/``load``, the
+duplicate-posting merge, and the build from (doc, {term: impact}) pairs or a
+quantized forward-index file (``build``, ``from_forward_index``).  The
+binary impact-store route (``from_impact_store``) and the index algebra
+(``merge``, ``filter_docs``, ``split_docs``) are not ported yet.
 
 In memory the index is three flat numpy arrays (CSR layout) — what the
 query engine uploads to the card once:
@@ -23,7 +24,7 @@ little-endian uint32 doc_id + uint8 impact records), ``inverted_index.idx``
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -33,11 +34,58 @@ from ..core.config import (
     INVERTED_INDEX_INDEX,
     INVERTED_INDEX_VOCAB,
 )
+from ..utils.sorting import radix_argsort
 
 PathLike = Union[str, Path]
 
 _RECORD_DTYPE = np.dtype([("doc_id", "<u4"), ("impact", "u1")])
 _LOC_DTYPE = np.dtype("<u8")
+
+_SCATTER_CHUNK = 1 << 25  # 32M postings per counting-scatter block
+
+
+def _stable_scatter_pass(nbuckets, counts, chunk_pairs, outs) -> None:
+    """One stable counting-scatter pass: distribute postings into
+    ``nbuckets`` key buckets, preserving input order within a bucket.
+
+    ``counts`` is the precomputed global key histogram (int64[nbuckets]);
+    ``chunk_pairs`` yields ``(keys, (payload arrays...))`` chunks in input
+    order; ``outs`` are preallocated outputs of the payload tuple's arity.
+    Equivalent to ``out[:] = data[np.argsort(key, kind="stable")]`` with
+    temporaries bounded by the chunk size (a whole-index stable argsort keeps
+    ~24 B/posting of int64 permutations live).
+    """
+    fill = np.zeros(nbuckets, dtype=np.int64)  # next free slot per bucket
+    np.cumsum(counts[:-1], out=fill[1:])
+    for k, data in chunk_pairs:
+        k = np.asarray(k)
+        m = len(k)
+        if m == 0:
+            continue
+        idx = np.argsort(k, kind="stable") if k.dtype.itemsize <= 2 else radix_argsort(k)
+        ks = k[idx]
+        # within-bucket rank inside this chunk: index minus run start
+        starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+        runs = np.diff(np.r_[starts, m])
+        pos = fill[ks] + (np.arange(m, dtype=np.int64) - np.repeat(starts, runs))
+        for out, arr in zip(outs, data):
+            out[pos] = np.asarray(arr)[idx]
+        fill[ks[starts]] += runs
+
+
+def _slice_pairs(n, key_arr, data_arrs, chunk=_SCATTER_CHUNK):
+    """(keys, payload-tuple) slice chunks over materialized arrays."""
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        yield key_arr[s:e], tuple(a[s:e] for a in data_arrs)
+
+
+def _combined_key(tid_sorted, cv):
+    """tid * 256 + (255 - impact): term ascending, impact descending."""
+    k = tid_sorted.astype(np.int32, copy=True)
+    k <<= 8
+    k += 255 - cv
+    return k
 
 
 class InvertedIndexData:
@@ -139,6 +187,189 @@ class InvertedIndexData:
         offsets = np.zeros(nvocab + 1, np.int64)
         np.cumsum(new_counts, out=offsets[1:])
         self.offsets = offsets
+
+    # -- construction ---------------------------------------------------------
+    @classmethod
+    def build(
+        cls,
+        doc_term_impacts: Iterable[Tuple[int, Dict[str, float]]],
+        num_docs: int = 0,
+    ) -> "InvertedIndexData":
+        """Build from (doc_id, {term: quantized_impact}) pairs.
+
+        Postings within a term sort by impact descending with stable doc
+        order for ties (reference create.py:41 sorted(..., reverse=True)).
+        Zero impacts never enter the scored CSR (they terminate reads in the
+        reference's term_docs loop, inverted_index.py:49-51) but are retained
+        in the zero side-CSR because the reference creator writes them to
+        .dat (create.py:44-46): byte parity requires them on save().
+        Postings accumulate into typed 4M-posting chunks (9 B/posting), and
+        the order comes from chunked stable counting-scatter passes.
+        """
+        chunk = 1 << 22
+        vocab_map: Dict[str, int] = {}
+        terms: List[str] = []
+        chunks: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        c_tid = np.empty(chunk, np.int32)
+        c_doc = np.empty(chunk, np.uint32)
+        c_val = np.empty(chunk, np.uint8)
+        fill = 0
+        max_doc = -1
+        # a doc id fed twice can create duplicate (term, doc) postings; track
+        # cheaply (1 bit/doc) and dedupe-sum in _finalize only when flagged
+        seen = np.zeros(1 << 16, bool)
+        maybe_dup = False
+        for doc_id, impacts in doc_term_impacts:
+            max_doc = max(max_doc, doc_id)
+            if doc_id >= len(seen):
+                grown = np.zeros(max(len(seen) * 2, doc_id + 1), bool)
+                grown[: len(seen)] = seen
+                seen = grown
+            if seen[doc_id]:
+                maybe_dup = True
+            seen[doc_id] = True
+            for term, val in impacts.items():
+                v = min(max(0, int(val)), 255)
+                tid = vocab_map.get(term)
+                if tid is None:
+                    tid = len(vocab_map)
+                    vocab_map[term] = tid
+                    terms.append(term)
+                if fill == chunk:
+                    chunks.append((c_tid, c_doc, c_val))
+                    c_tid = np.empty(chunk, np.int32)
+                    c_doc = np.empty(chunk, np.uint32)
+                    c_val = np.empty(chunk, np.uint8)
+                    fill = 0
+                c_tid[fill] = tid
+                c_doc[fill] = doc_id
+                c_val[fill] = v
+                fill += 1
+        chunks.append((c_tid[:fill], c_doc[:fill], c_val[:fill]))
+        return cls._finalize(terms, chunks, num_docs, max_doc, check_dups=maybe_dup)
+
+    @classmethod
+    def _finalize(
+        cls,
+        terms: List[str],
+        chunks: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        num_docs: int,
+        max_doc: int,
+        check_dups: bool = False,
+    ) -> "InvertedIndexData":
+        """CSR construction from typed posting chunks (tid int32 in
+        insertion order, doc uint32, impact uint8); the list's entries are
+        freed as they are consumed.
+
+        The (term asc, impact desc, doc asc) order comes from stable
+        counting-scatter passes: ONE pass on the combined key
+        tid*256 + (255-impact) when the bucket table fits (vocab <= 131072),
+        else impact-descending then term-ascending; doc order rides on
+        stability."""
+        # Re-map term ids to sorted-vocab order (reference vocab.txt is sorted).
+        order = np.argsort(terms, kind="stable")
+        sorted_vocab = [terms[i] for i in order]
+        nvocab = len(sorted_vocab)
+        tid_dtype = (np.uint16 if nvocab <= (1 << 16)
+                     else np.int32 if nvocab < (1 << 31) else np.int64)
+        remap = np.empty(max(len(terms), 1), dtype=tid_dtype)
+        remap[order] = np.arange(len(terms), dtype=tid_dtype)
+
+        n = sum(len(c[0]) for c in chunks)
+        combined = 0 < nvocab <= (1 << 17)
+        nz_counts = np.zeros(nvocab, np.int64)
+        z_counts = np.zeros(nvocab, np.int64)
+        key_counts = np.zeros(nvocab * 256, np.int64) if combined else None
+        imp_counts = np.zeros(256, np.int64)
+        has_zeros = False
+
+        tid_in = np.empty(n, tid_dtype)
+        doc_in = np.empty(n, np.uint32)
+        val_in = np.empty(n, np.uint8)
+        at = 0
+        while chunks:
+            ct, cd, cv = chunks.pop(0)
+            m = len(ct)
+            tid_sorted = remap[np.asarray(ct)]
+            cv = np.asarray(cv, dtype=np.uint8)
+            tid_in[at : at + m] = tid_sorted
+            doc_in[at : at + m] = cd
+            val_in[at : at + m] = cv
+            if (cv == 0).any():
+                has_zeros = True
+                nz_counts += np.bincount(tid_sorted[cv > 0], minlength=nvocab)
+                z_counts += np.bincount(tid_sorted[cv == 0], minlength=nvocab)
+            else:
+                nz_counts += np.bincount(tid_sorted, minlength=nvocab)
+            if combined:
+                key_counts += np.bincount(_combined_key(tid_sorted, cv), minlength=nvocab * 256)
+            else:
+                imp_counts += np.bincount(cv, minlength=256)
+            at += m
+
+        def src():
+            for s in range(0, n, _SCATTER_CHUNK):
+                e = min(s + _SCATTER_CHUNK, n)
+                yield tid_in[s:e], doc_in[s:e], val_in[s:e]
+
+        doc_arr = np.empty(n, np.uint32)
+        val_arr = np.empty(n, np.uint8)
+        if n and combined:
+            _stable_scatter_pass(
+                nvocab * 256, key_counts,
+                ((_combined_key(t, v), (d, v)) for t, d, v in src()),
+                (doc_arr, val_arr),
+            )
+        elif n:
+            # wide vocab: impact pass into intermediates, then term pass
+            tid1 = np.empty(n, tid_dtype)
+            doc1 = np.empty(n, np.uint32)
+            val1 = np.empty(n, np.uint8)
+            _stable_scatter_pass(
+                256, imp_counts[::-1].copy(),
+                ((255 - v, (t, d, v)) for t, d, v in src()),
+                (tid1, doc1, val1),
+            )
+            del tid_in, doc_in, val_in
+            _stable_scatter_pass(
+                nvocab, nz_counts + z_counts,
+                _slice_pairs(n, tid1, (doc1, val1)),
+                (doc_arr, val_arr),
+            )
+            del tid1, doc1, val1
+
+        def _offsets(counts):
+            out = np.zeros(nvocab + 1, dtype=np.int64)
+            np.cumsum(counts, out=out[1:])
+            return out
+
+        if not has_zeros:
+            inst = cls(
+                sorted_vocab, _offsets(nz_counts), doc_arr, val_arr,
+                num_docs=max(num_docs, max_doc + 1),
+            )
+        else:
+            # zeros have the largest within-term key (255 - 0), so each
+            # term's zero records form the segment tail
+            nonzero = val_arr > 0
+            inst = cls(
+                sorted_vocab,
+                _offsets(nz_counts),
+                doc_arr[nonzero],
+                val_arr[nonzero],
+                num_docs=max(num_docs, max_doc + 1),
+                zero_offsets=_offsets(z_counts),
+                zero_doc_ids=doc_arr[~nonzero],
+            )
+        if check_dups:
+            inst._dedupe_sum_duplicates()
+        return inst
+
+    @classmethod
+    def from_forward_index(cls, index_path: PathLike, num_docs: int = 0) -> "InvertedIndexData":
+        from .forward_index import iter_forward_index
+
+        return cls.build(iter_forward_index(index_path), num_docs=num_docs)
 
     # -- serialization (reference binary layout) -------------------------------
     def save(self, output_path: PathLike) -> None:

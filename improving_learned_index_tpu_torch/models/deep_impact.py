@@ -1,0 +1,224 @@
+"""DeepImpact model wrapper: tokenizer + encoder + on-device term scoring.
+
+Counterpart of ``improving_learned_index_tpu/models/deep_impact.py``, with
+the reference's model API surface (src/deep_impact/models/original.py:96-333,
+xlmr_original.py:87-267): ``process_query`` / ``process_document`` /
+``process_query_and_document`` / ``compute_term_impacts`` /
+``get_impact_scores`` / ``get_impact_scores_batch``.
+
+- The model lives on the card unless the caller passes ``device="cpu"``;
+  without a CUDA device the constructor raises.
+- The term-score gather happens on the device: the [B, L] token scores are
+  indexed at the term slots (one flat gather when packed) and only [B, T]
+  or [P] values cross to the host (the reference pulls the full output to
+  the CPU first, original.py:282).
+- ``materialize=False`` returns a ``HostCopy``: a non-blocking copy into
+  pinned host memory with a CUDA event, so the indexer can dispatch the next
+  batch before this one's scores are read.  ``np.asarray`` on it waits.
+- Eager PyTorch compiles nothing, so batches are not padded to bucket
+  sizes as the JAX wrapper pads them for XLA.
+- ``use_kernels=False`` on the card runs the plain attention, for
+  cross-checks only.
+
+Random init (no checkpoint) uses ``torch.Generator(seed)`` with flax's
+initializer shapes and scales; it does not reproduce flax's numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.config import EncoderConfig
+from ..core.device import resolve_device
+from ..text.processor import DocumentEncoding, batch_arrays, batch_term_slots
+from .encoder import DeepImpactModel, init_weights
+
+
+class HostCopy:
+    """Device values on their way to pinned host memory; ``np.asarray``
+    waits for the copy and returns the host array."""
+
+    def __init__(self, values: torch.Tensor):
+        if values.device.type == "cuda":
+            self._host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+            self._host.copy_(values, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = values.clone(), None
+
+    def __array__(self, dtype=None, copy=None):
+        if self._event is not None:
+            self._event.synchronize()
+        out = self._host.numpy()
+        return out if dtype is None else out.astype(dtype)
+
+
+class DeepImpact:
+    """Term-impact encoder with a pluggable tokenizer (BERT/RoBERTa/XLM-R trunk)."""
+
+    def __init__(
+        self,
+        config: EncoderConfig,
+        tokenizer,
+        state_dict: Optional[Dict[str, torch.Tensor]] = None,
+        seed: int = 0,
+        device: Optional[Union[str, torch.device]] = None,
+        use_kernels: Optional[bool] = None,
+    ):
+        self.device = resolve_device(device)
+        if use_kernels and self.device.type != "cuda":
+            raise ValueError("use_kernels=True needs a CUDA device")
+        self.use_kernels = self.device.type == "cuda" if use_kernels is None else bool(use_kernels)
+        self.config = config
+        self.tokenizer = tokenizer
+        self.module = DeepImpactModel(config)
+        if state_dict is None:
+            g = torch.Generator()
+            g.manual_seed(seed)
+            init_weights(self.module, g)
+        else:
+            self.module.load_state_dict(state_dict)
+        self.module.to(self.device).eval()
+        self.max_length = getattr(tokenizer, "max_length", config.max_position_embeddings)
+
+    # -- text API (delegates to the pluggable tokenizer) ---------------------
+    def process_query(self, query: str) -> Set[str]:
+        return self.tokenizer.process_query(query)
+
+    def process_document(self, document: str, max_length: Optional[int] = None) -> DocumentEncoding:
+        return self.tokenizer.process_document(document, max_length=max_length)
+
+    def process_query_and_document(self, query: str, document: str, max_length: Optional[int] = None):
+        return self.tokenizer.process_query_and_document(query, document, max_length=max_length)
+
+    # -- forward --------------------------------------------------------------
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    @torch.inference_mode()
+    def __call__(self, input_ids, attention_mask, type_ids=None) -> np.ndarray:
+        """Raw [B, L, 1] impact scores (host numpy) for int arrays."""
+        if type_ids is None:
+            type_ids = np.zeros_like(np.asarray(input_ids))
+        out = self.module(
+            self._upload(np.asarray(input_ids, np.int32)),
+            self._upload(np.asarray(attention_mask, np.int32)),
+            self._upload(np.asarray(type_ids, np.int32)),
+            use_kernels=self.use_kernels,
+        )
+        return out.float().cpu().numpy()
+
+    @torch.inference_mode()
+    def encode_term_scores(
+        self,
+        encodings: Sequence[DocumentEncoding],
+        max_terms: Optional[int] = None,
+        materialize: bool = True,
+    ):
+        """Encode documents, returning ([B, T] term scores, per-doc term lists).
+
+        ``materialize=False`` returns the scores as a ``HostCopy`` in flight
+        (no host sync) so callers can pipeline batches."""
+        if not encodings:
+            return np.zeros((0, 0), dtype=np.float32), []
+        if max_terms is None:
+            max_terms = self.max_length
+        arrays = batch_arrays(encodings)
+        slots, _, terms = batch_term_slots(encodings, max_terms)
+        out = self.module(
+            self._upload(arrays["input_ids"]),
+            self._upload(arrays["attention_mask"]),
+            self._upload(arrays["type_ids"]),
+            use_kernels=self.use_kernels,
+        )  # [B, L, 1]
+        scores = torch.take_along_dim(out[..., 0], self._upload(slots).long(), dim=1)
+        copy = HostCopy(scores)
+        return (np.asarray(copy) if materialize else copy), terms
+
+    @torch.inference_mode()
+    def encode_packed(self, batch, materialize: bool = True):
+        """Encode one ``text.packing.PackedBatch``; returns the flat [P]
+        term-score array (a ``HostCopy`` in flight when
+        ``materialize=False``).  Split per document with
+        ``batch.term_offsets``."""
+        seg = self._upload(batch.segment_ids)
+        out = self.module(
+            self._upload(batch.input_ids),
+            (seg > 0).to(torch.int32),
+            self._upload(batch.type_ids),
+            segment_ids=seg,
+            use_kernels=self.use_kernels,
+        )  # [R, S, 1]
+        scores = out[..., 0].reshape(-1)[self._upload(batch.flat_slots).long()]
+        copy = HostCopy(scores)
+        return np.asarray(copy) if materialize else copy
+
+    def get_impact_scores_batch_packed(
+        self, documents: Sequence[str], rows: Optional[int] = None
+    ) -> List[List[Tuple[str, float]]]:
+        """``get_impact_scores_batch`` through the sequence-packed encode
+        path: same output, fewer FLOPs on short-document corpora."""
+        from ..text.packing import pack_documents
+
+        if not documents:
+            return []
+        encodings = [self.process_document(d) for d in documents]
+        if rows is None:
+            # enough rows for the whole batch at ~85% fill
+            total = sum(sum(e.attention_mask) for e in encodings)
+            rows = min(-(-int(total * 1.18) // self.max_length) or 1, len(encodings))
+        out: List[List[Tuple[str, float]]] = []
+        for batch in pack_documents(encodings, self.max_length, rows):
+            scores = self.encode_packed(batch)
+            offs = batch.term_offsets
+            for i, terms in enumerate(batch.terms):
+                row = scores[offs[i] : offs[i + 1]]
+                out.append([(t, float(row[j])) for j, t in enumerate(terms)])
+        return out
+
+    # -- reference-parity impact API -------------------------------------------
+    @staticmethod
+    def compute_term_impacts(
+        documents_term_to_token_index_map: Sequence[Dict[str, int]],
+        outputs,
+    ) -> List[List[Tuple[str, float]]]:
+        """Gather per-term impacts from raw [B, L, 1] outputs
+        (reference original.py:271-291)."""
+        if isinstance(outputs, torch.Tensor):
+            outputs = outputs.detach().float().cpu().numpy()
+        impact_scores = np.asarray(outputs)[..., 0]
+        return [
+            [(term, float(impact_scores[i][idx])) for term, idx in term_map.items()]
+            for i, term_map in enumerate(documents_term_to_token_index_map)
+        ]
+
+    def get_impact_scores(self, document: str) -> List[Tuple[str, float]]:
+        return self.get_impact_scores_batch([document])[0]
+
+    def get_impact_scores_batch(self, documents: Sequence[str]) -> List[List[Tuple[str, float]]]:
+        encodings = [self.process_document(d) for d in documents]
+        scores, terms = self.encode_term_scores(encodings)
+        return [
+            [(t, float(scores[i, j])) for j, t in enumerate(doc_terms)]
+            for i, doc_terms in enumerate(terms)
+        ]
+
+    # -- persistence ------------------------------------------------------------
+    def save(self, path) -> None:
+        raise NotImplementedError(
+            "msgpack checkpoints (core/checkpoint.py) are not ported yet; "
+            "torch.save(model.module.state_dict(), path) keeps the weights"
+        )
+
+    @classmethod
+    def load(cls, config: EncoderConfig, tokenizer, checkpoint_path=None, **kwargs) -> "DeepImpact":
+        if checkpoint_path is not None:
+            raise NotImplementedError("msgpack checkpoints (core/checkpoint.py) are not ported yet")
+        return cls(config, tokenizer, **kwargs)

@@ -1,12 +1,26 @@
 from .normalize import PUNCTUATION, normalize, pretokenize
-from .processor import ImpactTokenizer, default_segmenter
-from .wordpiece import WordPieceVocab
+from .packing import PackedBatch, SequencePacker, pack_documents
+from .processor import (
+    DocumentEncoding,
+    ImpactTokenizer,
+    batch_arrays,
+    batch_term_slots,
+    default_segmenter,
+)
+from .wordpiece import WordPieceTokenizer, WordPieceVocab
 
 __all__ = [
     "PUNCTUATION",
     "normalize",
     "pretokenize",
+    "PackedBatch",
+    "SequencePacker",
+    "pack_documents",
+    "DocumentEncoding",
     "ImpactTokenizer",
+    "batch_arrays",
+    "batch_term_slots",
     "default_segmenter",
+    "WordPieceTokenizer",
     "WordPieceVocab",
 ]

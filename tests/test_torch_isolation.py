@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX, flax nor the JAX package,
-and its entry points refuse to run on the CPU unless asked to."""
+and its entry points refuse to run on the CPU unless asked to.  Covers the
+query path and the encode path (text, encoder, indexer, CLIs)."""
 
 import ast
 import os
@@ -30,7 +31,11 @@ def _imports(path):
 
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 20
+    names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    for module in ("ops/short_attention.py", "models/encoder.py", "models/hf_import.py",
+                   "models/deep_impact.py", "index/indexer.py", "cli/index.py"):
+        assert module in names
+    assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert not bad
 
@@ -79,3 +84,56 @@ def test_entry_points_without_cuda_raise(tmp_path):
         rank_main(["--index_path", str(tmp_path / "idx"), "--queries_path", str(tmp_path / "q.tsv"),
                    "--output_path", str(tmp_path / "run"), "--vocab_path", str(tmp_path / "vocab.txt")])
     assert not (tmp_path / "run").exists()
+
+
+def test_cpu_encode_leaves_jax_unimported(tmp_path):
+    code = """
+import sys
+from improving_learned_index_tpu_torch.core.config import EncoderConfig, IndexConfig
+from improving_learned_index_tpu_torch.index.indexer import Indexer
+from improving_learned_index_tpu_torch.models import DeepImpact
+from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+docs = ["the quick brown fox", "a lazy dog sleeps", "fox and dog"] * 3
+vocab = WordPieceVocab.build(docs, max_size=64)
+model = DeepImpact(EncoderConfig.tiny(vocab_size=len(vocab)), ImpactTokenizer(vocab, max_length=128),
+                   device="cpu")
+cfg = IndexConfig(max_length=128, max_terms=16, model_batch_size=4)
+rows = list(Indexer(model, cfg).encode_documents(docs))
+assert len(rows) == len(docs) and rows[0][0][0] == "the", rows[0]
+index, _ = Indexer(model, IndexConfig(max_length=128, max_terms=16, model_batch_size=4,
+                                      pack_sequences=True)).build_inverted(docs)
+assert index.num_docs == len(docs)
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "improving_learned_index_tpu")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_encode_entry_points_without_cuda_raise(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from improving_learned_index_tpu_torch.cli.index import main as index_main
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.index.indexer import Indexer
+    from improving_learned_index_tpu_torch.models import DeepImpact
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    vocab = WordPieceVocab.build(["a b c"], max_size=32)
+    tok = ImpactTokenizer(vocab, max_length=128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeepImpact(EncoderConfig.tiny(vocab_size=len(vocab)), tok)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Indexer(DeepImpact(EncoderConfig.tiny(vocab_size=len(vocab)), tok))
+    vocab.save(tmp_path / "vocab.txt")
+    (tmp_path / "c.tsv").write_text("0\ta b c\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        index_main(["--collection_path", str(tmp_path / "c.tsv"), "--output_file_path",
+                    str(tmp_path / "fwd.txt"), "--vocab_path", str(tmp_path / "vocab.txt"), "--tiny"])
+    assert not (tmp_path / "fwd.txt").exists()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        DeepImpact(EncoderConfig.tiny(vocab_size=len(vocab)), tok, device="cpu", use_kernels=True)

@@ -6,7 +6,10 @@ there without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Integer impacts keep every fp32 sum exact, so each comparison is equality.
+Integer impacts keep every fp32 sum exact, so the query kernels' comparisons
+are equality.  ``short_attention`` is held to its plain version within two
+bf16 ulps of the largest output: both round the same fp32 context to bf16
+once, and only the fp32 summation order differs.
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
 from improving_learned_index_tpu_torch.ops import gather_rows as gr
 from improving_learned_index_tpu_torch.ops import scatter_scores as ss
+from improving_learned_index_tpu_torch.ops import short_attention as sa
 from improving_learned_index_tpu_torch.search.hybrid_engine import HybridSearchEngine
 
 TILE = 1 << 16
@@ -93,3 +97,73 @@ def test_engine_kernels_equal_plain_and_cpu(cuda):
     assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0
     assert got == HybridSearchEngine(idx, device="cuda", use_kernels=False).score_batch(batch, 50)
     assert got == HybridSearchEngine(idx, device="cpu").score_batch(batch, 50)
+
+
+def _segments(rng, b, s, packed):
+    """Key-padding masks (a full row, a padded tail) or packed segment ids
+    (runs of 1..n with a padded tail, one row of a single segment)."""
+    seg = np.zeros((b, s), np.int32)
+    for i in range(b):
+        n = s if i == 0 else int(rng.integers(s // 4, s))
+        if not packed:
+            seg[i, :n] = 1
+            continue
+        cuts = np.sort(rng.choice(np.arange(1, n), size=min(i, n - 1), replace=False))
+        for j, (lo, hi) in enumerate(zip(np.r_[0, cuts], np.r_[cuts, n])):
+            seg[i, lo:hi] = j + 1
+    return seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 4, 128, 16), torch.bfloat16),
+    ((2, 12, 256, 64), torch.bfloat16),
+    ((2, 3, 256, 128), torch.float32),
+    ((4, 2, 128, 32), torch.float32),
+])
+def test_short_attention_kernel_equals_plain(cuda, shape, dtype, packed):
+    """Inputs as the encoder gives them: [B, S, H, D] projections seen as
+    [B, H, S, D] strided views."""
+    b, h, s, d = shape
+    rng = np.random.default_rng(s + d + int(packed))
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32) * 1.5)
+        .to("cuda", dtype).permute(0, 2, 1, 3)
+        for _ in range(3)
+    )
+    seg = torch.from_numpy(_segments(rng, b, s, packed)).cuda()
+    before = sa.KERNEL.launches
+    got = sa.short_attention(q, k, v, seg, d ** -0.5, packed)
+    want = sa.short_attention_plain(q, k, v, seg, d ** -0.5, packed)
+    torch.cuda.synchronize()
+    assert sa.KERNEL.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    err = float((got.float() - want.float()).abs().max())
+    peak = float(want.float().abs().max())
+    assert err <= 2 * 2.0 ** (np.floor(np.log2(peak)) - 7), (err, peak)
+
+
+@pytest.mark.cuda
+def test_short_attention_backward_through_plain(cuda):
+    b, h, s, d = 2, 2, 128, 16
+    rng = np.random.default_rng(9)
+    leaves = [torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)).cuda().requires_grad_()
+              for _ in range(3)]
+    seg = torch.from_numpy(_segments(rng, b, s, False)).cuda()
+    g = torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)).cuda()
+    sa.short_attention(*leaves, seg, 0.25).backward(g)
+    got = [t.grad.clone() for t in leaves]
+    for t in leaves:
+        t.grad = None
+    sa.short_attention_plain(*leaves, seg, 0.25).backward(g)
+    for x, y in zip(got, (t.grad for t in leaves)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_short_attention_kernel_refuses_other_shapes(cuda):
+    q = torch.zeros(1, 1, 128, 24, device="cuda", dtype=torch.bfloat16)
+    seg = torch.ones(1, 128, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="kernel takes"):
+        sa.short_attention(q, q, q, seg, 0.2)
