@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: the query path at MS MARCO passage
-scale and the encode path at BERT-base width.
+scale, every query engine on the same index, and the encode path at
+BERT-base width.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -8,24 +9,37 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.
-2. Build: the three CUDA kernels (``gather_rows``, ``scatter_scores``,
-   ``short_attention``) from ``csrc/``, one ``nvcc`` per source, started
-   together.
+2. Build: the five CUDA kernels (``gather_rows``, ``scatter_scores``,
+   ``short_attention``, ``count_ge``, ``blocked_scoring``) from ``csrc/``,
+   one ``nvcc`` per source, started together, and the native C++ engine
+   (``g++``).
 3. Query set-up, then the query kernels against their plain versions: a
    synthetic index at MS MARCO passage geometry is generated on the card
    from a seed (8.8M docs, 30k-term Zipf vocabulary, ~388M postings,
    impacts 1..255), saved with the port's ``save``, and loaded into an
    engine through ``build_engine``.  Each kernel runs on the inputs the
    first 64-query batch gives it and must equal its plain PyTorch version
-   exactly; kernel, plain and library-call times (CUDA events) are printed
-   beside the least time the card could take.
+   exactly: ``gather_rows`` and ``scatter_scores`` on the batch's stages,
+   ``count_ge`` on the batch's score matrix with its first-pass thresholds,
+   and the blocked kernel on the batch's tables in a ``PallasBlockedEngine``
+   over the same index.  Kernel, plain and library-call times (CUDA events)
+   are printed beside the least time the card could take.
 4. Query main path: ``cli.rank.main`` ranks every query (k=1000) on the
    card, with the kernels' launch counts set to 0 just before and read just
-   after.  Every query has one planted relevant doc holding all its terms
-   at impact 255, so MRR@10 must be ~1; four sampled queries must match an
-   independent numpy scorer rank by rank; ``score_stream`` (depth 2) over
-   64-query batches must reproduce the run file and gives the pipelined q/s.
-5. Encode set-up, then ``short_attention`` against its plain version: a
+   after (``gather_rows``, ``scatter_scores`` and ``count_ge`` must have
+   launched).  Every query has one planted relevant doc holding all its
+   terms at impact 255, so MRR@10 must be ~1; four sampled queries must
+   match an independent numpy scorer rank by rank; ``score_stream``
+   (depth 2) over 64-query batches must reproduce the run file and gives
+   the pipelined q/s and a profile.
+5. The other engines on the same index: ``cli.rank --engine host`` (four
+   processes of 16 queries each), ``--engine native`` (one process), both
+   alongside the card work, and ``--engine device`` over the first 64
+   queries must write the hybrid run file's rows for them byte for byte; ``PallasBlockedEngine.score_batch``
+   over two 64-query batches must return the hybrid rows rank by rank, with
+   its counts set to 0 just before (the blocked kernel and ``count_ge`` must
+   have launched), and gives its q/s.
+6. Encode set-up, then ``short_attention`` against its plain version: a
    seeded synthetic corpus of 32,768 passages (Zipf words from a generated
    word list, ~60 words a passage, some past 256 tokens) and its
    ``vocab.txt`` from ``cli.build_vocab``.  The kernel runs at B=512, H=12,
@@ -33,7 +47,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    first real batch and once with the packed segment ids of the corpus's
    first ``SequencePacker`` batch, and must agree within two bf16 ulps of
    the largest output.
-6. Encode main path: ``cli.index`` (BERT-base, seeded random init,
+7. Encode main path: ``cli.index`` (BERT-base, seeded random init,
    ``--max_length 256 --model_batch_size 512``) -> ``cli.quantize`` ->
    ``cli.invert`` -> ``cli.rank``, with the launch counts set to 0 just
    before ``cli.index`` and read just after: ``short_attention`` must have
@@ -41,11 +55,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    equals ``use_kernels=False`` (term lists identical, impacts within a
    stated tolerance) and the CLI's forward index; the inverted index equals
    a numpy inversion of the quantized file; four ranked queries equal the
-   numpy scorer rank by rank; ``cli.index --pack`` gives the same term
-   lists with impacts within that tolerance.  Steady-state encode docs/s
+   numpy scorer rank by rank, and ``DenseSearchEngine`` over the same index
+   returns the same rows; ``cli.index --pack`` gives the same term lists
+   with impacts within that tolerance.  Steady-state encode docs/s
    (unpacked and packed) and a profiler window over 4 encode batches.
 
-The second-to-last line is the ``kernels`` JSON object (three rows), the
+The second-to-last line is the ``kernels`` JSON object (five rows), the
 last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,7 +83,8 @@ REPO = Path(__file__).resolve().parent
 # 8 batches of 64 queries of 8 Zipf terms, the CLI's default 4 GB dense budget.
 SMOKE = SimpleNamespace(
     docs=8_800_000, terms=30_000, postings=387_717_182, batches=8, nq=64,
-    query_terms=8, dense_budget_gb=4.0, seed=0, workdir=REPO / "build" / "chip_smoke",
+    query_terms=8, dense_budget_gb=4.0, seed=0, device="cuda",
+    workdir=REPO / "build" / "chip_smoke",
 )
 # The encode configuration: BERT-base (EncoderConfig.bert_base) at the JAX
 # package's encode geometry (bench.py: B=512, S=256) over a synthetic corpus
@@ -259,7 +275,8 @@ def gather_row(engine, heavy, nq):
 
 def scatter_row(base, tail):
     """Scatter kernel against its plain version on one batch's tail updates,
-    applied to that batch's heavy-stage scores."""
+    applied to that batch's heavy-stage scores; returns the row and the
+    batch's score matrix."""
     from improving_learned_index_tpu_torch.ops import scatter_scores as ss
 
     d, v, r = tail
@@ -269,7 +286,7 @@ def scatter_row(base, tail):
     err = float((s_k - s_p).abs().max())
     if not torch.equal(s_k, s_p):
         raise AssertionError(f"scatter_scores kernel != plain (max abs err {err})")
-    del s_k, s_p
+    del s_k
     nq, n_pad = base.shape
     live = v != 0
     cells = int(torch.unique((r.long() * n_pad + d.long())[live]).numel())
@@ -290,6 +307,104 @@ def scatter_row(base, tail):
         "library_ms": cuda_ms(lambda: scratch.index_put_((r64, d64), v, accumulate=True)),
         "shape": {"scores": [nq, n_pad], "updates": d.numel(), "live_updates": n_live,
                   "touched_cells": cells},
+    }
+    return row, s_p
+
+
+def count_row(scores):
+    """``count_ge`` against its plain version on one batch's score matrix
+    with the thresholds of the top-k's first search pass."""
+    from improving_learned_index_tpu_torch.ops.count_ge import count_ge, count_ge_plain
+    from improving_learned_index_tpu_torch.ops.exact_topk import _ARITY
+
+    q, n = scores.shape
+    lo = torch.ones(q, 1, device=scores.device)
+    hi = scores.amax(dim=1, keepdim=True).clamp_min(1.0)
+    frac = torch.arange(1, _ARITY, device=scores.device, dtype=torch.float32) / _ARITY
+    t = torch.minimum(lo + torch.ceil(frac[None, :] * (hi - lo + 1.0)), hi)
+    got, want = count_ge(scores, t), count_ge_plain(scores, t)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"count_ge kernel != plain (max abs err {err})")
+    b, by = bound_ms(q * n * 4 + t.numel() * 8, q * n * t.shape[1])
+    return {
+        "name": "count_ge",
+        "route": "cuda",
+        "source": "improving_learned_index_tpu_torch/csrc/count_ge.cu",
+        "replaces": "improving_learned_index_tpu/ops/count_ge.py:39",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: count_ge(scores, t)),
+        "plain_ms": cuda_ms(lambda: count_ge_plain(scores, t)),
+        "bound_ms": b,
+        "bound_by": by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call counts several thresholds a row in one read; "
+                        "the nearest, the plain version, is one compare-and-sum call per threshold",
+        "shape": {"scores": [q, n], "thresholds": list(t.shape)},
+    }
+
+
+def flat_postings(args):
+    """The postings the blocked kernel adds, as (linear score index int32,
+    impact fp32) pairs: the library call's input."""
+    from improving_learned_index_tpu_torch.ops.pallas_scoring import window_postings
+
+    cell_offsets, starts, meta, docs, vals, _, nb = args
+    m = meta[: int(cell_offsets[-1])]
+    total = int(((m & 0x3FFF) - ((m >> 14) & 0x3FFF)).sum())
+    lin = torch.empty(total, dtype=torch.int32, device=docs.device)
+    val = torch.empty(total, dtype=torch.float32, device=docs.device)
+    at = 0
+    for lin_s, val_s in window_postings(cell_offsets, starts, meta, docs, vals, nb):
+        lin[at : at + len(lin_s)], val[at : at + len(val_s)] = lin_s, val_s
+        at += len(lin_s)
+    if at != total:
+        raise AssertionError(f"{at} window postings, {total} in the tables' ranges")
+    return lin, val
+
+
+def blocked_row(blocked, batch):
+    """The blocked scoring kernel against its plain version on one batch's
+    tables; the library yardstick is ``index_add_`` of the same postings
+    (linear int32 indices: ``index_put_(accumulate=True)`` would sort ~1.2G
+    int64 keys, tens of GB of scratch)."""
+    from improving_learned_index_tpu_torch.ops import pallas_scoring as ps
+
+    padded = list(batch) + [set()] * (-len(batch) % ps.QG)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(blocked.device)  # noqa: E731
+    args = (*(put(a) for a in blocked._tables(padded)[:3]), blocked.docs, blocked.vals,
+            len(padded), blocked.num_blocks)
+    got = ps.blocked_scores(*args)
+    want = ps.blocked_scores_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"blocked_scoring kernel != plain (max abs err {err})")
+    del want
+    lin, val = flat_postings(args)
+    lib_out = torch.zeros_like(got).view(-1)
+    lib_out.index_add_(0, lin, val)
+    library_equal = torch.equal(lib_out.view_as(got), got)
+    del got
+    cell_offsets, starts, meta, _, _, nq, nb = args
+    b, by = bound_ms(val.numel() * 8 + (cell_offsets.numel() + 2 * starts.numel()) * 4
+                     + nq * nb * ps.BLK * 4, val.numel())
+    row = {
+        "name": "blocked_scoring",
+        "route": "cuda",
+        "source": "improving_learned_index_tpu_torch/csrc/blocked_scoring.cu",
+        "replaces": "improving_learned_index_tpu/ops/pallas_scoring.py:55",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: ps.blocked_scores(*args)),
+        "plain_ms": cuda_ms(lambda: ps.blocked_scores_plain(*args), iters=2, warmup=1),
+        "bound_ms": b,
+        "bound_by": by,
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, lin, val)),
+        "library_call": "index_add_ (int32 linear index)",
+        "shape": {"scores": [nq, nb * ps.BLK], "cells": cell_offsets.numel() - 1,
+                  "chunks": int(cell_offsets[-1]), "postings": val.numel(),
+                  "library_equal": library_equal},
     }
     return row
 
@@ -328,31 +443,41 @@ def profile_window(fn, top: int = 12) -> dict:
 
 
 def all_kernels():
-    from improving_learned_index_tpu_torch.ops import gather_rows, scatter_scores, short_attention
+    from improving_learned_index_tpu_torch.ops import (
+        gather_rows, pallas_scoring, scatter_scores, short_attention,
+    )
+    from improving_learned_index_tpu_torch.ops.count_ge import KERNEL as COUNT_GE
 
-    return [gather_rows.KERNEL, scatter_scores.KERNEL, short_attention.KERNEL]
+    return [gather_rows.KERNEL, scatter_scores.KERNEL, short_attention.KERNEL, COUNT_GE,
+            pallas_scoring.KERNEL]
 
 
 def build_kernels() -> None:
     from improving_learned_index_tpu_torch.ops import _kernels
+    from improving_learned_index_tpu_torch.search import native
 
-    log("== phase 2: build kernels")
+    log("== phase 2: build kernels and the native engine")
     kernels = all_kernels()
     t0 = time.perf_counter()
     _kernels.build(kernels)
     for k in kernels:
         k.lib()
-    log(f"built {[k.name for k in kernels]} in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    native.build_library()
+    log(f"built {[k.name for k in kernels]} in {t1 - t0:.1f} s, "
+        f"the native engine in {time.perf_counter() - t1:.1f} s")
 
 
 def run_query(cfg) -> dict:
     from improving_learned_index_tpu_torch.cli.rank import main as rank_main
     from improving_learned_index_tpu_torch.evaluation.run_metrics import Metrics
+    from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
+    from improving_learned_index_tpu_torch.ops.pallas_scoring import PallasBlockedEngine
     from improving_learned_index_tpu_torch.search.select import build_engine
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
 
     kernels = all_kernels()
-    dev = torch.device("cuda")
+    dev = torch.device(cfg.device)
 
     log("== phase 3: synthetic index on the card")
     n_queries = cfg.batches * cfg.nq
@@ -374,7 +499,8 @@ def run_query(cfg) -> dict:
         log(f"saved index + queries in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        engine = build_engine(index_dir, dense_budget_bytes=int(cfg.dense_budget_gb * (1 << 30)))
+        engine = build_engine(index_dir, dense_budget_bytes=int(cfg.dense_budget_gb * (1 << 30)),
+                              device=dev)
         torch.cuda.synchronize()
         log(f"engine: n_pad {engine.n_pad}, {engine.t_heavy} heavy rows "
             f"({engine.dense.dtype}), {engine.doc_ids.numel()} tail slots, "
@@ -391,9 +517,18 @@ def run_query(cfg) -> dict:
         if heavy is None or tail is None:
             raise AssertionError("the first batch must reach both stages")
         g_row, base = gather_row(engine, heavy, cfg.nq)
-        s_row = scatter_row(base, tail)
+        s_row, scores = scatter_row(base, tail)
         del base, heavy, tail
-        for row in (g_row, s_row):
+        c_row = count_row(scores)
+        del scores
+        t0 = time.perf_counter()
+        blocked = PallasBlockedEngine(InvertedIndexData.load(index_dir), device=dev)
+        torch.cuda.synchronize()
+        log(f"blocked engine: {blocked.num_blocks} blocks, postings sorted on the card, "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        b_row = blocked_row(blocked, batches[0])
+        torch.cuda.empty_cache()
+        for row in (g_row, s_row, c_row, b_row):
             log(f"{row['name']}: equal to plain; {json.dumps(row)}")
 
         log("== phase 4: query main path (cli.rank on the card)")
@@ -405,16 +540,16 @@ def run_query(cfg) -> dict:
             "--index_path", str(index_dir), "--queries_path", str(qpath),
             "--output_path", str(run_file), "--vocab_path", str(vocab),
             "--qrels_path", str(qrels), "--top_k", "1000",
-            "--dense_budget_gb", str(cfg.dense_budget_gb),
+            "--dense_budget_gb", str(cfg.dense_budget_gb), "--device", cfg.device,
         ])
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in kernels}
         log(f"cli.rank: {n_queries} queries in {time.perf_counter() - t0:.1f} s "
             f"(index load and engine build included); launches {launches}")
-        for name in ("gather_rows", "scatter_scores"):
-            if launches[name] == 0:
-                raise AssertionError(f"query main path never launched {name}")
-        g_row["launches"], s_row["launches"] = launches["gather_rows"], launches["scatter_scores"]
+        for row in (g_row, s_row, c_row):
+            if launches[row["name"]] == 0:
+                raise AssertionError(f"query main path never launched {row['name']}")
+            row["launches"] = launches[row["name"]]
 
         metrics = Metrics(run_file, qrels).evaluate()
         log(f"metrics: {json.dumps(metrics)}")
@@ -449,13 +584,103 @@ def run_query(cfg) -> dict:
             f"(k=1000, {cfg.nq}-query batches) on {torch.cuda.get_device_name(0)}")
         prof = profile_window(lambda: list(engine.score_stream(batches[:2], top_k=1000, depth=2)))
         log(json.dumps({"profile": dict(prof, batches=2)}))
+        engine.release()
+        del engine
+        torch.cuda.empty_cache()
+
+        others = run_other_engines(cfg, workdir, index_dir, vocab, qtext, batches, ranked, blocked, b_row)
         return {
-            "kernels": [g_row, s_row],
+            "kernels": [g_row, s_row, c_row, b_row],
             "mrr10": metrics["MRR@10"],
             "qps": qps,
+            "other_engines": others,
         }
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run_other_engines(cfg, workdir, index_dir, vocab, qtext, batches, ranked, blocked, b_row) -> dict:
+    """Phase 5: the host, native and device engines through ``cli.rank``
+    over the first ``cfg.nq`` queries, and the blocked engine over two
+    batches, against the hybrid engine's rows."""
+    from improving_learned_index_tpu_torch.cli.rank import main as rank_main
+
+    log("== phase 5: the other engines on the same index")
+    kernels = all_kernels()
+    want = "".join(line + "\n" for line in (workdir / "run.tsv").read_text().splitlines()
+                   if int(line.split("\t", 1)[0]) < cfg.nq)
+
+    def args(name, engine, q0, q1):
+        qpath = workdir / f"queries_{name}.tsv"
+        qpath.write_text("".join(f"{qi}\t{qtext[qi]}\n" for qi in range(q0, q1)), encoding="utf-8")
+        return ["--index_path", str(index_dir), "--queries_path", str(qpath), "--vocab_path", str(vocab),
+                "--top_k", "1000", "--engine", engine, "--output_path", str(workdir / f"run_{name}.tsv")]
+
+    # The host engines run in processes of their own, alongside the card
+    # work; the numpy engine (~2 s a query at this scale) over 4 processes
+    # of a quarter of the queries each.
+    quarter = -(-cfg.nq // 4)
+    runs = {f"host{i}": ("host", i * quarter, min(cfg.nq, (i + 1) * quarter)) for i in range(4)}
+    runs["native"] = ("native", 0, cfg.nq)
+    procs, out = {}, {}
+    try:
+        for name, (engine, q0, q1) in runs.items():
+            log_file = open(workdir / f"rank_{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "improving_learned_index_tpu_torch.cli.rank", *args(name, engine, q0, q1)],
+                cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT,
+            ), log_file, time.perf_counter())
+        t0 = time.perf_counter()
+        rank_main(args("device", "device", 0, cfg.nq) + ["--device", cfg.device])
+        torch.cuda.synchronize()
+        out["device_rank_s"] = time.perf_counter() - t0
+
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        rows = [r for bt in batches[:2] for r in blocked.score_batch(bt, 1000)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        for qi, res in enumerate(rows):
+            if [(str(d), float(sc)) for d, sc in res] != ranked.get(str(qi), []):
+                raise AssertionError(f"PallasBlockedEngine differs from the hybrid run at query {qi}")
+        for name in ("blocked_scoring", "count_ge"):
+            if launches[name] == 0:
+                raise AssertionError(f"PallasBlockedEngine never launched {name}")
+        b_row["launches"] = launches["blocked_scoring"]
+        out["blocked"] = {"queries": len(rows), "s": dt, "qps": len(rows) / dt, "launches": launches}
+        log(f"PallasBlockedEngine: {len(rows)} queries equal the hybrid rows rank by rank, "
+            f"{len(rows) / dt:.1f} q/s ({cfg.nq}-query batches, tables on the host included); "
+            f"launches {launches}")
+        blocked.release()
+
+        deadline = time.perf_counter() + 900
+        while any(f"{name}_rank_s" not in out for name in procs):  # each process's own end
+            if time.perf_counter() > deadline:
+                raise AssertionError("cli.rank --engine host / native did not finish in 900 s")
+            for name, (proc, _, t_start) in procs.items():
+                if f"{name}_rank_s" not in out and proc.poll() is not None:
+                    out[f"{name}_rank_s"] = time.perf_counter() - t_start
+                    if proc.returncode != 0:
+                        tail = (workdir / f"rank_{name}.log").read_text()[-2000:]
+                        raise AssertionError(f"cli.rank {name} exited {proc.returncode}:\n{tail}")
+            time.sleep(0.05)
+        got = {"device": (workdir / "run_device.tsv").read_text(),
+               "native": (workdir / "run_native.tsv").read_text(),
+               "host": "".join((workdir / f"run_host{i}.tsv").read_text() for i in range(4))}
+        for engine, text in got.items():
+            if text != want:
+                raise AssertionError(f"cli.rank --engine {engine} differs from the hybrid run file")
+        log(f"cli.rank --engine device / host / native: run files byte-equal to the hybrid "
+            f"rows of the first {cfg.nq} queries; {json.dumps(out)}")
+        return out
+    finally:
+        for proc, log_file, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
 
 
 # -- encode path -------------------------------------------------------------------
@@ -629,6 +854,7 @@ def run_encode(cfg) -> dict:
     from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
     from improving_learned_index_tpu_torch.ops import short_attention as sa
+    from improving_learned_index_tpu_torch.search.dense_engine import DenseSearchEngine
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, SequencePacker, WordPieceVocab
 
     kernels = all_kernels()
@@ -649,7 +875,7 @@ def run_encode(cfg) -> dict:
         return out
 
     try:
-        log("== phase 5: synthetic corpus, vocab, short_attention against its plain version")
+        log("== phase 6: synthetic corpus, vocab, short_attention against its plain version")
         passages = timed("corpus_s", lambda: make_passages(cfg))
         coll = workdir / "collection.tsv"
         coll.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages)), encoding="utf-8")
@@ -679,7 +905,7 @@ def run_encode(cfg) -> dict:
         del q, k, v
         log(f"short_attention: within tolerance of plain; {json.dumps(a_row)}")
 
-        log("== phase 6: encode main path (cli.index -> quantize -> invert -> rank on the card)")
+        log("== phase 7: encode main path (cli.index -> quantize -> invert -> rank on the card)")
         fwd, qfwd, idx = workdir / "forward.txt", workdir / "forward.q.txt", workdir / "index"
         bert = workdir / "bert"
         timed("checkpoint_s", lambda: write_bert_checkpoint(bert, config, cfg.seed))
@@ -766,6 +992,16 @@ def run_encode(cfg) -> dict:
             if not want_q or ranked.get(str(qi), []) != want_q:
                 raise AssertionError(f"encode-path query {qi}: run file differs from the numpy scorer")
         log(f"{cfg.rank_queries} queries over the port-built index match the numpy scorer rank by rank")
+        t0 = time.perf_counter()
+        dense = DenseSearchEngine(index, device=cfg.device)
+        dense_rows = dense.score_batch([{index.vocab[t] for t in qt} for qt in queries], 1000)
+        timings["dense_engine_s"] = time.perf_counter() - t0
+        for qi, res in enumerate(dense_rows):
+            if [(str(d), float(sc)) for d, sc in res] != ranked.get(str(qi), []):
+                raise AssertionError(f"DenseSearchEngine differs from the run file at encode query {qi}")
+        log(f"DenseSearchEngine ({list(dense.impact_matrix.shape)} {dense.impact_matrix.dtype}) returns "
+            f"the same rows for the {cfg.rank_queries} queries")
+        del dense
 
         fwd_p = workdir / "forward.packed.txt"
         for kern in kernels:
@@ -839,8 +1075,10 @@ def main() -> int:
     query = run_query(SMOKE)
     torch.cuda.empty_cache()
     encode = run_encode(ENCODE)
+    log(json.dumps({"query": {k: v for k, v in query.items() if k != "kernels"}}))
     log(json.dumps({"encode": {k: v for k, v in encode.items() if k != "row"}}))
-    print(json.dumps({"kernels": query["kernels"] + [encode["row"]]}))
+    g_row, s_row, c_row, b_row = query["kernels"]
+    print(json.dumps({"kernels": [g_row, s_row, encode["row"], c_row, b_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,11 @@ Entry points run on the card (``device=None`` means ``cuda``) unless the
 caller passes ``device="cpu"``; without a CUDA device they raise.
 
 Ported so far: the query path (load index -> hybrid engine -> exact top-k ->
-run file -> MRR/Recall) and the encode path (text -> BERT-family encoder
-with the ``short_attention`` kernel -> forward index -> quantize -> invert).
+run file -> MRR/Recall) with the other query engines (device, host,
+native, dense, the blocked ``PallasBlockedEngine``), and the encode path
+(text -> BERT-family encoder with the ``short_attention`` kernel -> forward
+index -> quantize -> invert).  Every Pallas kernel of the JAX package has
+its CUDA counterpart.
 """
 
 __version__ = "0.1.0"

@@ -3,8 +3,11 @@
 Counterpart of ``improving_learned_index_tpu/evaluation/ranker.py``
 (capability parity with the reference Ranker, src/deep_impact/evaluation/
 ranker.py:19-57 + rank.py): optionally restrict to qrels queries, process
-query terms with the tokenizer, score them in batches on the card, and
-write a 4-column run file.
+query terms with the tokenizer, score them in batches (on the card, or on
+the host with the ``host`` / ``native`` engines), and write a 4-column run
+file.  The JAX Ranker's TPU-only options (``use_pallas``,
+``tail_partitioned``) are not carried over: the port's kernels follow the
+device, and the partitioned tail is not ported.
 """
 
 from __future__ import annotations
@@ -32,9 +35,10 @@ class Ranker:
         qrels_path: Optional[Union[str, Path]] = None,
         dataset_type: str = "msmarco",
         pairwise: bool = False,
-        engine: str = "auto",  # auto | hybrid
+        engine: str = "auto",  # auto | device | hybrid | host | native
         batch_size: int = 256,
         top_k: int = 1000,
+        approx_top_k: bool = False,  # not ported: raises
         dense_budget_bytes: int = 4 << 30,
         device: Optional[Union[str, torch.device]] = None,
     ):
@@ -50,6 +54,7 @@ class Ranker:
         self.engine = build_engine(
             index_path,
             engine=engine,
+            approx_top_k=approx_top_k,
             dense_budget_bytes=dense_budget_bytes,
             device=device,
         )

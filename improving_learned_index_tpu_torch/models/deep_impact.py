@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.config import EncoderConfig
-from ..core.device import resolve_device
+from ..core.device import resolve_device, resolve_use_kernels
 from ..text.processor import DocumentEncoding, batch_arrays, batch_term_slots
 from .encoder import DeepImpactModel, init_weights
 
@@ -70,9 +70,7 @@ class DeepImpact:
         use_kernels: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
-        if use_kernels and self.device.type != "cuda":
-            raise ValueError("use_kernels=True needs a CUDA device")
-        self.use_kernels = self.device.type == "cuda" if use_kernels is None else bool(use_kernels)
+        self.use_kernels = resolve_use_kernels(self.device, use_kernels)
         self.config = config
         self.tokenizer = tokenizer
         self.module = DeepImpactModel(config)

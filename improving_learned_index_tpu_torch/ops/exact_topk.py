@@ -1,10 +1,12 @@
 """Exact top-k for integer-valued score rows, without a full sort.
 
-Counterpart of ``improving_learned_index_tpu/ops/exact_topk.py``, in plain
-PyTorch ops (the JAX package computes it in XLA outside any Pallas kernel;
-its opt-in threshold-count kernel ``ops/count_ge.py`` is not ported yet).
-Impact scores are sums of 8-bit quantized impacts, i.e. exact small
-integers, which admits an exact selection in a few bandwidth passes:
+Counterpart of ``improving_learned_index_tpu/ops/exact_topk.py``.  The
+search passes count through ``ops.count_ge`` (on the card its hand-written
+kernel, all thresholds of a pass in one read of the row; the JAX package
+keeps its Pallas count opt-in).  The rest is plain PyTorch, as the JAX
+package leaves it to XLA.  Impact scores are sums of 8-bit quantized
+impacts, i.e. exact small integers, which admits an exact selection in a
+few bandwidth passes:
 
 1. per row, find the k-th score value ``s_k`` (the largest s with
    |{score >= s}| >= k) by n-ary search, ``_ARITY - 1`` thresholds per pass,
@@ -20,11 +22,11 @@ integers, which admits an exact selection in a few bandwidth passes:
 4. a stable descending sort of the [Q, k] candidates orders them by score,
    so boundary ties stay in doc-id order.
 
-Eager PyTorch materializes every intermediate, so the passes are written to
-stay at one bool [Q, N] temporary at a time: each threshold is counted in
-its own pass (a broadcast [Q, N, 7] compare is 4 GB at [64, 8.85M]), and
-the greater/equal block counts are two passes instead of one packed sum.
-The convergence test reads one bool per pass back to the host.
+Eager PyTorch materializes every intermediate, so the plain passes are
+written to stay at one bool [Q, N] temporary at a time: the plain count
+(``count_ge_plain``) takes one pass per threshold, and the greater/equal
+block counts are two passes instead of one packed sum.  The convergence
+test reads one bool per pass back to the host.
 
 Zero scores are never selected (s_k >= 1); rows with fewer than k positive
 docs pad with (score 0, doc 0) entries, which callers filter.
@@ -35,16 +37,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .count_ge import count_ge, count_ge_plain
+
 _ARITY = 8  # thresholds per search pass + 1, as in the JAX package
 _BLOCK = 256  # selection block width: granularity of the rank-j gather
 
 
-def exact_topk_integer(scores: torch.Tensor, k: int):
+def exact_topk_integer(scores: torch.Tensor, k: int, *, use_kernel=None):
     """Exact top-k over integer-valued non-negative fp32 scores.
 
     Args:
         scores: [Q, N] float32, integer-valued, >= 0.
         k: number of results per row.
+        use_kernel: count the search passes with the ``count_ge`` kernel.
+            None: the kernel on CUDA, the plain count on the CPU; False on
+            the card runs the plain count, for cross-checks only; True on
+            the CPU raises.
     Returns:
         (values [Q, min(k, N)] float32 desc-sorted with ties in doc-id
         order, indices [Q, min(k, N)] int32).  Rows with fewer than k
@@ -53,6 +61,11 @@ def exact_topk_integer(scores: torch.Tensor, k: int):
     q, n = scores.shape
     k = min(k, n)
     dev = scores.device
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
+    if use_kernel and dev.type != "cuda":
+        raise ValueError("use_kernel=True needs CUDA tensors")
+    count = count_ge if use_kernel else count_ge_plain
 
     # -- 1. n-ary search for s_k per row over [1, row_max] ---------------------
     lo = torch.ones(q, 1, device=dev)
@@ -62,9 +75,7 @@ def exact_topk_integer(scores: torch.Tensor, k: int):
     while bool((lo < hi).any()):
         width = hi - lo + 1.0
         t = torch.minimum(lo + torch.ceil(frac[None, :] * width), hi)  # [Q, A-1]
-        counts = torch.stack(
-            [(scores >= t[:, a : a + 1]).sum(dim=1) for a in range(_ARITY - 1)], dim=1
-        )
+        counts = count(scores, t)
         ok = counts >= k  # monotone non-increasing along the threshold axis
         new_lo = torch.where(ok, t, lo).amax(dim=1, keepdim=True)
         new_hi = torch.minimum(torch.where(ok, inf, t).amin(dim=1, keepdim=True) - 1.0, hi)

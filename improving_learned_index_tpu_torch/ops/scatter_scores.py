@@ -77,3 +77,17 @@ def apply_tail_updates(scores, d, v, r) -> torch.Tensor:
         d.numel(), nq, n_pad, torch.cuda.current_stream(scores.device).cuda_stream,
     )
     return scores
+
+
+def gather_updates(docs, vals, starts, lengths, rows, chunk: int):
+    """Flat (doc, value, row) updates of a chunk table, as
+    ``apply_tail_updates`` takes them: chunk i reads ``chunk`` positions
+    from ``starts[i]`` of ``docs`` (int32, -1 = padding) and ``vals``
+    (fp32); lanes past ``lengths[i]`` or on padding get value 0 (and doc
+    0).  ``starts``/``lengths``/``rows``: int32 on the device of ``docs``."""
+    offs = torch.arange(chunk, dtype=torch.int32, device=docs.device)[None, :]
+    valid = offs < lengths[:, None]
+    pos = torch.where(valid, starts[:, None] + offs, 0).reshape(-1)
+    d = docs.index_select(0, pos)
+    v = torch.where(valid.reshape(-1) & (d >= 0), vals.index_select(0, pos), 0.0)
+    return torch.where(d >= 0, d, 0), v, rows[:, None].expand(-1, chunk).reshape(-1)

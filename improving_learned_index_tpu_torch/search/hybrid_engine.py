@@ -14,12 +14,13 @@ replacement for the reference's per-query Python postings loop
 - **Tail terms keep gather + scatter-add.**  The chunk table of the tail
   posting ranges is expanded into flat (doc, impact, query) updates and
   added into the score matrix (``ops.scatter_scores``).
-- **Exact top-k without sorting** (``ops.exact_topk``): boundary ties
-  resolve in doc-id order.
+- **Exact top-k without sorting** (``ops.exact_topk``, its search passes
+  counted by ``ops.count_ge``): boundary ties resolve in doc-id order.
 
-On CUDA tensors the two stages always launch the hand-written kernels
-(``csrc/``); on the CPU, and on the card with ``use_kernels=False`` (for
-cross-checks only), they run the kernels' plain PyTorch versions.  The
+On CUDA tensors the two stages and the top-k's counts always launch the
+hand-written kernels (``csrc/``); on the CPU, and on the card with
+``use_kernels=False`` (for cross-checks only), they run the kernels' plain
+PyTorch versions.  The
 TPU's shape gates (VMEM limits) and its XLA-only scatter regimes do not
 carry over: the kernels take any batch, any hit-row count and bf16 or fp32
 rows.  Batches are not split into 64-query sub-batches: the score matrix
@@ -44,7 +45,7 @@ import numpy as np
 import torch
 
 from ..core.config import SearchConfig
-from ..core.device import resolve_device
+from ..core.device import resolve_device, resolve_use_kernels
 from ..index.inverted import InvertedIndexData
 from ..ops import gather_rows, scatter_scores
 from ..ops.exact_topk import _BLOCK, exact_topk_integer
@@ -151,13 +152,13 @@ def _gather_tail(doc_ids, impacts, starts, lengths, rows):
     return d, v, r
 
 
-def _finish_topk(scores: torch.Tensor, num_docs: int, k: int):
+def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool):
     """Exact integer top-k over the real docs.  When the padded width is a
     whole number of selection blocks the padding stays (its columns score
     0, and zero is never selected), which spares a copy of the matrix."""
     if scores.shape[1] % _BLOCK:
         scores = scores[:, :num_docs]
-    return exact_topk_integer(scores, k)
+    return exact_topk_integer(scores, k, use_kernel=use_kernel)
 
 
 class HybridSearchEngine:
@@ -176,11 +177,7 @@ class HybridSearchEngine:
             raise ValueError("approximate top-k is not ported; the port's top-k is exact")
         self.config = config
         self.device = resolve_device(device)
-        if use_kernels and self.device.type != "cuda":
-            raise ValueError("use_kernels=True needs a CUDA device")
-        # None: the kernels on CUDA.  False on the card runs the plain
-        # versions, for cross-checks only.
-        self.use_kernels = self.device.type == "cuda" if use_kernels is None else bool(use_kernels)
+        self.use_kernels = resolve_use_kernels(self.device, use_kernels)
         if self.use_kernels:
             self._accumulate_rows = gather_rows.accumulate_rows
             self._apply_tail_updates = scatter_scores.apply_tail_updates
@@ -361,7 +358,7 @@ class HybridSearchEngine:
             scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=dev)
         if tail is not None:
             scores = self._apply_tail_updates(scores, *tail)
-        vals, idx = _finish_topk(scores, self.num_docs, k)
+        vals, idx = _finish_topk(scores, self.num_docs, k, self.use_kernels)
         del scores
         # one host copy per batch: [nq, 2, k] int32 (scores bit-cast)
         packed = torch.stack([vals.view(torch.int32), idx], dim=1)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX, flax nor the JAX package,
 and its entry points refuse to run on the CPU unless asked to.  Covers the
-query path and the encode path (text, encoder, indexer, CLIs)."""
+query path, the encode path (text, encoder, indexer, CLIs) and the other
+query engines (host, native, device, dense, blocked) and query CLIs."""
 
 import ast
 import os
@@ -33,7 +34,10 @@ def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     for module in ("ops/short_attention.py", "models/encoder.py", "models/hf_import.py",
-                   "models/deep_impact.py", "index/indexer.py", "cli/index.py"):
+                   "models/deep_impact.py", "index/indexer.py", "cli/index.py",
+                   "ops/count_ge.py", "ops/pallas_scoring.py", "search/engine.py",
+                   "search/device_engine.py", "search/dense_engine.py", "search/native.py",
+                   "search/maxp.py", "cli/evaluate.py", "cli/aggregate_run.py"):
         assert module in names
     assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
@@ -137,3 +141,65 @@ def test_encode_entry_points_without_cuda_raise(tmp_path):
     assert not (tmp_path / "fwd.txt").exists()
     with pytest.raises(ValueError, match="needs a CUDA device"):
         DeepImpact(EncoderConfig.tiny(vocab_size=len(vocab)), tok, device="cpu", use_kernels=True)
+
+
+def test_cpu_engines_leave_jax_unimported(tmp_path):
+    code = """
+import sys
+import numpy as np
+from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
+from improving_learned_index_tpu_torch.ops import PallasBlockedEngine
+from improving_learned_index_tpu_torch.search import DenseSearchEngine, build_engine
+idx = InvertedIndexData(["a", "b"], np.array([0, 2, 3]), np.array([0, 1, 1], np.uint32),
+                        np.array([5, 3, 7], np.uint8), num_docs=2)
+idx.save(sys.argv[1])
+want = [[(1, 10.0), (0, 5.0)]]
+for name in ("device", "hybrid", "host", "native"):
+    res = build_engine(sys.argv[1], engine=name, device="cpu").score_batch([{"a", "b"}], 5)
+    assert res == want, (name, res)
+for cls in (PallasBlockedEngine, DenseSearchEngine):
+    res = cls(idx, device="cpu").score_batch([{"a", "b"}], 5)
+    assert res == want, (cls, res)
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "improving_learned_index_tpu")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "idx")],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_card_engines_without_cuda_raise(tmp_path):
+    """The card engines default to cuda and raise without it; the host and
+    native engines take no device and run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from improving_learned_index_tpu_torch.cli.rank import main as rank_main
+    from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
+    from improving_learned_index_tpu_torch.ops import PallasBlockedEngine
+    from improving_learned_index_tpu_torch.search import (
+        DenseSearchEngine, DeviceSearchEngine, InvertedIndex, NativeSearchEngine, build_engine,
+    )
+
+    idx = InvertedIndexData(["a"], np.array([0, 1]), np.array([0], np.uint32),
+                            np.array([5], np.uint8), num_docs=1)
+    idx.save(tmp_path / "idx")
+    for make in (lambda: DeviceSearchEngine(idx), lambda: DenseSearchEngine(idx),
+                 lambda: PallasBlockedEngine(idx),
+                 lambda: build_engine(tmp_path / "idx", engine="device"),
+                 lambda: build_engine(tmp_path / "idx", engine="auto")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    for eng in (build_engine(tmp_path / "idx", engine="host"), InvertedIndex(idx),
+                build_engine(tmp_path / "idx", engine="native"), NativeSearchEngine(tmp_path / "idx")):
+        assert eng.score_batch([{"a"}], 3) == [[(0, 5.0)]]
+    (tmp_path / "q.tsv").write_text("1\ta\n")
+    (tmp_path / "vocab.txt").write_text("[PAD]\n[UNK]\n[CLS]\n[SEP]\n[MASK]\na\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rank_main(["--index_path", str(tmp_path / "idx"), "--queries_path", str(tmp_path / "q.tsv"),
+                   "--output_path", str(tmp_path / "run"), "--vocab_path", str(tmp_path / "vocab.txt"),
+                   "--engine", "device"])
+    assert not (tmp_path / "run").exists()

@@ -6,8 +6,9 @@ there without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Integer impacts keep every fp32 sum exact, so the query kernels' comparisons
-are equality.  ``short_attention`` is held to its plain version within two
+Integer impacts keep every fp32 sum exact and counts are integers, so the
+query kernels' comparisons (``gather_rows``, ``scatter_scores``,
+``count_ge``, the blocked scoring kernel) are equality.  ``short_attention`` is held to its plain version within two
 bf16 ulps of the largest output: both round the same fp32 context to bf16
 once, and only the fp32 summation order differs.
 """
@@ -19,7 +20,12 @@ import torch
 from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
 from improving_learned_index_tpu_torch.ops import gather_rows as gr
 from improving_learned_index_tpu_torch.ops import scatter_scores as ss
+from improving_learned_index_tpu_torch.ops import pallas_scoring as ps
 from improving_learned_index_tpu_torch.ops import short_attention as sa
+from improving_learned_index_tpu_torch.ops.count_ge import KERNEL as COUNT_KERNEL
+from improving_learned_index_tpu_torch.ops.count_ge import count_ge, count_ge_plain
+from improving_learned_index_tpu_torch.search.dense_engine import DenseSearchEngine
+from improving_learned_index_tpu_torch.search.device_engine import DeviceSearchEngine
 from improving_learned_index_tpu_torch.search.hybrid_engine import HybridSearchEngine
 
 TILE = 1 << 16
@@ -92,9 +98,9 @@ def test_engine_kernels_equal_plain_and_cpu(cuda):
     )
     batch = [{f"t{i}" for i in rng.choice(n_terms, 4, replace=False)} for _ in range(62)]
     batch += [set(), {"t0"}, {"t30"}, {"t31", "zz"}, {"zz"}]
-    g0, s0 = gr.KERNEL.launches, ss.KERNEL.launches
+    g0, s0, c0 = gr.KERNEL.launches, ss.KERNEL.launches, COUNT_KERNEL.launches
     got = HybridSearchEngine(idx, device="cuda").score_batch(batch, 50)
-    assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0
+    assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and COUNT_KERNEL.launches > c0
     assert got == HybridSearchEngine(idx, device="cuda", use_kernels=False).score_batch(batch, 50)
     assert got == HybridSearchEngine(idx, device="cpu").score_batch(batch, 50)
 
@@ -167,3 +173,85 @@ def test_short_attention_kernel_refuses_other_shapes(cuda):
     seg = torch.ones(1, 128, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="kernel takes"):
         sa.short_attention(q, q, q, seg, 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "strided_odd", "unaligned", "thresholds_128"])
+def test_count_ge_kernel_equals_plain(cuda, layout):
+    """A contiguous [67, 3 tiles + 1024] matrix; a sliced view with an odd
+    width (row stride of the wider matrix, 16-byte aligned rows); a view
+    whose rows start 4 bytes off alignment (scalar loads); 128 thresholds
+    (16 groups of 8)."""
+    g, dev = cuda, "cuda"
+    wide = torch.randint(0, 3000, (67, 3 * TILE + 1024), generator=g, device=dev).float()
+    scores = {"contiguous": wide, "strided_odd": wide[:, : 2 * TILE + 1001],
+              "unaligned": wide[:, 1 : TILE + 7], "thresholds_128": wide}[layout]
+    n_thresh = 128 if layout == "thresholds_128" else 7
+    t = torch.randint(0, 3100, (67, n_thresh), generator=g, device=dev).float()
+    before = COUNT_KERNEL.launches
+    got = count_ge(scores, t)
+    want = count_ge_plain(scores, t)
+    torch.cuda.synchronize()
+    assert COUNT_KERNEL.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def _gap_and_edge_index():
+    """Heavy terms with empty blocks (unaligned and aligned starts, so the
+    tables hold zero-width chunks) and docs on every block edge, tail terms,
+    num_docs not a multiple of the block."""
+    rng = np.random.default_rng(12)
+    blk = ps.BLK
+    num_docs = 6 * blk + 77
+    edges = np.array([0, blk - 1, blk, 2 * blk - 1, 2 * blk, 5 * blk, num_docs - 1])
+    lists = {
+        "gap": np.concatenate([rng.choice(blk, 3000, replace=False),
+                               3 * blk + rng.choice(blk, 2000, replace=False)]),
+        "aligned": np.concatenate([np.arange(blk), 4 * blk + rng.choice(blk, 100, replace=False)]),
+        "edges": np.unique(np.concatenate([edges, rng.choice(num_docs, 5000, replace=False)])),
+    }
+    for i in range(20):
+        lists[f"tail{i}"] = rng.choice(num_docs, int(rng.integers(1, 400)), replace=False)
+    offsets, docs, vals = [0], [], []
+    for d in lists.values():
+        offsets.append(offsets[-1] + len(d))
+        docs.append(d)
+        vals.append(rng.integers(1, 256, len(d)))
+    idx = InvertedIndexData(list(lists), np.asarray(offsets, np.int64),
+                            np.concatenate(docs).astype(np.uint32),
+                            np.concatenate(vals).astype(np.uint8), num_docs=num_docs)
+    names = list(lists)
+    batch = [{names[i] for i in rng.choice(len(names), 3, replace=False)} for _ in range(20)]
+    batch += [{"gap"}, {"aligned"}, {"edges"}, {"gap", "aligned", "edges"}, set(), {"zz"}]
+    return idx, batch
+
+
+@pytest.mark.cuda
+def test_blocked_kernel_equals_plain(cuda):
+    idx, batch = _gap_and_edge_index()
+    eng = ps.PallasBlockedEngine(idx, device="cuda")
+    padded = batch + [set()] * (-len(batch) % ps.QG)
+    cell_offsets, starts, meta, _ = eng._tables(padded)
+    lo, hi = (meta >> 14) & 0x3FFF, meta & 0x3FFF
+    assert (lo == hi).any() and (np.diff(cell_offsets) == 0).any()  # zero-width chunks, empty cells
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()  # noqa: E731
+    args = (put(cell_offsets), put(starts), put(meta), eng.docs, eng.vals, len(padded), eng.num_blocks)
+    before = ps.KERNEL.launches
+    got = ps.blocked_scores(*args)
+    want = ps.blocked_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert ps.KERNEL.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_other_engines_on_card_equal_cpu(cuda):
+    """Blocked, device and dense engines on the card (kernels), on the card
+    with the plain versions, and on the CPU: identical ranked lists."""
+    idx, batch = _gap_and_edge_index()
+    b0, c0 = ps.KERNEL.launches, COUNT_KERNEL.launches
+    for cls in (ps.PallasBlockedEngine, DeviceSearchEngine, DenseSearchEngine):
+        got = cls(idx, device="cuda").score_batch(batch, 100)
+        assert got == cls(idx, device="cuda", use_kernels=False).score_batch(batch, 100), cls
+        assert got == cls(idx, device="cpu").score_batch(batch, 100), cls
+    assert ps.KERNEL.launches > b0 and COUNT_KERNEL.launches > c0
