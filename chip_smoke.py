@@ -289,11 +289,17 @@ def scatter_row(base, tail):
     del s_k
     nq, n_pad = base.shape
     live = v != 0
-    cells = int(torch.unique((r.long() * n_pad + d.long())[live]).numel())
+    flat = (r.long() * n_pad + d.long())[live]
+    cells = int(torch.unique(flat).numel())
+    # The [nq, n_pad] fp32 matrix is ~45 times the 50 MB L2, so each touched
+    # 32-byte sector (8 cells) is read from device memory and written back
+    # once at least; the update arrays (d, v, r) are read once.
+    sectors = int(torch.unique(flat // 8).numel())
     n_live = int(live.sum())
+    del flat
     scratch = base.clone()
     r64, d64 = r.long(), d.long()
-    b, by = bound_ms(d.numel() * 12 + cells * 8, n_live)
+    b, by = bound_ms(d.numel() * 12 + sectors * 64, n_live)
     row = {
         "name": "scatter_scores",
         "route": "cuda",
@@ -306,7 +312,7 @@ def scatter_row(base, tail):
         "bound_by": by,
         "library_ms": cuda_ms(lambda: scratch.index_put_((r64, d64), v, accumulate=True)),
         "shape": {"scores": [nq, n_pad], "updates": d.numel(), "live_updates": n_live,
-                  "touched_cells": cells},
+                  "touched_cells": cells, "touched_sectors": sectors},
     }
     return row, s_p
 

@@ -24,11 +24,14 @@ The plain version follows the TPU kernel, not the JAX ``_reference_attention``
 that the JAX backward uses: the latter rounds the logits to bf16 (a bf16
 einsum), the kernel keeps them in fp32.
 
-Layouts: the kernel reads q, k and v through their strides (the head dim
-contiguous), so the encoder passes ``[B, S, H, D]`` projections as
-``[B, H, S, D]`` views without a copy; the kernel's output is a
-``[B, H, S, D]`` view of ``[B, S, H, D]`` memory, which the encoder's output
-projection reads without a transpose.
+Layouts: the kernel reads q, k and v through their strides (TMA tensor maps
+built per call: the head dim contiguous, every other stride a multiple of
+16 bytes, 16-byte aligned), so the encoder passes ``[B, S, H, D]``
+projections as ``[B, H, S, D]`` views without a copy; the kernel's output is
+a ``[B, H, S, D]`` view of ``[B, S, H, D]`` memory, which the encoder's
+output projection reads without a transpose.  The kernel's design (persistent
+blocks over (batch, head) items, a TMA ring, wgmma) is described in
+``csrc/short_attention.cu``.
 """
 
 from __future__ import annotations
@@ -98,6 +101,8 @@ def _launch(q, k, v, segment_mask, sm_scale: float, packed: bool):
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name}: head dim must be contiguous, strides multiples of 8, 16-byte aligned")
     seg = segment_mask.to(torch.int32).contiguous()
+    if seg.data_ptr() % 16:  # the kernel copies each row with one 16-byte-aligned bulk copy
+        seg = seg.clone()
     out = torch.empty(b, s, h, d, dtype=out_dtype, device=q.device).permute(0, 2, 1, 3)
     strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
     KERNEL.call(

@@ -120,25 +120,47 @@ def _segments(rng, b, s, packed):
     return seg
 
 
+_ATTENTION_CASES = [
+    # every (S, D) instance; B*H = 15 items, fewer than the card's SMs; the
+    # scale D**-0.5 is a power of two at D = 16 and 64 (the kernel's fused
+    # multiply-add) and not at D = 32 and 128 (separate multiply and add)
+    *(((3, 5, s, d), torch.bfloat16, "strided") for s in (128, 256) for d in (16, 32, 64, 128)),
+    # the encoder's shape, B*H = 24
+    ((2, 12, 256, 64), torch.bfloat16, "strided"),
+    # B*H = 133 and 300: more items than SMs, not a multiple of the grid
+    ((133, 1, 256, 64), torch.bfloat16, "strided"),
+    ((300, 1, 128, 32), torch.bfloat16, "strided"),
+    # fp32 in and out (operands rounded to bf16), one stage and two
+    ((2, 3, 256, 128), torch.float32, "strided"),
+    ((4, 2, 128, 32), torch.float32, "strided"),
+    # contiguous [B, H, S, D]; a batch row whose padding mask is all zero
+    ((2, 12, 256, 64), torch.bfloat16, "contiguous"),
+    ((3, 2, 256, 64), torch.bfloat16, "zero_row"),
+    ((3, 2, 128, 16), torch.bfloat16, "zero_row"),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("shape,dtype", [
-    ((3, 4, 128, 16), torch.bfloat16),
-    ((2, 12, 256, 64), torch.bfloat16),
-    ((2, 3, 256, 128), torch.float32),
-    ((4, 2, 128, 32), torch.float32),
-])
-def test_short_attention_kernel_equals_plain(cuda, shape, dtype, packed):
-    """Inputs as the encoder gives them: [B, S, H, D] projections seen as
-    [B, H, S, D] strided views."""
+@pytest.mark.parametrize("shape,dtype,layout", _ATTENTION_CASES)
+def test_short_attention_kernel_equals_plain(cuda, shape, dtype, layout, packed):
+    """Inputs as the encoder gives them, [B, S, H, D] projections seen as
+    [B, H, S, D] strided views, unless ``layout`` says otherwise."""
     b, h, s, d = shape
-    rng = np.random.default_rng(s + d + int(packed))
-    q, k, v = (
-        torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32) * 1.5)
-        .to("cuda", dtype).permute(0, 2, 1, 3)
-        for _ in range(3)
-    )
-    seg = torch.from_numpy(_segments(rng, b, s, packed)).cuda()
+    rng = np.random.default_rng(b + h + s + d + int(packed))
+    if layout == "contiguous":
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32) * 1.5)
+                   .to("cuda", dtype) for _ in range(3))
+    else:
+        q, k, v = (
+            torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32) * 1.5)
+            .to("cuda", dtype).permute(0, 2, 1, 3)
+            for _ in range(3)
+        )
+    seg = _segments(rng, b, s, packed)
+    if layout == "zero_row":
+        seg[-1] = 0
+    seg = torch.from_numpy(seg).cuda()
     before = sa.KERNEL.launches
     got = sa.short_attention(q, k, v, seg, d ** -0.5, packed)
     want = sa.short_attention_plain(q, k, v, seg, d ** -0.5, packed)
