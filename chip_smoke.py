@@ -19,7 +19,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    impacts 1..255), saved with the port's ``save``, and loaded into an
    engine through ``build_engine``.  Each kernel runs on the inputs the
    first 64-query batch gives it and must equal its plain PyTorch version
-   exactly: ``gather_rows`` and ``scatter_scores`` on the batch's stages,
+   exactly: ``gather_rows`` and ``scatter_scores`` on the batch's stages
+   (the scatter's chunk-table entry, which the engines call, and its flat
+   entry, whose time the row gives, with the tail stage's time by route),
    ``count_ge`` on the batch's score matrix with its first-pass thresholds,
    and the blocked kernel on the batch's tables in a ``PallasBlockedEngine``
    over the same index.  Kernel, plain and library-call times (CUDA events)
@@ -97,6 +99,11 @@ ENCODE = SimpleNamespace(
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
+# scatter_scores's flat entry at phase 3's shape as this script measured it
+# before the chunk entry existed (NVIDIA H100 80GB HBM3, 700 W).  Printed
+# beside the row, not in it: the kernels line holds only this run's
+# measurements.
+SCATTER_EARLIER_MS = 0.4530
 
 
 def log(msg: str) -> None:
@@ -273,13 +280,18 @@ def gather_row(engine, heavy, nq):
     return row, out_p
 
 
-def scatter_row(base, tail):
-    """Scatter kernel against its plain version on one batch's tail updates,
-    applied to that batch's heavy-stage scores; returns the row and the
-    batch's score matrix."""
+def scatter_row(engine, base, tail):
+    """The scatter kernel's two entries against their plain versions on one
+    batch's tail: the chunk table read in place (``apply_tail_chunks``, the
+    engine's route) and the flat updates ``gather_updates`` makes of it
+    (``apply_tail_updates``, the row's timed function), each applied to that
+    batch's heavy-stage scores; returns the row and the batch's score
+    matrix."""
     from improving_learned_index_tpu_torch.ops import scatter_scores as ss
+    from improving_learned_index_tpu_torch.search.hybrid_engine import TAIL_CHUNK
 
-    d, v, r = tail
+    table = (engine.doc_ids, engine.impacts, *tail, TAIL_CHUNK)
+    d, v, r = ss.gather_updates(*table)
     s_k = ss.apply_tail_updates(base.clone(), d, v, r)
     s_p = ss.apply_tail_updates_plain(base.clone(), d, v, r)
     torch.cuda.synchronize()
@@ -287,6 +299,13 @@ def scatter_row(base, tail):
     if not torch.equal(s_k, s_p):
         raise AssertionError(f"scatter_scores kernel != plain (max abs err {err})")
     del s_k
+    c_k = ss.apply_tail_chunks(base.clone(), *table)
+    c_p = ss.apply_tail_chunks_plain(base.clone(), *table)
+    torch.cuda.synchronize()
+    err_chunks = float((c_k - c_p).abs().max())
+    if not (torch.equal(c_k, c_p) and torch.equal(c_p, s_p)):
+        raise AssertionError(f"apply_tail_chunks kernel != plain (max abs err {err_chunks})")
+    del c_k, c_p
     nq, n_pad = base.shape
     live = v != 0
     flat = (r.long() * n_pad + d.long())[live]
@@ -305,14 +324,20 @@ def scatter_row(base, tail):
         "route": "cuda",
         "source": "improving_learned_index_tpu_torch/csrc/scatter_scores.cu",
         "replaces": "improving_learned_index_tpu/ops/scatter_scores.py:45",
-        "max_abs_err": err,
+        "max_abs_err": max(err, err_chunks),
         "ms": cuda_ms(lambda: ss.apply_tail_updates(scratch, d, v, r)),
         "plain_ms": cuda_ms(lambda: ss.apply_tail_updates_plain(scratch, d, v, r)),
         "bound_ms": b,
         "bound_by": by,
         "library_ms": cuda_ms(lambda: scratch.index_put_((r64, d64), v, accumulate=True)),
+        # the whole tail stage of the batch: the flat arrays materialized and
+        # applied, against the chunk table read in place
+        "tail_stage_ms": {
+            "gather_then_flat": cuda_ms(lambda: ss.apply_tail_updates(scratch, *ss.gather_updates(*table))),
+            "chunks": cuda_ms(lambda: ss.apply_tail_chunks(scratch, *table)),
+        },
         "shape": {"scores": [nq, n_pad], "updates": d.numel(), "live_updates": n_live,
-                  "touched_cells": cells, "touched_sectors": sectors},
+                  "chunks": int(tail[0].numel()), "touched_cells": cells, "touched_sectors": sectors},
     }
     return row, s_p
 
@@ -523,7 +548,7 @@ def run_query(cfg) -> dict:
         if heavy is None or tail is None:
             raise AssertionError("the first batch must reach both stages")
         g_row, base = gather_row(engine, heavy, cfg.nq)
-        s_row, scores = scatter_row(base, tail)
+        s_row, scores = scatter_row(engine, base, tail)
         del base, heavy, tail
         c_row = count_row(scores)
         del scores
@@ -536,6 +561,8 @@ def run_query(cfg) -> dict:
         torch.cuda.empty_cache()
         for row in (g_row, s_row, c_row, b_row):
             log(f"{row['name']}: equal to plain; {json.dumps(row)}")
+        log(f"scatter_scores: {s_row['ms']:.4f} ms; {SCATTER_EARLIER_MS} ms before the chunk "
+            "entry, at this shape (NVIDIA H100 80GB HBM3, 700 W)")
 
         log("== phase 4: query main path (cli.rank on the card)")
         run_file = workdir / "run.tsv"

@@ -2,12 +2,19 @@ from .count_ge import count_ge, count_ge_plain
 from .exact_topk import exact_topk_integer
 from .gather_rows import accumulate_rows, accumulate_rows_plain
 from .pallas_scoring import PallasBlockedEngine, blocked_scores, blocked_scores_plain
-from .scatter_scores import apply_tail_updates, apply_tail_updates_plain
+from .scatter_scores import (
+    apply_tail_chunks,
+    apply_tail_chunks_plain,
+    apply_tail_updates,
+    apply_tail_updates_plain,
+)
 
 __all__ = [
     "PallasBlockedEngine",
     "accumulate_rows",
     "accumulate_rows_plain",
+    "apply_tail_chunks",
+    "apply_tail_chunks_plain",
     "apply_tail_updates",
     "apply_tail_updates_plain",
     "blocked_scores",

@@ -15,8 +15,9 @@ not its production path, and so does the port.
   hand-written kernel ``csrc/blocked_scoring.cu`` (shared-memory atomics in
   place of the TPU's one-hot MXU product) or raises; on the CPU it runs the
   plain version.  There is no fallback from one to the other.
-- **Tail** lists are gathered in ``TAIL_CHUNK`` windows and added with
-  ``ops.scatter_scores.apply_tail_updates``.
+- **Tail** lists are cut into ``TAIL_CHUNK`` windows and added with
+  ``ops.scatter_scores.apply_tail_chunks``, which reads the windows in
+  place.
 - The top-k is ``ops.exact_topk.exact_topk_integer`` (its search passes
   through ``ops.count_ge``): quantized impacts give integer sums, and after
   the ``s > 0`` filter its order (score desc, doc asc) is ``lax.top_k``'s.
@@ -168,10 +169,10 @@ class PallasBlockedEngine:
         self.use_kernels = resolve_use_kernels(dev, use_kernels)
         if self.use_kernels:
             self._blocked_scores = blocked_scores
-            self._apply_tail_updates = scatter_scores.apply_tail_updates
+            self._apply_tail_chunks = scatter_scores.apply_tail_chunks
         else:
             self._blocked_scores = blocked_scores_plain
-            self._apply_tail_updates = scatter_scores.apply_tail_updates_plain
+            self._apply_tail_chunks = scatter_scores.apply_tail_chunks_plain
         self.vocab = index.term_to_id
         self.num_docs = max(int(index.num_docs), 1)
         if self.num_docs >= 2**31:
@@ -295,8 +296,7 @@ class PallasBlockedEngine:
         else:
             scores = torch.zeros(len(padded), self.num_blocks * BLK, dtype=torch.float32, device=dev)
         if tail[1].any():
-            scores = self._apply_tail_updates(
-                scores, *scatter_scores.gather_updates(self.docs[0], self.vals[0], *put(tail), TAIL_CHUNK))
+            scores = self._apply_tail_chunks(scores, self.docs[0], self.vals[0], *put(tail), TAIL_CHUNK)
         # the padded columns (>= num_docs) score 0 and are never selected
         vals, idx = exact_topk_integer(scores, min(top_k, self.num_docs), use_kernel=self.use_kernels)
         del scores

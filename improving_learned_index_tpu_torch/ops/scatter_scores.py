@@ -5,10 +5,18 @@ Counterpart of ``improving_learned_index_tpu/ops/scatter_scores.py``
 (reference semantics: the per-posting ``scores[doc] += impact`` loop in
 src/deep_impact/inverted_index/inverted_index.py:55-62).
 
-``apply_tail_updates`` dispatches on the tensors' device: on the CPU it runs
-the plain PyTorch version, on CUDA it launches the hand-written kernel
-``csrc/scatter_scores.cu`` or raises.  There is no fallback from one to the
-other.
+Two entries, one kernel library (``csrc/scatter_scores.cu``):
+
+- ``apply_tail_updates(scores, d, v, r)`` takes flat update arrays, as the
+  JAX function does;
+- ``apply_tail_chunks(scores, docs, vals, starts, lengths, rows, chunk)``
+  takes the engines' chunk table and reads the posting arrays in place: it
+  computes ``apply_tail_updates(scores, *gather_updates(...))`` without
+  materializing the flat arrays.
+
+Each dispatches on the tensors' device: on the CPU it runs the plain PyTorch
+version, on CUDA it launches the hand-written kernel or raises.  There is no
+fallback from one to the other.
 
 Unlike the JAX function, which returns a new array, both versions update
 ``scores`` in place and return it: at corpus scale the score matrix is
@@ -23,10 +31,13 @@ import torch
 
 from ._kernels import CudaKernel
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel(
     "scatter_scores",
-    {"ili_scatter_scores": [ctypes.c_void_p] * 4
-     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]},
+    {
+        "ili_scatter_scores": [_P] * 4 + [_L, _I, _L, _P],
+        "ili_scatter_chunks": [_P] * 6 + [_L, _I, _I, _L, _P],
+    },
 )
 
 
@@ -40,6 +51,40 @@ def _check(scores, d, v, r):
     for name, t in (("d", d), ("v", v), ("r", r)):
         if t.device != scores.device:
             raise ValueError(f"{name} on {t.device}, scores on {scores.device}")
+
+
+def _check_chunks(scores, docs, vals, starts, lengths, rows, chunk):
+    if scores.dim() != 2 or scores.dtype != torch.float32 or not scores.is_contiguous():
+        raise ValueError("scores must be a contiguous [nq, n_pad] fp32 tensor")
+    if docs.dim() != 1 or docs.shape != vals.shape:
+        raise ValueError("docs and vals must be flat arrays of one length")
+    if docs.dtype != torch.int32 or vals.dtype != torch.float32:
+        raise ValueError("docs must be int32 and vals fp32")
+    if not (starts.shape == lengths.shape == rows.shape) or starts.dim() != 1:
+        raise ValueError("starts, lengths and rows must be flat arrays of one length")
+    for name, t in (("starts", starts), ("lengths", lengths), ("rows", rows)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    for name, t in (("docs", docs), ("vals", vals), ("starts", starts),
+                    ("lengths", lengths), ("rows", rows)):
+        if t.device != scores.device:
+            raise ValueError(f"{name} on {t.device}, scores on {scores.device}")
+
+
+def _launch(fn, scores, *args):
+    """Launch ``fn`` on ``scores`` and the current stream."""
+    nq, n_pad = scores.shape
+    KERNEL.call(fn, scores.data_ptr(), *args, nq, n_pad,
+                torch.cuda.current_stream(scores.device).cuda_stream)
+    return scores
+
+
+def _require_contiguous(**tensors):
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def apply_tail_updates_plain(scores, d, v, r) -> torch.Tensor:
@@ -65,18 +110,10 @@ def apply_tail_updates(scores, d, v, r) -> torch.Tensor:
     if scores.device.type != "cuda":
         raise ValueError(f"no scatter_scores kernel for device {scores.device}")
     _check(scores, d, v, r)
-    for name, t in (("d", d), ("v", v), ("r", r)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if d.numel() == 0:
+    _require_contiguous(d=d, v=v, r=r)
+    if d.numel() == 0 or scores.numel() == 0:
         return scores
-    nq, n_pad = scores.shape
-    KERNEL.call(
-        "ili_scatter_scores",
-        scores.data_ptr(), d.data_ptr(), v.data_ptr(), r.data_ptr(),
-        d.numel(), nq, n_pad, torch.cuda.current_stream(scores.device).cuda_stream,
-    )
-    return scores
+    return _launch("ili_scatter_scores", scores, d.data_ptr(), v.data_ptr(), r.data_ptr(), d.numel())
 
 
 def gather_updates(docs, vals, starts, lengths, rows, chunk: int):
@@ -91,3 +128,30 @@ def gather_updates(docs, vals, starts, lengths, rows, chunk: int):
     d = docs.index_select(0, pos)
     v = torch.where(valid.reshape(-1) & (d >= 0), vals.index_select(0, pos), 0.0)
     return torch.where(d >= 0, d, 0), v, rows[:, None].expand(-1, chunk).reshape(-1)
+
+
+def apply_tail_chunks_plain(scores, docs, vals, starts, lengths, rows, chunk: int) -> torch.Tensor:
+    """Plain PyTorch version of ``apply_tail_chunks``: the flat updates
+    materialized by ``gather_updates``, then ``apply_tail_updates_plain``."""
+    _check_chunks(scores, docs, vals, starts, lengths, rows, chunk)
+    return apply_tail_updates_plain(scores, *gather_updates(docs, vals, starts, lengths, rows, chunk))
+
+
+def apply_tail_chunks(scores, docs, vals, starts, lengths, rows, chunk: int) -> torch.Tensor:
+    """``apply_tail_updates(scores, *gather_updates(docs, vals, starts,
+    lengths, rows, chunk))``, in place, with the chunk table read where it
+    lies: no flat update array is materialized.
+
+    Every window ``starts[i] .. starts[i] + min(lengths[i], chunk)`` must
+    lie inside ``docs``/``vals``; lanes past it are never read.
+    """
+    if scores.device.type == "cpu":
+        return apply_tail_chunks_plain(scores, docs, vals, starts, lengths, rows, chunk)
+    if scores.device.type != "cuda":
+        raise ValueError(f"no scatter_scores kernel for device {scores.device}")
+    _check_chunks(scores, docs, vals, starts, lengths, rows, chunk)
+    _require_contiguous(docs=docs, vals=vals, starts=starts, lengths=lengths, rows=rows)
+    if starts.numel() == 0 or scores.numel() == 0:
+        return scores
+    return _launch("ili_scatter_chunks", scores, docs.data_ptr(), vals.data_ptr(),
+                   starts.data_ptr(), lengths.data_ptr(), rows.data_ptr(), starts.numel(), chunk)

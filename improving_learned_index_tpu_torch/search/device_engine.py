@@ -11,12 +11,13 @@ replacement for the reference's per-query Python postings loop
 3. the windows are gathered, masked and scatter-added into a dense
    [Q, num_docs] accumulator, and the top-k of each row is taken.
 
-The scatter is XLA in the JAX package, not Pallas.  Here it goes through
-``ops.scatter_scores.apply_tail_updates``, whose function it is (v == 0 is
-padding): on CUDA tensors the hand-written kernel, on the CPU (and on the
-card with ``use_kernels=False``, for cross-checks only) its plain version.
-The gather is materialized a slice of the chunk table at a time, so a batch
-over corpus-scale lists never holds more than ``_MAX_UPDATES`` flat updates.
+The gather and scatter are XLA in the JAX package, not Pallas.  Here they
+go through ``ops.scatter_scores.apply_tail_chunks``, which reads the chunk
+table and the posting arrays in place: on CUDA tensors the hand-written
+kernel, on the CPU (and on the card with ``use_kernels=False``, for
+cross-checks only) its plain version, which materializes the flat updates.
+The table goes in slices of at most ``_MAX_UPDATES`` window positions, which
+bounds the flat arrays the plain route materializes.
 
 The top-k equals ``jax.lax.top_k``'s: values descending, the lower doc id
 first among ties.  Integer impacts (quantized indexes) give integer sums,
@@ -42,7 +43,7 @@ from ..ops.exact_topk import exact_topk_integer
 from .hybrid_engine import expand_tail_chunks
 
 DEFAULT_CHUNK = 2048
-_MAX_UPDATES = 1 << 26  # flat (doc, impact, row) updates gathered at a time
+_MAX_UPDATES = 1 << 26  # window positions (chunk-table slots) applied at a time
 
 
 def _pick_chunk(offsets: np.ndarray) -> int:
@@ -125,9 +126,9 @@ class DeviceSearchEngine:
         self.config = config
         self.device = resolve_device(device)
         self.use_kernels = resolve_use_kernels(self.device, use_kernels)
-        self._apply_updates = (
-            scatter_scores.apply_tail_updates if self.use_kernels
-            else scatter_scores.apply_tail_updates_plain
+        self._apply_chunks = (
+            scatter_scores.apply_tail_chunks if self.use_kernels
+            else scatter_scores.apply_tail_chunks_plain
         )
         if index is not None:
             vocab = index.term_to_id
@@ -207,8 +208,7 @@ class DeviceSearchEngine:
         per = max(1, _MAX_UPDATES // self.chunk)
         for c0 in range(0, len(starts), per):
             table = (torch.from_numpy(a[c0 : c0 + per]).to(dev) for a in (starts, lengths, rows))
-            self._apply_updates(scores, *scatter_scores.gather_updates(
-                self.doc_ids, self.impacts, *table, self.chunk))
+            self._apply_chunks(scores, self.doc_ids, self.impacts, *table, self.chunk)
         if self.integer_scores:
             vals, idx = exact_topk_integer(scores, k, use_kernel=self.use_kernels)
         else:

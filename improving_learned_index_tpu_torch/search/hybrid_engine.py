@@ -12,8 +12,9 @@ replacement for the reference's per-query Python postings loop
   cell past 256.  A batch's heavy stage reads only the rows its queries hit
   (``ops.gather_rows``).
 - **Tail terms keep gather + scatter-add.**  The chunk table of the tail
-  posting ranges is expanded into flat (doc, impact, query) updates and
-  added into the score matrix (``ops.scatter_scores``).
+  posting ranges goes to the card, and ``ops.scatter_scores.apply_tail_chunks``
+  reads it and the tail postings in place and adds them into the score
+  matrix.
 - **Exact top-k without sorting** (``ops.exact_topk``, its search passes
   counted by ``ops.count_ge``): boundary ties resolve in doc-id order.
 
@@ -65,7 +66,8 @@ def expand_tail_chunks(starts, ends, rows, chunk):
     ``starts``/``ends``: int64 posting ranges per tail term; ``rows``: the
     query row each term belongs to.  Splits every range into windows of
     ``chunk`` postings and returns (chunk_starts, chunk_lengths, chunk_rows)
-    as int32 arrays — the layout ``_gather_tail`` consumes."""
+    as int32 arrays — the layout ``ops.scatter_scores.apply_tail_chunks``
+    consumes."""
     n_chunks = -(-(ends - starts) // chunk)
     total = int(n_chunks.sum())
     if total == 0:
@@ -135,23 +137,6 @@ def build_dense_rows(
     return dense
 
 
-def _gather_tail(doc_ids, impacts, starts, lengths, rows):
-    """Expand the chunk table into flat (doc, value, row) update arrays.
-
-    Each chunk reads TAIL_CHUNK contiguous positions from ``starts``; lanes
-    past the chunk's length get value 0 (padding for the scatter).
-    INVARIANT: ``doc_ids``/``impacts`` end in >= TAIL_CHUNK zeros (the engine
-    pads at init), so a partial chunk at the array end never reads out of
-    bounds."""
-    offs = torch.arange(TAIL_CHUNK, dtype=torch.int32, device=starts.device)[None, :]
-    pos = (starts[:, None] + offs).reshape(-1)
-    valid = (offs < lengths[:, None]).reshape(-1)
-    d = doc_ids.index_select(0, pos)
-    v = torch.where(valid, impacts.index_select(0, pos), 0.0)
-    r = rows[:, None].expand(-1, TAIL_CHUNK).reshape(-1)
-    return d, v, r
-
-
 def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool):
     """Exact integer top-k over the real docs.  When the padded width is a
     whole number of selection blocks the padding stays (its columns score
@@ -180,10 +165,10 @@ class HybridSearchEngine:
         self.use_kernels = resolve_use_kernels(self.device, use_kernels)
         if self.use_kernels:
             self._accumulate_rows = gather_rows.accumulate_rows
-            self._apply_tail_updates = scatter_scores.apply_tail_updates
+            self._apply_tail_chunks = scatter_scores.apply_tail_chunks
         else:
             self._accumulate_rows = gather_rows.accumulate_rows_plain
-            self._apply_tail_updates = scatter_scores.apply_tail_updates_plain
+            self._apply_tail_chunks = scatter_scores.apply_tail_chunks_plain
         self.vocab: Dict[str, int] = index.term_to_id
         self.num_docs = max(int(index.num_docs), 1)
         if self.num_docs >= 2**31:
@@ -230,8 +215,7 @@ class HybridSearchEngine:
             self.dense = torch.zeros(1, self.n_pad, dtype=torch.bfloat16, device=dev)
 
         # Tail postings in term order; term_start is each term's position
-        # among them (heavy terms: 0, dense-only, never gathered).  The
-        # TAIL_CHUNK trailing zeros keep every chunk read in bounds.
+        # among them (heavy terms: 0, dense-only, never gathered).
         tail_len = np.where(is_heavy, 0, lengths)
         self.term_start = np.zeros(len(lengths), dtype=np.int64)
         np.cumsum(tail_len[:-1], out=self.term_start[1:])
@@ -241,12 +225,8 @@ class HybridSearchEngine:
             t_docs, t_vals = doc_ids[tail_mask], impacts[tail_mask]
         else:
             t_docs, t_vals = doc_ids, impacts
-        self.doc_ids = torch.from_numpy(
-            np.concatenate([t_docs.view(np.int32), np.zeros(TAIL_CHUNK, np.int32)])
-        ).to(dev)
-        self.impacts = torch.from_numpy(
-            np.concatenate([t_vals, np.zeros(TAIL_CHUNK, np.uint8)])
-        ).to(dev).float()
+        self.doc_ids = torch.from_numpy(t_docs.astype(np.int32)).to(dev)
+        self.impacts = torch.from_numpy(np.ascontiguousarray(t_vals)).to(dev).float()
         self._released = False
 
     def _tables(self, query_term_sets: Sequence[Set[str]]):
@@ -283,8 +263,9 @@ class HybridSearchEngine:
     def stage_inputs(self, query_term_sets: Sequence[Set[str]]):
         """One batch's inputs to the two scoring stages, on the engine's
         device: ``heavy`` = (ids, pairs, counts) for ``accumulate_rows``,
-        ``tail`` = (d, v, r) for ``apply_tail_updates``; each is None when
-        no query term falls in that stage."""
+        ``tail`` = the chunk table (starts, lengths, rows) of TAIL_CHUNK
+        windows into ``doc_ids``/``impacts`` for ``apply_tail_chunks``;
+        each is None when no query term falls in that stage."""
         heavy_q, heavy_rows, starts, lengths, rows = self._tables(query_term_sets)
         dev = self.device
 
@@ -300,7 +281,7 @@ class HybridSearchEngine:
                 put([len(uniq), len(heavy_q)]),
             )
         if len(starts):
-            tail = _gather_tail(self.doc_ids, self.impacts, put(starts), put(lengths), put(rows))
+            tail = (put(starts), put(lengths), put(rows))
         return heavy, tail
 
     def warmup(self, max_batch: int = 64, top_k: Optional[int] = None) -> int:
@@ -357,7 +338,7 @@ class HybridSearchEngine:
         else:
             scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=dev)
         if tail is not None:
-            scores = self._apply_tail_updates(scores, *tail)
+            scores = self._apply_tail_chunks(scores, self.doc_ids, self.impacts, *tail, TAIL_CHUNK)
         vals, idx = _finish_topk(scores, self.num_docs, k, self.use_kernels)
         del scores
         # one host copy per batch: [nq, 2, k] int32 (scores bit-cast)

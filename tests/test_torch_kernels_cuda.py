@@ -7,8 +7,8 @@ there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
 Integer impacts keep every fp32 sum exact and counts are integers, so the
-query kernels' comparisons (``gather_rows``, ``scatter_scores``,
-``count_ge``, the blocked scoring kernel) are equality.  ``short_attention`` is held to its plain version within two
+query kernels' comparisons (``gather_rows``, both ``scatter_scores``
+entries, ``count_ge``, the blocked scoring kernel) are equality.  ``short_attention`` is held to its plain version within two
 bf16 ulps of the largest output: both round the same fp32 context to bf16
 once, and only the fp32 summation order differs.
 """
@@ -62,17 +62,80 @@ def test_gather_kernel_equals_plain(cuda, dtype):
     assert torch.equal(got, want)
 
 
-@pytest.mark.cuda
-def test_scatter_kernel_equals_plain(cuda):
-    g, dev = cuda, "cuda"
+def _scatter_case(name, g):
+    """(base scores, d, v, r) flat updates on the card.  v == 0 marks
+    padding; the out_of_range case holds docs and rows outside the matrix,
+    which the kernel drops."""
+    dev = "cuda"
     nq, n_pad, e = 67, 3 * TILE + 1024, 200_003
+    if name == "narrow":  # a matrix narrower than one warp's sweep
+        nq, n_pad, e = 5, 7, 5000
+    e = {"one_update": 1, "no_update": 0, "one_cell": 10_000}.get(name, e)
+
+    def ints(lo, hi, n=e):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev).int()
+
+    d, r, v = ints(0, n_pad), ints(0, nq), ints(0, 256).float()
+    if name == "one_row":
+        r.fill_(nq // 2)
+    elif name == "one_cell":  # 10,000 adds to one cell
+        d.fill_(n_pad - 1)
+        r.fill_(3)
+        v = ints(1, 256).float()
+    elif name == "edges":  # the first and last doc of each row, tile edges
+        edges = torch.tensor([0, TILE - 1, TILE, n_pad - 1], device=dev, dtype=torch.int32)
+        d = edges[ints(0, len(edges))]
+        r = torch.where(ints(0, 2) == 0, 0, nq - 1).int()
+    elif name == "out_of_range":
+        bad = ints(0, 6)
+        d = torch.where(bad == 0, n_pad + ints(0, 9), torch.where(bad == 1, -1 - ints(0, 9), d))
+        r = torch.where(bad == 2, nq + ints(0, 3), torch.where(bad == 3, -1 - ints(0, 3), r))
     base = torch.randint(0, 300, (nq, n_pad), generator=g, device=dev).float()
-    d = torch.randint(0, n_pad, (e,), generator=g, device=dev).int()
-    v = torch.randint(0, 256, (e,), generator=g, device=dev).float()  # zeros: padding
-    r = torch.randint(0, nq, (e,), generator=g, device=dev).int()
+    return base, d, v, r
+
+
+_SCATTER_CASES = ["random", "one_row", "one_cell", "edges", "out_of_range",
+                  "one_update", "no_update", "narrow"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["flat", "chunks"])
+@pytest.mark.parametrize("name", _SCATTER_CASES)
+def test_scatter_kernel_equals_plain(cuda, name, entry):
+    """Both entries against the plain version on the in-range updates.  The
+    chunk entry takes the same updates as a table of one-slot chunks
+    (starts = positions, lengths 1, rows = r)."""
+    base, d, v, r = _scatter_case(name, cuda)
+    nq, n_pad = base.shape
+    keep = (d >= 0) & (d < n_pad) & (r >= 0) & (r < nq)
+    want = ss.apply_tail_updates_plain(base.clone(), d[keep], v[keep], r[keep])
     before = ss.KERNEL.launches
-    got = ss.apply_tail_updates(base.clone(), d, v, r)
-    want = ss.apply_tail_updates_plain(base.clone(), d, v, r)
+    if entry == "flat":
+        got = ss.apply_tail_updates(base.clone(), d, v, r)
+    else:
+        pos = torch.arange(d.numel(), device="cuda", dtype=torch.int32)
+        got = ss.apply_tail_chunks(base.clone(), d, v, pos, torch.ones_like(pos), r, 1)
+    torch.cuda.synchronize()
+    assert ss.KERNEL.launches == before + (d.numel() > 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [7, 512, 1024, 2048])
+def test_scatter_chunks_kernel_equals_plain(cuda, chunk):
+    """Random tables over posting arrays with -1 docs: lengths past the
+    chunk, empty chunks, rows of 67 queries, chunk not a power of two."""
+    g, dev = cuda, "cuda"
+    nq, n_pad, n_post, n_chunks = 67, 3 * TILE + 1024, 3_000_000, 20_000
+    docs = torch.randint(-1, n_pad, (n_post,), generator=g, device=dev).int()
+    vals = torch.randint(1, 256, (n_post,), generator=g, device=dev).float()
+    starts = torch.randint(0, n_post - chunk - 3, (n_chunks,), generator=g, device=dev).int()
+    lengths = torch.randint(0, chunk + 3, (n_chunks,), generator=g, device=dev).int()
+    rows = torch.randint(0, nq, (n_chunks,), generator=g, device=dev).int()
+    base = torch.randint(0, 300, (nq, n_pad), generator=g, device=dev).float()
+    before = ss.KERNEL.launches
+    got = ss.apply_tail_chunks(base.clone(), docs, vals, starts, lengths, rows, chunk)
+    want = ss.apply_tail_chunks_plain(base.clone(), docs, vals, starts, lengths, rows, chunk)
     torch.cuda.synchronize()
     assert ss.KERNEL.launches == before + 1
     assert torch.equal(got, want)
@@ -273,7 +336,11 @@ def test_other_engines_on_card_equal_cpu(cuda):
     idx, batch = _gap_and_edge_index()
     b0, c0 = ps.KERNEL.launches, COUNT_KERNEL.launches
     for cls in (ps.PallasBlockedEngine, DeviceSearchEngine, DenseSearchEngine):
+        s0 = ss.KERNEL.launches
         got = cls(idx, device="cuda").score_batch(batch, 100)
+        # the blocked engine's tail and the device engine's scatter take the
+        # chunk entry; the dense engine has no tail
+        assert (ss.KERNEL.launches > s0) == (cls is not DenseSearchEngine), cls
         assert got == cls(idx, device="cuda", use_kernels=False).score_batch(batch, 100), cls
         assert got == cls(idx, device="cpu").score_batch(batch, 100), cls
     assert ps.KERNEL.launches > b0 and COUNT_KERNEL.launches > c0
