@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: the query path at MS MARCO passage
-scale, every query engine on the same index, and the encode path at
-BERT-base width.
+scale, every query engine on the same index, and the encode path and
+training at BERT-base width.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -62,8 +62,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
    with impacts within that tolerance.  Steady-state encode docs/s
    (unpacked and packed) and a profiler window over 4 encode batches.
 
-The second-to-last line is the ``kernels`` JSON object (five rows), the
-last line ``{"ok": true, "device": {...}}``.
+8. Training: BERT-base at S=256 on phase 7's seeded checkpoint and phase
+   6's corpus and vocabulary, with seeded triples (each query 3-4 words of
+   its positive passage, the negative another passage; 16 steps' worth of
+   128 query groups).  Check 1: on one packed batch the kernel route's loss
+   is within 1% of ``use_kernels=False``'s, the global gradient norm within
+   2%, the gradients' cosine >= 0.99; a profiler window of 2 steps gives the
+   device time by kernel kind and by region (forward and loss, the
+   attention backward's recompute, the clipped AdamW step).  Check 2:
+   ``cli.train`` (packed, its default) for 12 steps with launch counts set
+   to 0 just before and read just after: ``short_attention`` must have
+   launched 12 x 12 times (the backward launches none); every logged loss
+   finite; snapshots at steps 6 and 12, latest and final, with their step.
+   Check 3: ``cli.train --no_pack`` for 4 steps.  Steady steps/s and docs/s
+   (the first 2 steps and the steps that wrote checkpoints left out) and
+   peak memory for both.  Check 4:
+   ``cli.index --checkpoint <final>`` over 512 passages writes the forward
+   index the trained model gives in process: identical term lists and
+   impacts.
+
+The second-to-last line is the ``kernels`` JSON object (five rows; the
+``short_attention`` row's launches count ``cli.index`` and ``cli.train``),
+the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -95,6 +115,14 @@ ENCODE = SimpleNamespace(
     passages=32_768, words=50_000, mean_words=60, max_length=256, batch=512,
     check_docs=512, profile_batches=4, rank_queries=4, query_terms=4, seed=0,
     device="cuda", workdir=REPO / "build" / "chip_smoke_encode",
+)
+# The training configuration: BERT-base at S=256 over phase 6's corpus,
+# vocabulary and seeded checkpoint, 128 query groups (256 documents) a step,
+# the JAX package's realistic training geometry (benchmarks/train_bench.py
+# --realistic --batch 128); triples for 16 such steps.
+TRAIN = SimpleNamespace(
+    groups=128, triples=16 * 128, steps=12, save_every=6, unpacked_steps=4,
+    index_docs=512, profile_steps=2, seed=0, device="cuda",
 )
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
@@ -440,12 +468,16 @@ def blocked_row(blocked, batch):
     return row
 
 
-def profile_window(fn, top: int = 12) -> dict:
+def profile_window(fn, top: int = 12, annotations=()) -> dict:
     """Where a window's time goes: torch.profiler over ``fn()``; device time
     by kernel (device-side events only, so an operator and its kernel never
     count twice) and the device's busy share of the window's wall time (one
-    stream: its kernels do not overlap).  The profiler's own overhead
-    stretches the wall time."""
+    stream: its kernels do not overlap).  ``annotations``: names of
+    ``record_function`` regions inside ``fn``; each gets the device time of
+    the kernels launched within it from the region's own thread (autograd
+    runs a CUDA backward on a thread of its own, so a region around
+    ``backward()`` would see none of its kernels).  The profiler's own
+    overhead stretches the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -454,20 +486,57 @@ def profile_window(fn, top: int = 12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    # a record_function region (this script's or PyTorch's own, such as the
+    # optimizer's step) also shows as a device-side span: not a kernel
     ops = [
         (e.key, e.count, e.self_device_time_total / 1e3)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
+        for e in averages
+        if e.device_type == DeviceType.CUDA and e.key not in annotations
+        and not getattr(e, "is_user_annotation", False)
     ]
     ops = sorted((o for o in ops if o[2] > 0), key=lambda o: -o[2])
     device_ms = sum(o[2] for o in ops)
-    return {
+    regions = {e.key: {"calls": e.count, "device_ms": e.device_time_total / 1e3}
+               for e in averages if e.key in annotations and e.device_type == DeviceType.CPU}
+    out = {
         "wall_ms": wall_ms,
         "device_ms": device_ms if ops else "not measured",
         "device_busy_share": device_ms / wall_ms if ops else "not measured",
         "top_kernels": [{"kernel": k[:100], "calls": c, "ms": ms,
                          "share": ms / device_ms} for k, c, ms in ops[:top]],
     }
+    if annotations:
+        out["regions"] = {name: regions.get(name, "not measured") for name in annotations}
+        out["by_kind"] = kernel_kinds(ops)
+    return out
+
+
+def kernel_kinds(ops) -> dict:
+    """Device ms by kind of kernel, from the kernel names."""
+    kinds = {}
+    for name, _, ms in ops:
+        low = name.lower()
+        if "short_attention" in low:
+            kind = "short_attention"
+        elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+            kind = "gemm"
+        elif "multi_tensor_apply" in low or "adam" in low:
+            kind = "multi_tensor (AdamW, clip, norms)"
+        elif "softmax" in low:
+            kind = "softmax"
+        elif "layer_norm" in low or "layernorm" in low:
+            kind = "layer_norm"
+        elif "reduce" in low:
+            kind = "reductions"
+        elif "elementwise" in low or "vectorized" in low:
+            kind = "elementwise"
+        elif "memcpy" in low or "memset" in low or "copy" in low:
+            kind = "copies"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    return dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
 
 
 # -- phases ------------------------------------------------------------------------
@@ -876,7 +945,7 @@ def steady_docs_per_s(indexer, docs, first_batch_docs: int) -> dict:
             "steady_docs_per_s": (n - first_batch_docs) / (t_end - t_first)}
 
 
-def run_encode(cfg) -> dict:
+def run_encode(cfg, workdir: Path) -> dict:
     from improving_learned_index_tpu_torch.cli.build_vocab import main as build_vocab_main
     from improving_learned_index_tpu_torch.cli.index import main as index_main
     from improving_learned_index_tpu_torch.cli.invert import main as invert_main
@@ -892,9 +961,6 @@ def run_encode(cfg) -> dict:
 
     kernels = all_kernels()
     dev = torch.device(cfg.device)
-    workdir = Path(cfg.workdir)
-    shutil.rmtree(workdir, ignore_errors=True)
-    workdir.mkdir(parents=True)
     config = EncoderConfig.bert_base()
     heads, hd = config.num_heads, config.hidden_size // config.num_heads
     timings = {}
@@ -907,185 +973,375 @@ def run_encode(cfg) -> dict:
         timings[name] = time.perf_counter() - t0
         return out
 
-    try:
-        log("== phase 6: synthetic corpus, vocab, short_attention against its plain version")
-        passages = timed("corpus_s", lambda: make_passages(cfg))
-        coll = workdir / "collection.tsv"
-        coll.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages)), encoding="utf-8")
-        vocab_path = workdir / "vocab.txt"
-        timed("cli_build_vocab_s", lambda: build_vocab_main(
-            ["--collection_path", str(coll), "--output_path", str(vocab_path)]))
-        tok = ImpactTokenizer(WordPieceVocab.load(vocab_path), max_length=cfg.max_length)
-        encs = timed("tokenize_s", lambda: [tok.process_document(p) for p in passages])
-        lengths = np.array([sum(e.attention_mask) for e in encs])
-        packer = SequencePacker(cfg.max_length, cfg.batch, cfg.max_length)
-        packed_batches = [bt for e in encs for bt in packer.add(e)] + list(packer.flush())
-        corpus = {"passages": len(passages), "vocab": len(tok.vocab),
-                  "mean_tokens": float(lengths.mean()), "truncated": int((lengths == cfg.max_length).sum()),
-                  "batches": -(-len(passages) // cfg.batch), "packed_batches": len(packed_batches)}
-        log(f"corpus: {json.dumps(corpus)}")
+    log("== phase 6: synthetic corpus, vocab, short_attention against its plain version")
+    passages = timed("corpus_s", lambda: make_passages(cfg))
+    coll = workdir / "collection.tsv"
+    coll.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages)), encoding="utf-8")
+    vocab_path = workdir / "vocab.txt"
+    timed("cli_build_vocab_s", lambda: build_vocab_main(
+        ["--collection_path", str(coll), "--output_path", str(vocab_path)]))
+    tok = ImpactTokenizer(WordPieceVocab.load(vocab_path), max_length=cfg.max_length)
+    encs = timed("tokenize_s", lambda: [tok.process_document(p) for p in passages])
+    lengths = np.array([sum(e.attention_mask) for e in encs])
+    packer = SequencePacker(cfg.max_length, cfg.batch, cfg.max_length)
+    packed_batches = [bt for e in encs for bt in packer.add(e)] + list(packer.flush())
+    corpus = {"passages": len(passages), "vocab": len(tok.vocab),
+              "mean_tokens": float(lengths.mean()), "truncated": int((lengths == cfg.max_length).sum()),
+              "batches": -(-len(passages) // cfg.batch), "packed_batches": len(packed_batches)}
+    log(f"corpus: {json.dumps(corpus)}")
 
-        rng = np.random.default_rng(cfg.seed + 1)
-        b, s = cfg.batch, cfg.max_length
-        q, k, v = (
-            torch.from_numpy(rng.standard_normal((b, s, heads, hd), dtype=np.float32) * 1.5)
-            .to(dev, torch.bfloat16).permute(0, 2, 1, 3)
-            for _ in range(3)
-        )
-        pad_mask = torch.from_numpy(np.asarray([e.attention_mask for e in encs[:b]], np.int32)).to(dev)
-        seg_ids = torch.from_numpy(packed_batches[0].segment_ids).to(dev)
-        a_row = attention_row(q, k, v, pad_mask, seg_ids)
-        del q, k, v
-        log(f"short_attention: within tolerance of plain; {json.dumps(a_row)}")
+    rng = np.random.default_rng(cfg.seed + 1)
+    b, s = cfg.batch, cfg.max_length
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((b, s, heads, hd), dtype=np.float32) * 1.5)
+        .to(dev, torch.bfloat16).permute(0, 2, 1, 3)
+        for _ in range(3)
+    )
+    pad_mask = torch.from_numpy(np.asarray([e.attention_mask for e in encs[:b]], np.int32)).to(dev)
+    seg_ids = torch.from_numpy(packed_batches[0].segment_ids).to(dev)
+    a_row = attention_row(q, k, v, pad_mask, seg_ids)
+    del q, k, v
+    log(f"short_attention: within tolerance of plain; {json.dumps(a_row)}")
 
-        log("== phase 7: encode main path (cli.index -> quantize -> invert -> rank on the card)")
-        fwd, qfwd, idx = workdir / "forward.txt", workdir / "forward.q.txt", workdir / "index"
-        bert = workdir / "bert"
-        timed("checkpoint_s", lambda: write_bert_checkpoint(bert, config, cfg.seed))
-        common = ["--collection_path", str(coll), "--vocab_path", str(vocab_path),
-                  "--max_length", str(cfg.max_length), "--model_batch_size", str(cfg.batch),
-                  "--hf_name", str(bert), "--device", cfg.device]
-        for kern in kernels:
-            kern.launches = 0
-        timed("cli_index_s", lambda: index_main(common + ["--output_file_path", str(fwd)]))
-        launches = {kern.name: kern.launches for kern in kernels}
-        log(f"cli.index: {len(passages)} passages in {timings['cli_index_s']:.1f} s; launches {launches}")
-        want = config.num_layers * corpus["batches"]
-        if launches["short_attention"] != want:
-            raise AssertionError(f"short_attention launched {launches['short_attention']} times, want {want}")
-        a_row["launches"] = launches["short_attention"]
+    log("== phase 7: encode main path (cli.index -> quantize -> invert -> rank on the card)")
+    fwd, qfwd, idx = workdir / "forward.txt", workdir / "forward.q.txt", workdir / "index"
+    bert = workdir / "bert"
+    timed("checkpoint_s", lambda: write_bert_checkpoint(bert, config, cfg.seed))
+    common = ["--collection_path", str(coll), "--vocab_path", str(vocab_path),
+              "--max_length", str(cfg.max_length), "--model_batch_size", str(cfg.batch),
+              "--hf_name", str(bert), "--device", cfg.device]
+    for kern in kernels:
+        kern.launches = 0
+    timed("cli_index_s", lambda: index_main(common + ["--output_file_path", str(fwd)]))
+    launches = {kern.name: kern.launches for kern in kernels}
+    log(f"cli.index: {len(passages)} passages in {timings['cli_index_s']:.1f} s; launches {launches}")
+    want = config.num_layers * corpus["batches"]
+    if launches["short_attention"] != want:
+        raise AssertionError(f"short_attention launched {launches['short_attention']} times, want {want}")
+    a_row["launches"] = launches["short_attention"]
 
-        timed("cli_quantize_s", lambda: quantize_main(["-i", str(fwd), "-o", str(qfwd)]))
-        timed("cli_invert_s", lambda: invert_main(["-i", str(qfwd), "-o", str(idx)]))
+    timed("cli_quantize_s", lambda: quantize_main(["-i", str(fwd), "-o", str(qfwd)]))
+    timed("cli_invert_s", lambda: invert_main(["-i", str(qfwd), "-o", str(idx)]))
 
-        # the kernel route against the plain one on the first passages, and
-        # both against the CLI's forward index (same seed, same batches)
-        weights = load_hf_checkpoint(bert, config)
-        model = DeepImpact(config, tok, state_dict=weights, device=cfg.device)
-        plain = DeepImpact(config, tok, state_dict=weights, device=cfg.device, use_kernels=False)
-        head = passages[: cfg.check_docs]
-        got = [dict(x) for x in model.get_impact_scores_batch(head)]
-        ref = [dict(x) for x in plain.get_impact_scores_batch(head)]
-        peak = max(max(d.values(), default=0.0) for d in ref)
-        scored = sum(v > 0 for d in ref for v in d.values()) / max(sum(map(len, ref)), 1)
-        if not 0.05 < scored < 0.95:
-            raise AssertionError(f"degenerate model: {scored:.3f} of the terms score above 0")
-        # The two routes differ only in attention's fp32 summation order, but
-        # every activation is bf16: where one attention output lands one bf16
-        # ulp (2^-8 relative) apart, the difference rides through 12 layers
-        # of bf16 roundings, and the head sums 768 such hidden values (one
-        # ulp of each, with random signs, moves an impact by ~0.01 at this
-        # head's scale).  Tolerance: every impact within 5% of the largest,
-        # the mean difference within 0.2% of it.
-        tol = (0.05 * peak, 0.002 * peak)
-        err_plain = impacts_close(got, ref, *tol, "kernel route vs plain")
-        fwd_docs = parse_forward(fwd)
-        # the same batch through the same kernels: equal up to round(v, 3)
-        err_cli = impacts_close(fwd_docs[: cfg.check_docs], [{t: round(x, 3) for t, x in d.items()} for d in got],
-                                1.5e-3, 1.5e-3, "cli.index vs the kernel route")
-        log(f"kernel route vs plain on {len(head)} passages: max |diff| {err_plain} "
-            f"(tolerance {tol}, largest impact {peak}, {scored:.3f} of terms above 0); "
-            f"vs cli.index {err_cli}")
-        del plain
+    # the kernel route against the plain one on the first passages, and
+    # both against the CLI's forward index (same seed, same batches)
+    weights = load_hf_checkpoint(bert, config)
+    model = DeepImpact(config, tok, state_dict=weights, device=cfg.device)
+    plain = DeepImpact(config, tok, state_dict=weights, device=cfg.device, use_kernels=False)
+    head = passages[: cfg.check_docs]
+    got = [dict(x) for x in model.get_impact_scores_batch(head)]
+    ref = [dict(x) for x in plain.get_impact_scores_batch(head)]
+    peak = max(max(d.values(), default=0.0) for d in ref)
+    scored = sum(v > 0 for d in ref for v in d.values()) / max(sum(map(len, ref)), 1)
+    if not 0.05 < scored < 0.95:
+        raise AssertionError(f"degenerate model: {scored:.3f} of the terms score above 0")
+    # The two routes differ only in attention's fp32 summation order, but
+    # every activation is bf16: where one attention output lands one bf16
+    # ulp (2^-8 relative) apart, the difference rides through 12 layers
+    # of bf16 roundings, and the head sums 768 such hidden values (one
+    # ulp of each, with random signs, moves an impact by ~0.01 at this
+    # head's scale).  Tolerance: every impact within 5% of the largest,
+    # the mean difference within 0.2% of it.
+    tol = (0.05 * peak, 0.002 * peak)
+    err_plain = impacts_close(got, ref, *tol, "kernel route vs plain")
+    fwd_docs = parse_forward(fwd)
+    # the same batch through the same kernels: equal up to round(v, 3)
+    err_cli = impacts_close(fwd_docs[: cfg.check_docs], [{t: round(x, 3) for t, x in d.items()} for d in got],
+                            1.5e-3, 1.5e-3, "cli.index vs the kernel route")
+    log(f"kernel route vs plain on {len(head)} passages: max |diff| {err_plain} "
+        f"(tolerance {tol}, largest impact {peak}, {scored:.3f} of terms above 0); "
+        f"vs cli.index {err_cli}")
+    del plain
 
-        index = InvertedIndexData.load(idx)
-        postings = {}
-        for doc, d in enumerate(parse_forward(qfwd)):
-            for t, val in d.items():
-                postings.setdefault(t, []).append((-int(val), doc))
-        if index.vocab != sorted(postings):
-            raise AssertionError("inverted vocabulary != the quantized forward index's terms")
-        for t, term in enumerate(index.vocab):
-            ref_docs = sorted(postings[term])
-            s0, e0 = index.offsets[t], index.offsets[t + 1]
-            if (index.doc_ids[s0:e0].tolist() != [dd for _, dd in ref_docs]
-                    or index.impacts[s0:e0].tolist() != [-vv for vv, _ in ref_docs]):
-                raise AssertionError(f"postings of {term!r} differ from the numpy inversion")
-        if index.num_postings < len(passages):
-            raise AssertionError(f"only {index.num_postings} postings for {len(passages)} passages")
-        log(f"inverted index: {len(index.vocab)} terms, {index.num_postings} postings, "
-            "equal to the numpy inversion")
+    index = InvertedIndexData.load(idx)
+    postings = {}
+    for doc, d in enumerate(parse_forward(qfwd)):
+        for t, val in d.items():
+            postings.setdefault(t, []).append((-int(val), doc))
+    if index.vocab != sorted(postings):
+        raise AssertionError("inverted vocabulary != the quantized forward index's terms")
+    for t, term in enumerate(index.vocab):
+        ref_docs = sorted(postings[term])
+        s0, e0 = index.offsets[t], index.offsets[t + 1]
+        if (index.doc_ids[s0:e0].tolist() != [dd for _, dd in ref_docs]
+                or index.impacts[s0:e0].tolist() != [-vv for vv, _ in ref_docs]):
+            raise AssertionError(f"postings of {term!r} differ from the numpy inversion")
+    if index.num_postings < len(passages):
+        raise AssertionError(f"only {index.num_postings} postings for {len(passages)} passages")
+    log(f"inverted index: {len(index.vocab)} terms, {index.num_postings} postings, "
+        "equal to the numpy inversion")
 
-        qrng = np.random.default_rng(cfg.seed + 2)
-        lens = np.diff(index.offsets)
-        pick = np.argsort(-lens, kind="stable")[:2000]
-        queries = [qrng.choice(pick, cfg.query_terms, replace=False).tolist() for _ in range(cfg.rank_queries)]
-        qpath, run_file = workdir / "queries.tsv", workdir / "run.tsv"
-        qpath.write_text("".join(f"{i}\t{' '.join(index.vocab[t] for t in qt)}\n"
-                                 for i, qt in enumerate(queries)), encoding="utf-8")
-        timed("cli_rank_s", lambda: rank_main([
-            "--index_path", str(idx), "--queries_path", str(qpath), "--output_path", str(run_file),
-            "--vocab_path", str(vocab_path), "--top_k", "1000", "--device", cfg.device]))
-        ranked = {}
-        for line in run_file.read_text().splitlines():
-            qid, pid, _, score = line.split("\t")
-            ranked.setdefault(qid, []).append((pid, float(score)))
-        for qi, qt in enumerate(queries):
-            want_q = numpy_topk(index.offsets, index.doc_ids, index.impacts, index.num_docs, qt, 1000)
-            if not want_q or ranked.get(str(qi), []) != want_q:
-                raise AssertionError(f"encode-path query {qi}: run file differs from the numpy scorer")
-        log(f"{cfg.rank_queries} queries over the port-built index match the numpy scorer rank by rank")
-        t0 = time.perf_counter()
-        dense = DenseSearchEngine(index, device=cfg.device)
-        dense_rows = dense.score_batch([{index.vocab[t] for t in qt} for qt in queries], 1000)
-        timings["dense_engine_s"] = time.perf_counter() - t0
-        for qi, res in enumerate(dense_rows):
-            if [(str(d), float(sc)) for d, sc in res] != ranked.get(str(qi), []):
-                raise AssertionError(f"DenseSearchEngine differs from the run file at encode query {qi}")
-        log(f"DenseSearchEngine ({list(dense.impact_matrix.shape)} {dense.impact_matrix.dtype}) returns "
-            f"the same rows for the {cfg.rank_queries} queries")
-        del dense
+    qrng = np.random.default_rng(cfg.seed + 2)
+    lens = np.diff(index.offsets)
+    pick = np.argsort(-lens, kind="stable")[:2000]
+    queries = [qrng.choice(pick, cfg.query_terms, replace=False).tolist() for _ in range(cfg.rank_queries)]
+    qpath, run_file = workdir / "queries.tsv", workdir / "run.tsv"
+    qpath.write_text("".join(f"{i}\t{' '.join(index.vocab[t] for t in qt)}\n"
+                             for i, qt in enumerate(queries)), encoding="utf-8")
+    timed("cli_rank_s", lambda: rank_main([
+        "--index_path", str(idx), "--queries_path", str(qpath), "--output_path", str(run_file),
+        "--vocab_path", str(vocab_path), "--top_k", "1000", "--device", cfg.device]))
+    ranked = {}
+    for line in run_file.read_text().splitlines():
+        qid, pid, _, score = line.split("\t")
+        ranked.setdefault(qid, []).append((pid, float(score)))
+    for qi, qt in enumerate(queries):
+        want_q = numpy_topk(index.offsets, index.doc_ids, index.impacts, index.num_docs, qt, 1000)
+        if not want_q or ranked.get(str(qi), []) != want_q:
+            raise AssertionError(f"encode-path query {qi}: run file differs from the numpy scorer")
+    log(f"{cfg.rank_queries} queries over the port-built index match the numpy scorer rank by rank")
+    t0 = time.perf_counter()
+    dense = DenseSearchEngine(index, device=cfg.device)
+    dense_rows = dense.score_batch([{index.vocab[t] for t in qt} for qt in queries], 1000)
+    timings["dense_engine_s"] = time.perf_counter() - t0
+    for qi, res in enumerate(dense_rows):
+        if [(str(d), float(sc)) for d, sc in res] != ranked.get(str(qi), []):
+            raise AssertionError(f"DenseSearchEngine differs from the run file at encode query {qi}")
+    log(f"DenseSearchEngine ({list(dense.impact_matrix.shape)} {dense.impact_matrix.dtype}) returns "
+        f"the same rows for the {cfg.rank_queries} queries")
+    del dense
 
-        fwd_p = workdir / "forward.packed.txt"
-        for kern in kernels:
-            kern.launches = 0
-        timed("cli_index_packed_s", lambda: index_main(common + ["--output_file_path", str(fwd_p), "--pack"]))
-        packed_launches = sa.KERNEL.launches
-        if packed_launches != config.num_layers * corpus["packed_batches"]:
-            raise AssertionError(f"packed: short_attention launched {packed_launches} times, "
-                                 f"want {config.num_layers * corpus['packed_batches']}")
-        # other rows, other batch composition: the same bf16 argument, plus
-        # the two files' round(v, 3)
-        err_packed = impacts_close(parse_forward(fwd_p), fwd_docs, tol[0] + 1e-3, tol[1] + 5e-4,
-                                   "packed vs unpacked")
-        log(f"cli.index --pack: same term lists, max |diff| {err_packed} against unpacked; "
-            f"{packed_launches} launches")
+    fwd_p = workdir / "forward.packed.txt"
+    for kern in kernels:
+        kern.launches = 0
+    timed("cli_index_packed_s", lambda: index_main(common + ["--output_file_path", str(fwd_p), "--pack"]))
+    packed_launches = sa.KERNEL.launches
+    if packed_launches != config.num_layers * corpus["packed_batches"]:
+        raise AssertionError(f"packed: short_attention launched {packed_launches} times, "
+                             f"want {config.num_layers * corpus['packed_batches']}")
+    # other rows, other batch composition: the same bf16 argument, plus
+    # the two files' round(v, 3)
+    err_packed = impacts_close(parse_forward(fwd_p), fwd_docs, tol[0] + 1e-3, tol[1] + 5e-4,
+                               "packed vs unpacked")
+    log(f"cli.index --pack: same term lists, max |diff| {err_packed} against unpacked; "
+        f"{packed_launches} launches")
 
-        log("== encode throughput and profile")
-        unpacked_cfg = IndexConfig(max_length=cfg.max_length, max_terms=cfg.max_length,
-                                   model_batch_size=cfg.batch)
-        packed_cfg = IndexConfig(max_length=cfg.max_length, max_terms=cfg.max_length,
-                                 model_batch_size=cfg.batch, pack_sequences=True)
-        rate = steady_docs_per_s(Indexer(model, unpacked_cfg), passages, cfg.batch)
-        rate_p = steady_docs_per_s(Indexer(model, packed_cfg), passages, packed_batches[0].n_docs)
-        log(f"encode: {json.dumps({'unpacked': rate, 'packed': rate_p})} on {torch.cuda.get_device_name(0)}")
-        profiles = {}
-        for name, icfg, per_batch in (("unpacked", unpacked_cfg, cfg.batch),
-                                      ("packed", packed_cfg, packed_batches[0].n_docs)):
-            # skip two batches, profile the next profile_batches (a steady
-            # window, the producer already ahead of the device), drain the rest
-            n_win = cfg.profile_batches * per_batch
-            stream = Indexer(model, icfg).encode_document_rows(passages[: n_win + 3 * per_batch])
-            list(islice(stream, 2 * per_batch))
-            before = sa.KERNEL.launches
-            profiles[name] = dict(profile_window(lambda: list(islice(stream, n_win)), top=15), docs=n_win)
-            # batches whose forward ran inside the window
-            profiles[name]["batches"] = (sa.KERNEL.launches - before) / config.num_layers
-            list(stream)
-        log(json.dumps({"encode_profile": profiles}))
-        return {
-            "row": a_row,
-            "corpus": corpus,
-            "timings_s": timings,
-            "unpacked": rate,
-            "packed": rate_p,
-            "profiles": {k: {"device_busy_share": v["device_busy_share"], "wall_ms": v["wall_ms"]}
-                         for k, v in profiles.items()},
-            "errors": {"kernel_vs_plain": err_plain, "tolerance": tol, "cli_vs_api": err_cli,
-                       "packed_vs_unpacked": err_packed},
-        }
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    log("== encode throughput and profile")
+    unpacked_cfg = IndexConfig(max_length=cfg.max_length, max_terms=cfg.max_length,
+                               model_batch_size=cfg.batch)
+    packed_cfg = IndexConfig(max_length=cfg.max_length, max_terms=cfg.max_length,
+                             model_batch_size=cfg.batch, pack_sequences=True)
+    rate = steady_docs_per_s(Indexer(model, unpacked_cfg), passages, cfg.batch)
+    rate_p = steady_docs_per_s(Indexer(model, packed_cfg), passages, packed_batches[0].n_docs)
+    log(f"encode: {json.dumps({'unpacked': rate, 'packed': rate_p})} on {torch.cuda.get_device_name(0)}")
+    profiles = {}
+    for name, icfg, per_batch in (("unpacked", unpacked_cfg, cfg.batch),
+                                  ("packed", packed_cfg, packed_batches[0].n_docs)):
+        # skip two batches, profile the next profile_batches (a steady
+        # window, the producer already ahead of the device), drain the rest
+        n_win = cfg.profile_batches * per_batch
+        stream = Indexer(model, icfg).encode_document_rows(passages[: n_win + 3 * per_batch])
+        list(islice(stream, 2 * per_batch))
+        before = sa.KERNEL.launches
+        profiles[name] = dict(profile_window(lambda: list(islice(stream, n_win)), top=15), docs=n_win)
+        # batches whose forward ran inside the window
+        profiles[name]["batches"] = (sa.KERNEL.launches - before) / config.num_layers
+        list(stream)
+    log(json.dumps({"encode_profile": profiles}))
+    return {
+        "row": a_row,
+        "passages": passages,
+        "corpus": corpus,
+        "timings_s": timings,
+        "unpacked": rate,
+        "packed": rate_p,
+        "profiles": {k: {"device_busy_share": v["device_busy_share"], "wall_ms": v["wall_ms"]}
+                     for k, v in profiles.items()},
+        "errors": {"kernel_vs_plain": err_plain, "tolerance": tol, "cli_vs_api": err_cli,
+                   "packed_vs_unpacked": err_packed},
+    }
+
+
+# -- training ----------------------------------------------------------------------
+
+
+def write_triples(workdir: Path, passages: list, n: int, seed: int) -> tuple:
+    """Seeded training data over the collection ``passages`` (pid = index):
+    query i is 3-4 distinct words of its positive passage, its negative a
+    random other passage.  Returns the queries and triples paths."""
+    rng = np.random.default_rng(seed + 3)
+    pos = rng.choice(len(passages), n, replace=False)
+    neg = (pos + rng.integers(1, len(passages), n)) % len(passages)
+    queries = []
+    for p in pos:
+        words = [w.rstrip(".") for w in passages[p].split()]
+        pick = rng.choice(len(words), size=min(len(words), int(rng.integers(3, 5))), replace=False)
+        queries.append(" ".join(words[j] for j in sorted(pick)))
+    qpath, tpath = workdir / "train_queries.tsv", workdir / "triples.tsv"
+    qpath.write_text("".join(f"{i}\t{q}\n" for i, q in enumerate(queries)), encoding="utf-8")
+    tpath.write_text("".join(f"{i}\t{a}\t{b}\n" for i, (a, b) in enumerate(zip(pos, neg))), encoding="utf-8")
+    return qpath, tpath
+
+
+def train_metrics(ckpt: Path, steps: int, save_every: int) -> dict:
+    """The CLI's logged steps: every loss finite, each step's seconds
+    (``train/elapsed_s`` is read after the step's loss reached the host and
+    its checkpoints were written), and the steady rate over the steps after
+    the first two that wrote no checkpoint."""
+    records = [json.loads(line) for line in (ckpt / "metrics.txt").read_text().splitlines()]
+    train = [r for r in records if "train/loss" in r]
+    if [r["step"] for r in train] != list(range(1, steps + 1)):
+        raise AssertionError(f"{ckpt.name}: logged steps {[r['step'] for r in train]}, want 1..{steps}")
+    losses = [r["train/loss"] for r in train]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{ckpt.name}: a logged loss is not finite: {losses}")
+    t = [r["train/elapsed_s"] for r in train]
+    step_s = [b - a for a, b in zip(t, t[1:])]  # steps 2..N
+    steady = [d for i, d in enumerate(step_s[1:], start=3) if i % save_every]
+    saving = [d for i, d in enumerate(step_s[1:], start=3) if not i % save_every]
+    return {"losses": losses, "grad_norms": [r["train/grad_norm"] for r in train],
+            "first_two_steps_s": t[1], "step_s": step_s,
+            "steady_steps_per_s": len(steady) / sum(steady),
+            "checkpoint_step_s": saving}
+
+
+def run_train(cfg, workdir: Path, passages: list) -> dict:
+    """Phase 8: training on the card at BERT-base width, S=256."""
+    from improving_learned_index_tpu_torch.cli.index import main as index_main
+    from improving_learned_index_tpu_torch.cli.train import main as train_main
+    from improving_learned_index_tpu_torch.core.checkpoint import load_params
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig, TrainConfig
+    from improving_learned_index_tpu_torch.data.datasets import MSMarcoTriples
+    from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
+    from improving_learned_index_tpu_torch.ops import short_attention as sa
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+    from improving_learned_index_tpu_torch.train import COLLATES, Trainer, make_loss_fn
+    from improving_learned_index_tpu_torch.train.packed import pack_collated
+
+    log("== phase 8: training on the card (BERT-base, S=256, 128 query groups a step)")
+    kernels = all_kernels()
+    config = EncoderConfig.bert_base()
+    max_length = ENCODE.max_length
+    coll, vocab, bert = workdir / "collection.tsv", workdir / "vocab.txt", workdir / "bert"
+    qpath, tpath = write_triples(workdir, passages, cfg.triples, cfg.seed)
+    tok = ImpactTokenizer(WordPieceVocab.load(vocab), max_length=max_length)
+    dataset = MSMarcoTriples(tpath, qpath, coll)
+    out = {}
+
+    # check 1: the kernel route against the plain route on one packed batch
+    model = DeepImpact(config, tok, state_dict=load_hf_checkpoint(bert, config), device=cfg.device)
+    batches = [pack_collated(COLLATES["pairwise_ce"]([dataset[i] for i in range(j, j + cfg.groups)],
+                                                     tok, max_length))
+               for j in range(0, (2 + cfg.profile_steps) * cfg.groups, cfg.groups)]
+    trainer = Trainer(model, TrainConfig(batch_size=cfg.groups, save_every=10**9, eval_every=10**9),
+                      workdir / "ckpt_profile")
+    put = trainer._put_batch(batches[0])
+    routes = {}
+    for use_kernels in (True, False):
+        loss = make_loss_fn(model.module, "pairwise_ce", use_kernels=use_kernels)(put)
+        loss.backward()
+        grads = torch.cat([p.grad.flatten() for p in model.module.parameters()])
+        routes[use_kernels] = (loss.item(), grads)
+        for p in model.module.parameters():
+            p.grad = None
+    (lk, gk), (lp, gp) = routes[True], routes[False]
+    nk, npl = float(gk.norm()), float(gp.norm())
+    cos = float(torch.dot(gk, gp)) / (nk * npl)
+    check1 = {"rows": int(batches[0]["input_ids"].shape[0]), "docs": 2 * cfg.groups,
+              "loss": [lk, lp], "grad_norm": [nk, npl], "cosine": cos}
+    del gk, gp, routes
+    # The same bf16 argument as phase 7's impact tolerance: the forwards
+    # differ by at most two bf16 ulps of an attention output, and the
+    # backwards are one recompute.
+    if not (np.isfinite(lk) and abs(lk - lp) <= 0.01 * abs(lp) and npl > 0
+            and abs(nk - npl) <= 0.02 * npl and cos >= 0.99):
+        raise AssertionError(f"training step: kernel route vs plain route out of tolerance: {check1}")
+    log(f"check 1, kernel route vs plain route on a packed batch: {json.dumps(check1)}")
+    out["kernel_vs_plain"] = check1
+
+    # the step's profile: 2 steps after 2 warm ones, forward + backward + the
+    # clipped AdamW step as Trainer.train takes them (without its checkpoint)
+    def step(batch):
+        loss, norm, grads = trainer._grad_step(trainer._put_batch(batch))
+        trainer._apply_grads(grads, norm)
+        return loss.item()
+
+    for b in batches[:2]:
+        step(b)
+    prof = profile_window(lambda: [step(b) for b in batches[2:]], top=15,
+                          annotations=("train/forward", "short_attention.backward",
+                                       "train/optimizer"))
+    prof["steps"] = cfg.profile_steps
+    out["profile"] = prof
+    log(json.dumps({"train_profile": prof}))
+    del trainer, model, put, batches
+    torch.cuda.empty_cache()
+
+    # check 2: cli.train, packed (its default), counts zeroed just before
+    common = ["--dataset_path", str(tpath), "--queries_path", str(qpath), "--collection_path", str(coll),
+              "--vocab_path", str(vocab), "--hf_name", str(bert), "--max_length", str(max_length),
+              "--batch_size", str(cfg.groups), "--no_beir_eval", "--device", cfg.device]
+    ck = workdir / "ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    train_main(common + ["--checkpoint_dir", str(ck), "--total_steps", str(cfg.steps),
+                         "--save_every", str(cfg.save_every)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in kernels}
+    want = config.num_layers * cfg.steps
+    if launches["short_attention"] != want:
+        raise AssertionError(f"cli.train: short_attention launched {launches['short_attention']} times, "
+                             f"want {want} ({config.num_layers} layers x {cfg.steps} forwards)")
+    packed = dict(train_metrics(ck, cfg.steps, cfg.save_every), wall_s=wall, launches=launches,
+                  peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    packed["steady_docs_per_s"] = packed["steady_steps_per_s"] * 2 * cfg.groups
+    snapshots = {str(cfg.save_every): cfg.save_every, str(cfg.steps): cfg.steps,
+                 "latest": cfg.steps, "final": cfg.steps}
+    for suffix, step_no in snapshots.items():
+        meta_path = ck / f"DeepImpact_{suffix}.meta.json"
+        if not (ck / f"DeepImpact_{suffix}.pt").exists() or not meta_path.exists():
+            raise AssertionError(f"cli.train wrote no {suffix} checkpoint")
+        meta = json.loads(meta_path.read_text())
+        if meta["step"] != step_no or meta["batch_size"] != cfg.groups:
+            raise AssertionError(f"checkpoint {suffix}: meta {meta}, want step {step_no}")
+    log(f"check 2, cli.train packed: {json.dumps(packed)}; checkpoints {sorted(snapshots)} "
+        "with their steps")
+    out["packed"] = packed
+    torch.cuda.empty_cache()
+
+    # check 3: the unpacked layout, for its rate
+    ck_u = workdir / "ckpt_unpacked"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_main(common + ["--checkpoint_dir", str(ck_u), "--total_steps", str(cfg.unpacked_steps),
+                         "--save_every", "1000000", "--no_pack"])
+    torch.cuda.synchronize()
+    unpacked = dict(train_metrics(ck_u, cfg.unpacked_steps, 10**6), wall_s=time.perf_counter() - t0,
+                    peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    unpacked["steady_docs_per_s"] = unpacked["steady_steps_per_s"] * 2 * cfg.groups
+    log(f"check 3, cli.train --no_pack: {json.dumps(unpacked)}")
+    out["unpacked"] = unpacked
+    shutil.rmtree(ck_u, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # check 4: the trained checkpoint through the encode path
+    final = ck / "DeepImpact_final.pt"
+    head = workdir / "index_head.tsv"
+    head.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages[: cfg.index_docs])), encoding="utf-8")
+    fwd = workdir / "forward.trained.txt"
+    index_main(["--collection_path", str(head), "--output_file_path", str(fwd), "--vocab_path", str(vocab),
+                "--max_length", str(max_length), "--model_batch_size", str(cfg.index_docs),
+                "--checkpoint", str(final), "--device", cfg.device])
+    trained = DeepImpact(config, tok, state_dict=load_params(final), device=cfg.device)
+    want_docs = [{t: round(v, 3) for t, v in doc}
+                 for doc in trained.get_impact_scores_batch(passages[: cfg.index_docs])]
+    got_docs = parse_forward(fwd)
+    if len(got_docs) != len(want_docs):
+        raise AssertionError(f"cli.index --checkpoint: {len(got_docs)} documents, want {len(want_docs)}")
+    for i, (g, w) in enumerate(zip(got_docs, want_docs)):
+        if list(g) != list(w):
+            raise AssertionError(f"cli.index --checkpoint: document {i} has other terms")
+        if g != w:
+            raise AssertionError(f"cli.index --checkpoint: document {i}'s impacts differ from the model's")
+    scored = sum(v > 0 for d in want_docs for v in d.values())
+    out["index_check"] = {"docs": len(got_docs), "terms": sum(map(len, got_docs)), "scored": scored}
+    log(f"check 4, cli.index --checkpoint {final.name}: {json.dumps(out['index_check'])}, "
+        "term lists and impacts equal to the trained model's")
+    out["launches"] = launches["short_attention"]
+    return out
 
 
 def main() -> int:
@@ -1107,11 +1363,23 @@ def main() -> int:
     build_kernels()
     query = run_query(SMOKE)
     torch.cuda.empty_cache()
-    encode = run_encode(ENCODE)
+    workdir = Path(ENCODE.workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        encode = run_encode(ENCODE, workdir)
+        torch.cuda.empty_cache()
+        train = run_train(TRAIN, workdir, encode.pop("passages"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    a_row = encode["row"]
+    a_row["launches_by_path"] = {"cli.index": a_row["launches"], "cli.train": train["launches"]}
+    a_row["launches"] += train["launches"]
     log(json.dumps({"query": {k: v for k, v in query.items() if k != "kernels"}}))
     log(json.dumps({"encode": {k: v for k, v in encode.items() if k != "row"}}))
+    log(json.dumps({"train": {k: v for k, v in train.items() if k != "profile"}}))
     g_row, s_row, c_row, b_row = query["kernels"]
-    print(json.dumps({"kernels": [g_row, s_row, encode["row"], c_row, b_row]}))
+    print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,12 @@ Counterpart of ``improving_learned_index_tpu/cli/common.py``: the built-in
 tokenizer over a WordPiece ``vocab.txt`` (``--vocab_path``) with the
 whitespace/punctuation segmenter, and the DeepImpact model kinds
 ``deepimpact``, ``phobert`` and ``xlmr`` with random init, ``--tiny`` or
-``--hf_name`` (a local directory's ``pytorch_model.bin``).  Not ported yet:
-the ``pairwise`` and ``cross_encoder`` kinds, ``--hf_tokenizer``,
-``--segmenter vncorenlp`` and ``--checkpoint`` (msgpack); each raises.
-``--device`` picks the torch device (default ``cuda``).
+``--hf_name`` (a local directory's ``pytorch_model.bin``), then
+``--checkpoint`` (a ``.pt`` file of ``core.checkpoint``: ``DeepImpact.save``
+or a ``cli.train`` snapshot such as ``DeepImpact_final.pt``) over them.  Not
+ported yet: the ``pairwise`` and ``cross_encoder`` kinds, ``--hf_tokenizer``,
+``--segmenter vncorenlp`` and the JAX package's msgpack checkpoints; each
+raises.  ``--device`` picks the torch device (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def build_tokenizer(args) -> ImpactTokenizer:
 def add_model_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--model_kind", choices=sorted(MODEL_KINDS), default="deepimpact")
     parser.add_argument("--checkpoint", type=Path, default=None,
-                        help="msgpack params checkpoint (not ported yet)")
+                        help="params checkpoint (.pt, core.checkpoint)")
     parser.add_argument("--hf_name", type=str, default=None,
                         help="local HF model directory (pytorch_model.bin) to "
                         "import trunk weights from")
@@ -67,13 +69,12 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
 
 
 def build_model(args):
+    from ..core.checkpoint import load_params
     from ..models.deep_impact import DeepImpact
     from ..models.hf_import import load_hf_checkpoint
 
     if args.model_kind in _NOT_PORTED_KINDS:
         raise NotImplementedError(f"--model_kind {args.model_kind} is not ported yet")
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint (msgpack, core/checkpoint.py) is not ported yet")
     tokenizer = build_tokenizer(args)
     cfg_factory, activation = MODEL_KINDS[args.model_kind]
     if args.tiny:
@@ -81,4 +82,6 @@ def build_model(args):
     else:
         config = getattr(EncoderConfig, cfg_factory)()
     state_dict = load_hf_checkpoint(args.hf_name, config) if args.hf_name else None
+    if args.checkpoint:
+        state_dict = load_params(args.checkpoint)
     return DeepImpact(config, tokenizer, state_dict=state_dict, device=args.device)

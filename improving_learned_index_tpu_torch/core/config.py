@@ -81,7 +81,7 @@ class EncoderConfig:
     # S % 128 == 0 and head dim % 8 == 0 the encoder calls the hand-written
     # kernel (csrc/short_attention.cu on the card), which keeps the fp32
     # [S, S] logits out of device memory; otherwise plain torch attention.
-    # The backward recomputes through the plain version.
+    # The backward recomputes through the JAX package's XLA-route math.
     use_short_attention: bool = True
     # The JAX package's library flash-attention route (TPU only, off by
     # default).  Not ported: the port's encoder ignores it.

@@ -1,5 +1,9 @@
 from .datasets import (
+    Collection,
     CollectionParser,
+    DistilHardNegatives,
+    DistillationScores,
+    MSMarcoTriples,
     Queries,
     QueryParser,
     QueryRelevanceDataset,
@@ -8,7 +12,11 @@ from .datasets import (
 )
 
 __all__ = [
+    "Collection",
     "CollectionParser",
+    "DistilHardNegatives",
+    "DistillationScores",
+    "MSMarcoTriples",
     "Queries",
     "QueryParser",
     "QueryRelevanceDataset",

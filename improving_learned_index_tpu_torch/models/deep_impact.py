@@ -210,13 +210,17 @@ class DeepImpact:
 
     # -- persistence ------------------------------------------------------------
     def save(self, path) -> None:
-        raise NotImplementedError(
-            "msgpack checkpoints (core/checkpoint.py) are not ported yet; "
-            "torch.save(model.module.state_dict(), path) keeps the weights"
-        )
+        """The module's state dict as one ``.pt`` file (``core.checkpoint``)."""
+        from ..core.checkpoint import save_params
+
+        save_params(path, self.module.state_dict())
 
     @classmethod
     def load(cls, config: EncoderConfig, tokenizer, checkpoint_path=None, **kwargs) -> "DeepImpact":
+        """A model from a ``save`` file or a ``Trainer`` snapshot (its params
+        unwrapped); a flax msgpack file raises ``NotImplementedError``."""
         if checkpoint_path is not None:
-            raise NotImplementedError("msgpack checkpoints (core/checkpoint.py) are not ported yet")
+            from ..core.checkpoint import load_params
+
+            kwargs["state_dict"] = load_params(checkpoint_path)
         return cls(config, tokenizer, **kwargs)

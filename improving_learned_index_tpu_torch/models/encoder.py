@@ -20,7 +20,9 @@ Precision is the JAX package's, written as explicit casts (no autocast):
 Attention takes one of two routes, as in the JAX package.  With a mask,
 ``use_short_attention``, S <= 256, S % 128 == 0 and head dim % 8 == 0 it
 calls ``ops.short_attention`` (the hand-written kernel on the card, its
-plain version on the CPU, with -1e9 masking and ``* sm_scale``).  Otherwise
+plain version on the CPU or with ``use_kernels=False``, with -1e9 masking
+and ``* sm_scale``; both forwards share the JAX ``custom_vjp``'s backward,
+a recompute through the XLA route's bf16 math).  Otherwise
 it runs the JAX package's XLA-path math in plain torch ops: logits in the
 compute dtype cast to fp32, ``/ sqrt(hd)``, ``finfo(fp32).min`` masking, an
 fp32 softmax cast back.  That route is not a Pallas kernel in the JAX
@@ -28,7 +30,9 @@ package either.
 
 Parameter layout is torch's: ``Linear`` weights are [out, in]
 (``models.hf_import`` carries the flax [in, out] / [H, heads, hd] /
-[heads, hd, H] kernels across).  Inference only: no dropout, no attention
+[heads, hd, H] kernels across).  The same modules encode and train
+(``train/trainer.py`` differentiates them as the JAX loss differentiates
+the flax module with ``deterministic=True``): no dropout, no attention
 maps, no library flash path (the JAX package's flash route is off by
 default).
 """
@@ -43,11 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import EncoderConfig
-from ..ops.short_attention import (
-    can_use_short_attention,
-    short_attention,
-    short_attention_plain,
-)
+from ..ops.short_attention import can_use_short_attention, short_attention
 
 
 def compute_dtype(config: EncoderConfig) -> torch.dtype:
@@ -134,8 +134,8 @@ class SelfAttention(nn.Module):
             for lin in (self.query, self.key, self.value)
         )
         if attention_bias is None:  # the short-attention route
-            attend = short_attention if use_kernels else short_attention_plain
-            ctx = attend(q, k, v, attention_mask, 1.0 / math.sqrt(hd), packed)
+            ctx = short_attention(q, k, v, attention_mask, 1.0 / math.sqrt(hd), packed,
+                                  use_kernel=use_kernels)
         else:
             logits = torch.matmul(q, k.transpose(-1, -2)).float()
             logits = logits / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))

@@ -16,13 +16,17 @@ packed document), and a token attends only to keys of its own segment
 ``short_attention`` dispatches on the tensors' device: on the CPU it runs
 the plain PyTorch version ``short_attention_plain``, on CUDA it launches the
 hand-written kernel ``csrc/short_attention.cu`` or raises.  There is no
-fallback from one to the other.  Its backward recomputes through the plain
-version under autograd, as the JAX ``custom_vjp`` recomputes through XLA
-(the kernel has no backward).
+fallback from one to the other; ``use_kernel=False`` runs the plain version
+on any device (the encoder's ``use_kernels=False`` route).
 
-The plain version follows the TPU kernel, not the JAX ``_reference_attention``
-that the JAX backward uses: the latter rounds the logits to bf16 (a bf16
-einsum), the kernel keeps them in fp32.
+Its backward is the JAX ``custom_vjp``'s: whichever forward ran, it
+recomputes attention through ``reference_attention`` (a copy of the JAX
+``_reference_attention``) under autograd.  That recompute rounds the logits
+to bf16 (a bf16 product) where the forward keeps them in fp32, so the
+backward differentiates the JAX package's XLA-route math, not the forward's
+(the kernel has no backward, as the TPU kernel has none).  Both routes share
+this one backward, so a gradient on the CPU is the gradient the card
+computes.
 
 Layouts: the kernel reads q, k and v through their strides (TMA tensor maps
 built per call: the head dim contiguous, every other stride a multiple of
@@ -85,6 +89,22 @@ def short_attention_plain(q, k, v, segment_mask, sm_scale: float, packed: bool =
     return torch.matmul(probs.float(), vf).to(q.dtype)
 
 
+def reference_attention(q, k, v, segment_mask, sm_scale: float, packed: bool = False):
+    """The JAX ``_reference_attention`` (the XLA route's math, which its
+    ``custom_vjp`` differentiates): a bf16 q k^T rounded to bf16, then fp32
+    and scaled; the -1e9 bias; an fp32 softmax rounded to bf16; a bf16
+    probs @ v, returned in q's dtype."""
+    bf16 = torch.bfloat16
+    logits = torch.matmul(q.to(bf16), k.to(bf16).transpose(-1, -2)).float() * sm_scale
+    if packed:
+        forbidden = segment_mask[:, None, :, None] != segment_mask[:, None, None, :]
+    else:
+        forbidden = (segment_mask == 0)[:, None, None, :]
+    bias = torch.where(forbidden, -1e9, 0.0).to(torch.float32)
+    probs = torch.softmax(logits + bias, dim=-1).to(bf16)
+    return torch.matmul(probs, v.to(bf16)).to(q.dtype)
+
+
 def _launch(q, k, v, segment_mask, sm_scale: float, packed: bool):
     _check(q, k, v, segment_mask)
     b, h, s, d = q.shape
@@ -116,10 +136,10 @@ def _launch(q, k, v, segment_mask, sm_scale: float, packed: bool):
 
 class _ShortAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, segment_mask, sm_scale, packed):
+    def forward(ctx, q, k, v, segment_mask, sm_scale, packed, use_kernel):
         ctx.save_for_backward(q, k, v, segment_mask)
         ctx.sm_scale, ctx.packed = sm_scale, packed
-        if q.device.type == "cpu":
+        if not use_kernel or q.device.type == "cpu":
             return short_attention_plain(q, k, v, segment_mask, sm_scale, packed)
         if q.device.type != "cuda":
             raise ValueError(f"no short_attention kernel for device {q.device}")
@@ -128,19 +148,22 @@ class _ShortAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v, segment_mask = ctx.saved_tensors
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function("short_attention.backward"):
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = short_attention_plain(*leaves, segment_mask, ctx.sm_scale, ctx.packed)
+            out = reference_attention(*leaves, segment_mask, ctx.sm_scale, ctx.packed)
             dq, dk, dv = torch.autograd.grad(out, leaves, grad)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def short_attention(q, k, v, segment_mask, sm_scale: float, packed: bool = False):
+def short_attention(q, k, v, segment_mask, sm_scale: float, packed: bool = False,
+                    use_kernel: bool = True):
     """Batched attention for S <= 256.
 
     q, k, v: [B, H, S, D] (bf16 in the model; fp32 is rounded to bf16 as the
     TPU kernel does); segment_mask: [B, S] int.  Returns [B, H, S, D] in q's
     dtype.  On CUDA the kernel takes S in {128, 256} and D in {16, 32, 64,
-    128} and raises on other shapes.
+    128} and raises on other shapes; ``use_kernel=False`` runs the plain
+    version instead.  Either way the backward recomputes through
+    ``reference_attention``.
     """
-    return _ShortAttention.apply(q, k, v, segment_mask, sm_scale, packed)
+    return _ShortAttention.apply(q, k, v, segment_mask, sm_scale, packed, use_kernel)

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX, flax nor the JAX package,
 and its entry points refuse to run on the CPU unless asked to.  Covers the
-query path, the encode path (text, encoder, indexer, CLIs) and the other
-query engines (host, native, device, dense, blocked) and query CLIs."""
+query path, the encode path (text, encoder, indexer, CLIs), the other
+query engines (host, native, device, dense, blocked) and query CLIs, and
+training (losses, collates, packing, trainer, checkpoints, data parallelism,
+``cli.train``)."""
 
 import ast
 import os
@@ -37,7 +39,11 @@ def test_port_sources_import_no_jax():
                    "models/deep_impact.py", "index/indexer.py", "cli/index.py",
                    "ops/count_ge.py", "ops/pallas_scoring.py", "search/engine.py",
                    "search/device_engine.py", "search/dense_engine.py", "search/native.py",
-                   "search/maxp.py", "cli/evaluate.py", "cli/aggregate_run.py"):
+                   "search/maxp.py", "cli/evaluate.py", "cli/aggregate_run.py",
+                   "train/losses.py", "train/packed.py", "train/collate.py", "train/trainer.py",
+                   "core/checkpoint.py", "core/metrics_log.py", "core/profiling.py",
+                   "parallel/dataloader.py", "parallel/distributed.py", "data/datasets.py",
+                   "cli/train.py"):
         assert module in names
     assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
@@ -203,3 +209,54 @@ def test_card_engines_without_cuda_raise(tmp_path):
                    "--output_path", str(tmp_path / "run"), "--vocab_path", str(tmp_path / "vocab.txt"),
                    "--engine", "device"])
     assert not (tmp_path / "run").exists()
+
+
+def test_cpu_training_leaves_jax_unimported(tmp_path):
+    """cli.train on the CPU (packed, the short-attention route) and an index
+    built from its checkpoint, in a fresh process: nothing of JAX loads."""
+    code = """
+import sys
+from pathlib import Path
+from improving_learned_index_tpu_torch.cli.index import main as index_main
+from improving_learned_index_tpu_torch.cli.train import main as train_main
+from improving_learned_index_tpu_torch.text import WordPieceVocab
+d = Path(sys.argv[1])
+docs = ["the quick brown fox", "a lazy dog sleeps", "fox and dog", "quick dog naps"]
+(d / "c.tsv").write_text("".join(f"{i}\\t{t}\\n" for i, t in enumerate(docs)))
+(d / "q.tsv").write_text("0\\tquick fox\\n1\\tlazy dog\\n")
+(d / "t.tsv").write_text("0\\t0\\t1\\n1\\t1\\t2\\n")
+WordPieceVocab.build(docs, max_size=64).save(d / "vocab.txt")
+common = ["--vocab_path", str(d / "vocab.txt"), "--tiny", "--device", "cpu", "--max_length", "128"]
+assert train_main(["--dataset_path", str(d / "t.tsv"), "--queries_path", str(d / "q.tsv"),
+                   "--collection_path", str(d / "c.tsv"), "--checkpoint_dir", str(d / "ck"),
+                   "--batch_size", "2", "--no_beir_eval", *common]) == 0
+index_main(["--collection_path", str(d / "c.tsv"), "--output_file_path", str(d / "fwd.txt"),
+            "--checkpoint", str(d / "ck" / "DeepImpact_final.pt"), *common])
+assert len((d / "fwd.txt").read_text().splitlines()) == len(docs)
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "improving_learned_index_tpu")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], capture_output=True, text=True, env=env,
+        cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-2000:]
+
+
+def test_train_entry_point_without_cuda_raises(tmp_path):
+    """cli.train defaults to cuda (so does the Trainer, through its model)
+    and raises without one, before it writes a checkpoint."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from improving_learned_index_tpu_torch.cli.train import main as train_main
+
+    (tmp_path / "vocab.txt").write_text("[PAD]\n[UNK]\n[CLS]\n[SEP]\n[MASK]\na\n")
+    for name in ("t.tsv", "q.tsv", "c.tsv"):
+        (tmp_path / name).write_text("0\ta\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--dataset_path", str(tmp_path / "t.tsv"), "--queries_path", str(tmp_path / "q.tsv"),
+                    "--collection_path", str(tmp_path / "c.tsv"), "--checkpoint_dir", str(tmp_path / "ck"),
+                    "--vocab_path", str(tmp_path / "vocab.txt"), "--tiny", "--no_beir_eval"])
+    assert not (tmp_path / "ck").exists()

@@ -6,10 +6,13 @@ Tolerances: fp32 inputs are rounded to bf16 inside both (the kernel's
 first step), so the two compute the same bf16 products; what differs is the
 fp32 summation order, which can move a probability across a bf16 rounding
 boundary (one bf16 ulp, 2^-8 relative, of one probability).  For bf16
-outputs the bound is one output ulp.  The JAX backward recomputes through
-``_reference_attention``, which rounds the logits to bf16; the port's
-backward recomputes through the plain version (fp32 logits, the kernel's
-math), so gradients agree to bf16 logit rounding, a few percent.
+outputs the bound is one output ulp.  Both backwards recompute through
+the XLA route's math (``_reference_attention`` and its copy
+``reference_attention``: bf16 products with bf16-rounded logits and
+probabilities), so gradients agree to a bf16 rounding that the fp32
+summation order moves by one ulp: within 2^-6 of each gradient's largest
+entry.  The encoder's plain route (``use_kernels=False``, every CPU run)
+reaches the same backward.
 """
 
 import jax
@@ -81,7 +84,41 @@ def test_gradients_match_jax_vjp(packed):
     sa.short_attention(*leaves, torch.from_numpy(mask), 0.25, packed).backward(torch.from_numpy(g))
     for leaf, w in zip(leaves, want):
         scale = np.abs(w).max()
-        assert np.abs(leaf.grad.numpy() - w).max() <= 0.05 * scale
+        assert np.abs(leaf.grad.numpy() - w).max() <= 2.0 ** -6 * scale
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_plain_route_reaches_the_same_backward(packed, monkeypatch):
+    """``use_kernel=False`` (the encoder's plain route) runs the plain
+    forward and the same ``reference_attention`` recompute as the default
+    route: equal gradients, and the encoder's ``use_kernels=False`` layer
+    calls it."""
+    q, k, v, pad, seg = _inputs(4)
+    mask = torch.from_numpy(seg if packed else pad)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(q.shape).astype(np.float32))
+    grads = []
+    for use_kernel in (True, False):
+        leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        sa.short_attention(*leaves, mask, 0.25, packed, use_kernel=use_kernel).backward(g)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    sa.reference_attention(*leaves, mask, 0.25, packed).backward(g)
+    for a, b in zip(grads[1], (t.grad for t in leaves)):
+        assert torch.equal(a, b)
+
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models import encoder
+
+    seen = []
+    real = encoder.short_attention
+    monkeypatch.setattr(encoder, "short_attention",
+                        lambda *a, **kw: seen.append(kw["use_kernel"]) or real(*a, **kw))
+    model = encoder.DeepImpactModel(EncoderConfig.tiny(vocab_size=64))
+    ids = torch.from_numpy(np.random.default_rng(6).integers(5, 64, (2, 128)).astype(np.int32))
+    model(ids, torch.ones_like(ids), use_kernels=False)[..., 0].sum().backward()
+    assert seen == [False, False]
 
 
 def test_gate_matches_jax():
