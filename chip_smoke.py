@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: the query path at MS MARCO passage
-scale, every query engine on the same index, and the encode path and
-training at BERT-base width.
+scale, every query engine on the same index, and the encode path, training
+and the in-memory eval at BERT-base width.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -80,10 +80,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``cli.index --checkpoint <final>`` over 512 passages writes the forward
    index the trained model gives in process: identical term lists and
    impacts.
+9. In-memory eval: two seeded BEIR-format datasets from phase 6's
+   generator, ``nano`` (5,000 passages, NanoBEIR's scale) and ``large``
+   (131,072, past ``SparseSearch``'s 100,000-doc switch to the hybrid
+   engine's float mode), 50 queries each (3-4 words of one passage, that
+   passage the one qrel).  Main path: ``cli.nano_beir`` on phase 8's final
+   checkpoint at S=256, 512 documents an encode call, launch counts set to 0
+   just before and read just after: ``short_attention`` (12 a packed batch)
+   and ``scatter_scores`` on both datasets, ``gather_rows`` (its fp32
+   instance) on ``large``.  Checks: each dataset's metrics equal
+   ``trec_evaluate`` over an independent numpy fp64 scorer's runs of the
+   impacts the CLI encoded (scores within 1e-5 relative; doc order exact
+   but where two scores lie within 2e-5, a near-tie, counted; a relevant
+   doc may move only by such a near-tie); on ``large`` the CLI's hybrid
+   engine holds fp32 rows, its ``gather_rows`` and ``scatter_scores`` equal
+   their plain versions on the first query batch within 4 x 2^-23 of each
+   cell's sum of absolute values (times printed beside their bounds), and
+   its rows equal ``DeviceSearchEngine``'s; ``short_attention`` at the
+   eval's packed shape within two bf16 ulps.  Then ``cli.train`` at phase
+   8's set-up for 8 steps with ``--eval_every 4 --eval_datasets nano``:
+   records at iterations 0 and 4 with their stall, ``short_attention``
+   launched 12 x 8 times for training plus 12 a packed eval batch.
 
-The second-to-last line is the ``kernels`` JSON object (five rows; the
-``short_attention`` row's launches count ``cli.index`` and ``cli.train``),
-the last line ``{"ok": true, "device": {...}}``.
+The second-to-last line is the ``kernels`` JSON object (five rows; each
+row's launches sum its ``launches_by_path``: ``short_attention`` over
+``cli.index``, ``cli.train``, ``cli.nano_beir`` and ``cli.train`` with eval,
+``gather_rows`` over ``cli.rank`` and ``cli.nano_beir``'s fp32 rows), the
+last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -123,6 +146,15 @@ ENCODE = SimpleNamespace(
 TRAIN = SimpleNamespace(
     groups=128, triples=16 * 128, steps=12, save_every=6, unpacked_steps=4,
     index_docs=512, profile_steps=2, seed=0, device="cuda",
+)
+# The eval configuration: NanoBEIR's scale (NanoMSMARCO: ~5k docs, 50
+# queries) and a corpus past SparseSearch's 100,000-doc engine switch, from
+# the phase 6 generator; BERT-base at S=256 on phase 8's final checkpoint,
+# cli.nano_beir's packed encode at 512 docs a call; the in-training eval at
+# phase 8's set-up.
+EVAL = SimpleNamespace(
+    nano_docs=5_000, large_docs=131_072, queries=50, batch=512, train_steps=8, eval_every=4,
+    seed=1, device="cuda",
 )
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
@@ -263,18 +295,29 @@ def bound_ms(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) 
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def ulps_apart(got, want, sum_abs) -> bool:
+    """Two fp32 sums of the same few terms in different orders: every cell
+    within 4 x 2^-23 of its sum of absolute values (at least 4 ulps)."""
+    return bool(((got - want).abs() <= 4 * 2.0 ** -23 * sum_abs).all())
+
+
 def gather_row(engine, heavy, nq):
-    """Gather kernel against its plain version on one batch's heavy inputs."""
+    """Gather kernel against its plain version on one batch's heavy inputs:
+    equal on integer rows, within ``ulps_apart`` on float rows (the float
+    mode's fp32 instance)."""
     from improving_learned_index_tpu_torch.ops import gather_rows as gr
 
     ids, pairs, counts = heavy
     dense = engine.dense
+    exact = engine.integer_scores
     out_k = gr.accumulate_rows(dense, ids, pairs, counts, nq)
     out_p = gr.accumulate_rows_plain(dense, ids, pairs, counts, nq)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
-    if not torch.equal(out_k, out_p):
+    if not (torch.equal(out_k, out_p) if exact else
+            ulps_apart(out_k, out_p, gr.accumulate_rows_plain(dense.abs(), ids, pairs, counts, nq))):
         raise AssertionError(f"gather_rows kernel != plain (max abs err {err})")
+    del out_k
     n_hit, n_pairs = (int(x) for x in counts.tolist())
     t_heavy, n_pad = dense.shape
     # the same function as one library call: one-hot [nq, t_heavy] times the
@@ -284,12 +327,16 @@ def gather_row(engine, heavy, nq):
     w = torch.zeros(nq, t_heavy, dtype=torch.float32, device=dense.device)
     w.index_put_((q_of, ids.long()[slot]), torch.ones_like(q_of, dtype=torch.float32), accumulate=True)
     w = w.to(dense.dtype)
-    try:
-        library_equal = torch.equal(torch.mm(w, dense, out_dtype=torch.float32), out_p)
-        library = lambda: torch.mm(w, dense, out_dtype=torch.float32)  # noqa: E731
-    except (TypeError, RuntimeError, NotImplementedError) as exc:
-        log(f"no single-call library yardstick for gather_rows: {exc!r:.200}")
-        library, library_equal = None, None
+    if dense.dtype == torch.float32:
+        library = lambda: torch.mm(w, dense)  # noqa: E731
+        library_equal = torch.equal(library(), out_p)
+    else:
+        try:
+            library_equal = torch.equal(torch.mm(w, dense, out_dtype=torch.float32), out_p)
+            library = lambda: torch.mm(w, dense, out_dtype=torch.float32)  # noqa: E731
+        except (TypeError, RuntimeError, NotImplementedError) as exc:
+            log(f"no single-call library yardstick for gather_rows: {exc!r:.200}")
+            library, library_equal = None, None
     b, by = bound_ms(n_hit * n_pad * dense.element_size() + nq * n_pad * 4 + pairs.numel() * 4, n_pairs * n_pad)
     row = {
         "name": "gather_rows",
@@ -304,6 +351,7 @@ def gather_row(engine, heavy, nq):
         "library_ms": cuda_ms(library) if library else None,
         "shape": {"dense": [t_heavy, n_pad], "dtype": str(dense.dtype), "nq": nq,
                   "hit_rows": n_hit, "pairs": n_pairs, "library_equal": library_equal},
+        "tolerance": "equal" if exact else "4 x 2^-23 x each cell's sum of |terms|",
     }
     return row, out_p
 
@@ -314,24 +362,31 @@ def scatter_row(engine, base, tail):
     engine's route) and the flat updates ``gather_updates`` makes of it
     (``apply_tail_updates``, the row's timed function), each applied to that
     batch's heavy-stage scores; returns the row and the batch's score
-    matrix."""
+    matrix.  Equal on integer impacts; on float impacts (whose atomics add
+    in another order than the plain version) within ``ulps_apart`` of each
+    cell's sum of absolute values."""
     from improving_learned_index_tpu_torch.ops import scatter_scores as ss
     from improving_learned_index_tpu_torch.search.hybrid_engine import TAIL_CHUNK
 
     table = (engine.doc_ids, engine.impacts, *tail, TAIL_CHUNK)
     d, v, r = ss.gather_updates(*table)
+    if engine.integer_scores:
+        same = torch.equal
+    else:
+        sum_abs = ss.apply_tail_updates_plain(base.abs(), d, v.abs(), r)
+        same = lambda a, b: ulps_apart(a, b, sum_abs)  # noqa: E731
     s_k = ss.apply_tail_updates(base.clone(), d, v, r)
     s_p = ss.apply_tail_updates_plain(base.clone(), d, v, r)
     torch.cuda.synchronize()
     err = float((s_k - s_p).abs().max())
-    if not torch.equal(s_k, s_p):
+    if not same(s_k, s_p):
         raise AssertionError(f"scatter_scores kernel != plain (max abs err {err})")
     del s_k
     c_k = ss.apply_tail_chunks(base.clone(), *table)
     c_p = ss.apply_tail_chunks_plain(base.clone(), *table)
     torch.cuda.synchronize()
     err_chunks = float((c_k - c_p).abs().max())
-    if not (torch.equal(c_k, c_p) and torch.equal(c_p, s_p)):
+    if not (same(c_k, c_p) and same(c_p, s_p)):
         raise AssertionError(f"apply_tail_chunks kernel != plain (max abs err {err_chunks})")
     del c_k, c_p
     nq, n_pad = base.shape
@@ -366,6 +421,7 @@ def scatter_row(engine, base, tail):
         },
         "shape": {"scores": [nq, n_pad], "updates": d.numel(), "live_updates": n_live,
                   "chunks": int(tail[0].numel()), "touched_cells": cells, "touched_sectors": sectors},
+        "tolerance": "equal" if engine.integer_scores else "4 x 2^-23 x each cell's sum of |terms|",
     }
     return row, s_p
 
@@ -1341,6 +1397,386 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     log(f"check 4, cli.index --checkpoint {final.name}: {json.dumps(out['index_check'])}, "
         "term lists and impacts equal to the trained model's")
     out["launches"] = launches["short_attention"]
+    out["train_args"] = common
+    return out
+
+
+# -- in-memory eval -----------------------------------------------------------------
+
+
+def write_beir(root: Path, name: str, passages: list, n_queries: int, seed: int) -> tuple:
+    """A BEIR-format dataset: the passages as corpus.jsonl (ids 0..n-1),
+    ``n_queries`` queries of 3-4 distinct words of one passage each, that
+    passage the query's one qrel.  Returns (queries, qrels)."""
+    rng = np.random.default_rng(seed)
+    d = root / name
+    d.mkdir(parents=True)
+    with open(d / "corpus.jsonl", "w", encoding="utf-8") as f:
+        for i, text in enumerate(passages):
+            f.write(json.dumps({"_id": str(i), "title": "", "text": text}) + "\n")
+    queries, qrels = {}, {}
+    for qi, pid in enumerate(rng.choice(len(passages), n_queries, replace=False).tolist()):
+        words = list(dict.fromkeys(w.rstrip(".") for w in passages[pid].split()))
+        pick = rng.choice(len(words), size=min(len(words), int(rng.integers(3, 5))), replace=False)
+        queries[str(qi)] = " ".join(words[j] for j in sorted(pick))
+        qrels[str(qi)] = {str(pid): 1}
+    with open(d / "queries.jsonl", "w", encoding="utf-8") as f:
+        for qid, text in queries.items():
+            f.write(json.dumps({"_id": qid, "text": text}) + "\n")
+    (d / "qrels.tsv").write_text("query-id\tcorpus-id\tscore\n" + "".join(
+        f"{qid}\t{pid}\t1\n" for qid, rel in qrels.items() for pid in rel), encoding="utf-8")
+    return queries, qrels
+
+
+def numpy_float_runs(impacts: list, query_terms: dict, k: int) -> dict:
+    """The independent scorer: fp64 sums of each query's positive impacts
+    per doc, ranked by (score desc, doc id asc), the top ``k`` with a score
+    above 0, as {qid: [(doc, score), ...]}."""
+    postings = {}
+    for doc, row in enumerate(impacts):
+        for term, value in row:
+            if value > 0:
+                postings.setdefault(term, ([], []))
+                postings[term][0].append(doc)
+                postings[term][1].append(value)
+    postings = {t: (np.asarray(d, np.int64), np.asarray(v, np.float64)) for t, (d, v) in postings.items()}
+    runs = {}
+    for qid, terms in query_terms.items():
+        scores = np.zeros(len(impacts), np.float64)
+        for term in terms:
+            if term in postings:
+                np.add.at(scores, *postings[term])
+        order = np.lexsort((np.arange(len(impacts)), -scores))[:k]
+        runs[qid] = [(int(d), float(scores[d])) for d in order if scores[d] > 0]
+    return runs
+
+
+def float_rows_close(got: list, want: list, rel: float = 1e-5) -> int:
+    """One query's ranked (doc, score) rows against a reference's: the same
+    length, scores within ``rel`` rank by rank, and the doc ids equal except
+    where the two docs' scores lie within 2 x ``rel`` of each other (a
+    near-tie, which summation order may swap).  Returns the near-tie swaps."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} rows against {len(want)}")
+    gs, ws = np.asarray([s for _, s in got]), np.asarray([s for _, s in want])
+    if not np.allclose(gs, ws, rtol=rel, atol=0):
+        raise AssertionError(f"scores beyond {rel} relative: max {float(np.abs(gs / ws - 1).max())}")
+    score = dict(want)
+    swaps = 0
+    for (gd, gv), (wd, _) in zip(got, want):
+        if gd != wd:
+            # a doc missing from ``want`` was cut there by a near-tie at its end
+            if abs(score.get(gd, ws[-1]) - gv) > 2 * rel * gv:
+                raise AssertionError(f"doc {gd} in place of {wd} without a near-tie")
+            swaps += 1
+    return swaps
+
+
+def relevant_ranks(qrels: dict, results: dict) -> dict:
+    """Each query's rank of its relevant doc in trec_eval's order (score
+    desc, doc id desc), None when it is not in the run."""
+    from improving_learned_index_tpu_torch.evaluation.trec_metrics import _sorted_docs
+
+    out = {}
+    for qid, rel in qrels.items():
+        ranked = _sorted_docs(results.get(qid, {}))
+        (pid,) = rel
+        out[qid] = ranked.index(pid) + 1 if pid in ranked else None
+    return out
+
+
+class Spies:
+    """Wraps methods of the eval path for one run: call counts, seconds and
+    what they returned, without changing what they compute.  ``restore``
+    puts the originals back."""
+
+    def __init__(self):
+        self.calls, self.seconds, self.records, self._undo = {}, {}, {}, []
+
+    def wrap(self, owner, name: str, keep=None):
+        real = getattr(owner, name)
+        self.calls[name], self.seconds[name], self.records[name] = 0, 0.0, []
+
+        def spy(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            self.seconds[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+            if keep is not None:
+                self.records[name].append(keep(args, out))
+            return out
+
+        setattr(owner, name, spy)
+        self._undo.append((owner, name, real))
+
+    def restore(self):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+        self._undo.clear()
+
+
+def run_eval(cfg, workdir: Path, ckpt: Path, train_args: list) -> dict:
+    """Phase 9: the in-memory eval on the card at BERT-base width, S=256."""
+    from improving_learned_index_tpu_torch.cli.nano_beir import main as nano_beir_main
+    from improving_learned_index_tpu_torch.cli.train import main as train_main
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.evaluation import nano_beir, sparse_search
+    from improving_learned_index_tpu_torch.evaluation.trec_metrics import evaluate as trec_evaluate
+    from improving_learned_index_tpu_torch.models import DeepImpact
+    from improving_learned_index_tpu_torch.ops import short_attention as sa
+    from improving_learned_index_tpu_torch.search.device_engine import DeviceSearchEngine
+    from improving_learned_index_tpu_torch.search.hybrid_engine import HybridSearchEngine
+    from improving_learned_index_tpu_torch.search.select import HYBRID_MIN_DOCS
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+    from improving_learned_index_tpu_torch.text.packing import pack_documents
+
+    log("== phase 9: in-memory eval (cli.nano_beir, in-training eval; BERT-base, S=256)")
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    dev = torch.device(cfg.device)
+    config = EncoderConfig.bert_base()
+    out = {"checkpoint": ckpt.name}
+
+    # data: two BEIR-format datasets from the phase 6 generator
+    t0 = time.perf_counter()
+    gen = SimpleNamespace(**{**vars(ENCODE), "passages": cfg.nano_docs + cfg.large_docs, "seed": cfg.seed})
+    passages = make_passages(gen)
+    beir = workdir / "beir"
+    data = {"nano": write_beir(beir, "nano", passages[: cfg.nano_docs], cfg.queries, cfg.seed),
+            "large": write_beir(beir, "large", passages[cfg.nano_docs :], cfg.queries, cfg.seed + 1)}
+    del passages
+    if cfg.large_docs < HYBRID_MIN_DOCS:
+        raise AssertionError("the large dataset must lie past SparseSearch's engine switch")
+    log(f"BEIR datasets nano ({cfg.nano_docs} docs) and large ({cfg.large_docs} docs), "
+        f"{cfg.queries} queries each, in {time.perf_counter() - t0:.1f} s")
+
+    # the main path: cli.nano_beir, counts zeroed just before and read after
+    spies = Spies()
+    spies.wrap(DeepImpact, "get_impact_scores_batch_packed", keep=lambda a, o: (a[0], o))
+    spies.wrap(DeepImpact, "encode_packed")
+    spies.wrap(sparse_search.SparseSearch, "_build_index", keep=lambda a, o: a[0].engine)
+    spies.wrap(sparse_search.SparseSearch, "search")
+    spies.wrap(nano_beir, "trec_evaluate", keep=lambda a, o: (a[0], a[1], o))
+    per_dataset = {}
+
+    def launches_now():
+        return {k.name: k.launches for k in kernels}
+
+    real_eval = nano_beir.NanoBEIREvaluator.evaluate_dataset
+
+    def evaluate_dataset(self, model, name):
+        before, seconds = launches_now(), dict(spies.seconds)
+        encodes = spies.calls["get_impact_scores_batch_packed"]
+        t = time.perf_counter()
+        result = real_eval(self, model, name)
+        torch.cuda.synchronize()
+        after = launches_now()
+        per_dataset[name] = {
+            "eval_s": time.perf_counter() - t,
+            "launches": {k: after[k] - before[k] for k in after},
+            "split_s": {k: spies.seconds[k] - seconds[k] for k in seconds},
+            "encode_calls": spies.calls["get_impact_scores_batch_packed"] - encodes,
+        }
+        return result
+
+    nano_beir.NanoBEIREvaluator.evaluate_dataset = evaluate_dataset
+    metrics_path = workdir / "nano_beir.json"
+    try:
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with open(workdir / "nano_beir.stdout", "w") as sink:
+            stdout, sys.stdout = sys.stdout, sink
+            try:
+                nano_beir_main(["--local_data_dir", str(beir), "--max_length", str(ENCODE.max_length),
+                                "--batch_size", str(cfg.batch), "--checkpoint", str(ckpt),
+                                "--vocab_path", str(workdir / "vocab.txt"), "--device", cfg.device,
+                                "--output", str(metrics_path)])
+            finally:
+                sys.stdout = stdout
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_now()
+    finally:
+        nano_beir.NanoBEIREvaluator.evaluate_dataset = real_eval
+        spies.restore()
+    metrics = json.loads(metrics_path.read_text())
+    if json.loads((workdir / "nano_beir.stdout").read_text()) != metrics:
+        raise AssertionError("cli.nano_beir printed other metrics than it wrote")
+    names = sorted(data)
+    if list(per_dataset) != names or set(metrics) != {*names, "avg"}:
+        raise AssertionError(f"cli.nano_beir evaluated {list(per_dataset)}, metrics {sorted(metrics)}")
+    engines = dict(zip(names, spies.records["_build_index"]))
+    if not (isinstance(engines["large"], HybridSearchEngine) and isinstance(engines["nano"], DeviceSearchEngine)
+            and not engines["large"].integer_scores and not engines["nano"].integer_scores):
+        raise AssertionError(f"engines {[type(e).__name__ for e in engines.values()]}")
+    for name in names:
+        got = per_dataset[name]["launches"]
+        want = ("short_attention", "scatter_scores") + (("gather_rows",) if name == "large" else ())
+        missing = [k for k in want if got[k] == 0]
+        if missing:
+            raise AssertionError(f"cli.nano_beir on {name} never launched {missing}")
+    want_attn = config.num_layers * spies.calls["encode_packed"]
+    if launches["short_attention"] != want_attn:
+        raise AssertionError(f"short_attention launched {launches['short_attention']} times, want "
+                             f"{want_attn} ({config.num_layers} layers x {spies.calls['encode_packed']} packed batches)")
+    out["main_path"] = {"wall_s": wall, "launches": launches,
+                        "gather_rows_fp32_launches": per_dataset["large"]["launches"]["gather_rows"],
+                        "packed_batches": spies.calls["encode_packed"]}
+
+    # the impacts the CLI encoded, in corpus order (datasets in sorted order)
+    model = spies.records["get_impact_scores_batch_packed"][0][0]
+    impacts = [row for _, rows in spies.records["get_impact_scores_batch_packed"] for row in rows]
+    n_docs = {"large": cfg.large_docs, "nano": cfg.nano_docs}
+    if len(impacts) != sum(n_docs.values()):
+        raise AssertionError(f"{len(impacts)} encoded docs, want {sum(n_docs.values())}")
+    by_name = {"large": impacts[: cfg.large_docs], "nano": impacts[cfg.large_docs :]}
+    del impacts
+    tok = ImpactTokenizer(WordPieceVocab.load(workdir / "vocab.txt"), max_length=ENCODE.max_length)
+    checks = {}
+    for name, (qrels, results, returned) in zip(names, spies.records["trec_evaluate"]):
+        got_metrics = json.loads(json.dumps(returned))
+        queries, want_qrels = data[name]
+        if qrels != want_qrels or got_metrics != metrics[name]:
+            raise AssertionError(f"{name}: the CLI's qrels or metrics are not what it evaluated")
+        terms = {qid: tok.process_query(q) for qid, q in queries.items()}
+        want = numpy_float_runs(by_name[name], terms, 1000)
+        swaps = 0
+        for qid in queries:
+            rows = sorted(((int(d), s) for d, s in results[qid].items()), key=lambda x: (-x[1], x[0]))
+            swaps += float_rows_close(rows, want[qid])
+        want_results = {qid: {str(d): s for d, s in rows} for qid, rows in want.items()}
+        ranks, want_ranks = relevant_ranks(qrels, results), relevant_ranks(qrels, want_results)
+        moved = [qid for qid in qrels if ranks[qid] != want_ranks[qid]]
+        for qid in moved:  # a relevant doc moved by a near-tie only
+            s_rel = dict(want[qid]).get(int(next(iter(qrels[qid]))))
+            lo, hi = sorted((ranks[qid] or 1001, want_ranks[qid] or 1001))
+            between = [s for _, s in want[qid][lo - 1 : hi]]
+            if s_rel is None or any(abs(s - s_rel) > 2e-5 * s_rel for s in between):
+                raise AssertionError(f"{name} query {qid}: relevant rank {ranks[qid]} against {want_ranks[qid]}")
+        numpy_metrics = json.loads(json.dumps(trec_evaluate(qrels, want_results, (10, 100, 1000))))
+        if not moved and numpy_metrics != metrics[name]:
+            raise AssertionError(f"{name}: metrics {metrics[name]} against the numpy scorer's {numpy_metrics}")
+        checks[name] = {"near_tie_swaps": swaps, "relevant_ranks_moved_by_near_ties": len(moved),
+                        "metrics_equal_numpy": numpy_metrics == metrics[name]}
+    log(f"cli.nano_beir: metrics equal trec_evaluate over the numpy fp64 scorer's runs "
+        f"(scores within 1e-5 relative, doc order exact but for near-ties); {json.dumps(checks)}")
+
+    # the float engines' kernels against their plain versions, on the CLI's
+    # large engine and its first query batch
+    engine = engines["large"]
+    if engine.dense.dtype != torch.float32 or engine.t_heavy == 0:
+        raise AssertionError(f"large engine: {engine.t_heavy} heavy rows of {engine.dense.dtype}")
+    qids = list(data["large"][0])
+    batch = [tok.process_query(data["large"][0][q]) for q in qids]
+    heavy, tail = engine.stage_inputs(batch)
+    if heavy is None or tail is None:
+        raise AssertionError("the large batch must reach both stages")
+    g_row, base = gather_row(engine, heavy, len(batch))
+    s_row, _ = scatter_row(engine, base, tail)
+    del base
+    for row in (g_row, s_row):
+        log(f"{row['name']} (float mode): within tolerance of plain; {json.dumps(row)}")
+    out["kernels"] = {"gather_rows": g_row, "scatter_scores": s_row}
+    # where a gather call's time goes at this small shape: 20 calls of the
+    # wrapper (its pair tables, then the kernel) under the profiler
+    from improving_learned_index_tpu_torch.ops import gather_rows as gr
+
+    prof = profile_window(lambda: [gr.accumulate_rows(engine.dense, *heavy, len(batch)) for _ in range(20)])
+    out["gather_profile"] = dict(prof, calls=20)
+    log(json.dumps({"gather_rows_fp32_profile": out["gather_profile"]}))
+
+    # the hybrid rows against the device engine's on the same impacts
+    device = DeviceSearchEngine.from_term_impacts(by_name["large"], device=dev)
+    hybrid_rows, device_rows = engine.score_batch(batch, 1000), device.score_batch(batch, 1000)
+    swaps = sum(float_rows_close(h, d) for h, d in zip(hybrid_rows, device_rows))
+    log(f"large: the hybrid float rows equal DeviceSearchEngine's ({swaps} near-tie swaps)")
+    out["hybrid_vs_device_near_tie_swaps"] = swaps
+    engine.release()
+    del engine, engines, device, spies, by_name
+    torch.cuda.empty_cache()
+
+    # short_attention at the eval's packed shape: the first packed batch of
+    # a cfg.batch-document encode of the nano corpus
+    with open(beir / "nano" / "corpus.jsonl", encoding="utf-8") as f:
+        corpus = [json.loads(line)["text"] for line in islice(f, cfg.batch)]
+    encs = [tok.process_document(p) for p in corpus]
+    total = sum(sum(e.attention_mask) for e in encs)
+    rows = min(-(-int(total * 1.18) // ENCODE.max_length), len(encs))
+    seg = next(iter(pack_documents(encs, ENCODE.max_length, rows))).segment_ids
+    rng = np.random.default_rng(cfg.seed)
+    hd = config.hidden_size // config.num_heads
+    q, k, v = (torch.from_numpy(rng.standard_normal((seg.shape[0], seg.shape[1], config.num_heads, hd),
+                                                   dtype=np.float32) * 1.5).to(dev, torch.bfloat16)
+               .permute(0, 2, 1, 3) for _ in range(3))
+    seg_t = torch.from_numpy(seg).to(dev)
+    got = sa.short_attention(q, k, v, seg_t, hd ** -0.5, True)
+    want = sa.short_attention_plain(q, k, v, seg_t, hd ** -0.5, True)
+    err, peak = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+    tol = 2 * 2.0 ** (np.floor(np.log2(peak)) - 7)
+    if not err <= tol:
+        raise AssertionError(f"short_attention at the eval's packed shape: {err} > {tol}")
+    log(f"short_attention at the eval's packed shape {list(q.shape)}: max abs err {err} <= {tol}")
+    out["attention_check"] = {"q": list(q.shape), "max_abs_err": err, "tolerance": tol}
+    del q, k, v, got, want
+    # where an eval encode call's time goes: 2 calls of cfg.batch documents
+    # as SparseSearch makes them, under the profiler
+    prof = profile_window(lambda: [model.get_impact_scores_batch_packed(corpus) for _ in range(2)])
+    out["encode_profile"] = dict(prof, calls=2, docs_a_call=len(corpus))
+    log(json.dumps({"eval_encode_profile": out["encode_profile"]}))
+    del model
+
+    for name in names:
+        d = per_dataset[name]
+        sp = d["split_s"]
+        encode_s = sp["get_impact_scores_batch_packed"]
+        d.update(docs=n_docs[name], encode_docs_per_s=n_docs[name] / encode_s,
+                 ndcg10=metrics[name][0]["NDCG@10"],
+                 breakdown_s={"load": d["eval_s"] - sp["search"] - sp["trec_evaluate"],
+                              "encode": encode_s, "engine_build": sp["_build_index"] - encode_s,
+                              "query": sp["search"] - sp["_build_index"],
+                              "metrics": sp["trec_evaluate"]})
+        del d["split_s"]
+        log(f"{name}: {json.dumps(d)}")
+    out["datasets"] = per_dataset
+
+    # in-training eval: cli.train packed at phase 8's set-up
+    ck = workdir / "ckpt_eval"
+    spies = Spies()
+    spies.wrap(DeepImpact, "encode_packed")
+    try:
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        train_main([a for a in train_args if a != "--no_beir_eval"] + [
+            "--checkpoint_dir", str(ck), "--total_steps", str(cfg.train_steps),
+            "--save_every", "1000000", "--nano_beir_dir", str(beir), "--eval_datasets", "nano",
+            "--eval_every", str(cfg.eval_every)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        spies.restore()
+    launches = {kern.name: kern.launches for kern in kernels}
+    steps = train_metrics(ck, cfg.train_steps, 10**6)
+    records = [json.loads(line) for line in (ck / "metrics.txt").read_text().splitlines()]
+    evals = [r for r in records if "eval_stall_seconds" in r]
+    want_iters = list(range(0, cfg.train_steps, cfg.eval_every))
+    if [r["iteration"] for r in evals] != want_iters or set(evals[0]["metrics"]) != {"nano", "avg"}:
+        raise AssertionError(f"in-training eval records {[(r['iteration'], sorted(r['metrics'])) for r in evals]}")
+    train_attn, eval_attn = config.num_layers * cfg.train_steps, config.num_layers * spies.calls["encode_packed"]
+    if launches["short_attention"] != train_attn + eval_attn or eval_attn == 0:
+        raise AssertionError(f"cli.train with eval: short_attention launched {launches['short_attention']}, "
+                             f"want {train_attn} (training) + {eval_attn} (eval encodes)")
+    out["train_eval"] = {"wall_s": wall, "launches": launches, "short_attention_training": train_attn,
+                         "short_attention_eval": eval_attn, "losses": steps["losses"],
+                         "step_s": steps["step_s"], "first_two_steps_s": steps["first_two_steps_s"],
+                         "eval_stall_s": [r["eval_stall_seconds"] for r in evals],
+                         "ndcg10": [r["metrics"]["nano"][0]["NDCG@10"] for r in evals]}
+    log(f"cli.train with in-training eval: {json.dumps(out['train_eval'])}")
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 9 in {out['phase_s']:.1f} s")
     return out
 
 
@@ -1370,15 +1806,28 @@ def main() -> int:
         encode = run_encode(ENCODE, workdir)
         torch.cuda.empty_cache()
         train = run_train(TRAIN, workdir, encode.pop("passages"))
+        torch.cuda.empty_cache()
+        evaluation = run_eval(EVAL, workdir, workdir / "ckpt" / "DeepImpact_final.pt",
+                              train.pop("train_args"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    g_row, s_row, c_row, b_row = query["kernels"]
+    nano_beir, train_eval = evaluation["main_path"]["launches"], evaluation["train_eval"]["launches"]
     a_row = encode["row"]
-    a_row["launches_by_path"] = {"cli.index": a_row["launches"], "cli.train": train["launches"]}
-    a_row["launches"] += train["launches"]
+    a_row["launches_by_path"] = {"cli.index": a_row["launches"], "cli.train": train["launches"],
+                                 "cli.nano_beir": nano_beir["short_attention"],
+                                 "cli.train with eval": train_eval["short_attention"]}
+    s_row["launches_by_path"] = {"cli.rank": s_row["launches"], "cli.nano_beir": nano_beir["scatter_scores"],
+                                 "cli.train with eval": train_eval["scatter_scores"]}
+    # phase 9's gather launches are all the fp32 instance (float rows)
+    g_row["launches_by_path"] = {"cli.rank": g_row["launches"],
+                                 "cli.nano_beir (fp32 rows)": nano_beir["gather_rows"]}
+    for row in (a_row, s_row, g_row):
+        row["launches"] = sum(row["launches_by_path"].values())
     log(json.dumps({"query": {k: v for k, v in query.items() if k != "kernels"}}))
     log(json.dumps({"encode": {k: v for k, v in encode.items() if k != "row"}}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "profile"}}))
-    g_row, s_row, c_row, b_row = query["kernels"]
+    log(json.dumps({"eval": evaluation}))
     print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -4,7 +4,8 @@
     python -m improving_learned_index_tpu_torch.cli.train \\
         --dataset_path triples.tsv --queries_path queries.tsv \\
         --collection_path collection.tsv --checkpoint_dir ckpt \\
-        --vocab_path vocab.txt --max_length 256 --no_beir_eval [--device cpu]
+        --vocab_path vocab.txt --max_length 256 \\
+        --nano_beir_dir beir --eval_datasets msmarco,nfcorpus [--device cpu]
 
 The flags are the JAX package's.  ``--xlmr`` picks the model, and
 ``--distil_kl/--distil_mse/--in_batch_negatives`` pick the objective
@@ -15,13 +16,19 @@ row-per-document layout).  Checkpoints land in ``--checkpoint_dir`` as
 ``latest``, and ``cli.index --checkpoint <dir>/DeepImpact_final.pt`` indexes
 with the trained weights.
 
+In-training eval: every ``--eval_every`` batches, counting from the first,
+``evaluation.NanoBEIREvaluator`` scores the model on the BEIR-format
+datasets under ``--nano_beir_dir`` (all of them, or ``--eval_datasets``)
+and appends the metrics and the stall's seconds to
+``<checkpoint_dir>/metrics.txt``; ``--no_beir_eval`` turns it off.
+
 Data parallelism: under a launcher that sets ``WORLD_SIZE``/``RANK``/
 ``MASTER_ADDR``/``MASTER_PORT`` (``torchrun``) each process trains its share
-of every global batch (``parallel.distributed``).
+of every global batch (``parallel.distributed``).  Rank 0 alone runs the
+eval; the other ranks wait at their next collective for the whole stall.
 
-Not ported yet, and raising: the in-training NanoBEIR eval (pass
-``--no_beir_eval``; ROADMAP queue 1 item 2) and the ``--pairwise`` /
-``--cross_encoder`` models (item 3).
+Not ported yet, and raising: the ``--pairwise`` / ``--cross_encoder`` models
+(ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -67,8 +74,18 @@ def main(argv=None) -> int:
     parser.add_argument("--eval_every", type=int, default=500)
     parser.add_argument("--no_beir_eval", action="store_true")
     parser.add_argument("--eval_datasets", type=str, default=None,
-                        help="NanoBEIR datasets to evaluate in training (not ported yet)")
-    parser.add_argument("--nano_beir_dir", type=Path, default=None)
+                        help="comma list of NanoBEIR dataset names to evaluate "
+                        "in training (default: every BEIR-format directory "
+                        "under --nano_beir_dir).  Each eval stalls training "
+                        "for the whole set; its seconds go to metrics.txt as "
+                        "eval_stall_seconds.  Under data parallelism rank 0 "
+                        "evaluates while the other ranks wait at their next "
+                        "all-reduce: a stall past the process group's timeout "
+                        "(NCCL's default: 10 minutes) ends the run, so keep "
+                        "the set small enough")
+    parser.add_argument("--nano_beir_dir", type=Path, default=None,
+                        help="BEIR-format datasets for the in-training eval "
+                        "(<dir>/<dataset>/{corpus,queries}.jsonl, qrels.tsv)")
     parser.add_argument("--epochs", type=int, default=1)
     parser.add_argument("--total_steps", type=int, default=None)
     parser.add_argument("--use_wandb", action="store_true")
@@ -94,11 +111,6 @@ def main(argv=None) -> int:
     if args.pairwise or args.cross_encoder:
         raise NotImplementedError(
             "--pairwise / --cross_encoder wait for their models (ROADMAP queue 1 item 3: rerankers)"
-        )
-    if not args.no_beir_eval:
-        raise NotImplementedError(
-            "in-training NanoBEIR eval is not ported yet (ROADMAP queue 1 item 2); "
-            "pass --no_beir_eval"
         )
     if args.xlmr:
         args.model_kind = "xlmr"
@@ -169,12 +181,21 @@ def _train(args, loss: str, rank: int, world: int) -> int:
     from ..core.metrics_log import MetricsLogger
     from ..core.profiling import trace
 
-    metrics_logger = None
+    metrics_logger = evaluator = None
     if rank == 0:
+        if not args.no_beir_eval:
+            from ..evaluation.nano_beir import NanoBEIREvaluator
+
+            evaluator = NanoBEIREvaluator(
+                batch_size=64,
+                local_data_dir=args.nano_beir_dir,
+                datasets=args.eval_datasets.split(",") if args.eval_datasets else None,
+            )
         metrics_logger = MetricsLogger(
             args.checkpoint_dir, use_wandb=args.use_wandb, config=vars(args)
         )
-    trainer = Trainer(model, config, args.checkpoint_dir, metrics_logger=metrics_logger)
+    trainer = Trainer(model, config, args.checkpoint_dir, evaluator=evaluator,
+                      metrics_logger=metrics_logger)
 
     with trace(args.checkpoint_dir / "profile", enabled=args.enable_profiler and rank == 0):
         done = trainer.maybe_resume()

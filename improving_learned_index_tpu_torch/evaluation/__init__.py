@@ -1,4 +1,19 @@
+from .bm25 import BM25Index
+from .nano_beir import BaseEvaluator, NanoBEIREvaluator, load_local_beir_dir
 from .ranker import Ranker
 from .run_metrics import MRR_DEPTHS, RECALL_DEPTHS, Metrics
+from .sparse_search import SparseSearch
+from .trec_metrics import evaluate as trec_evaluate
 
-__all__ = ["Ranker", "MRR_DEPTHS", "RECALL_DEPTHS", "Metrics"]
+__all__ = [
+    "BM25Index",
+    "BaseEvaluator",
+    "NanoBEIREvaluator",
+    "load_local_beir_dir",
+    "Ranker",
+    "MRR_DEPTHS",
+    "RECALL_DEPTHS",
+    "Metrics",
+    "SparseSearch",
+    "trec_evaluate",
+]

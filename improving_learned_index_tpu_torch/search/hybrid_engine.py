@@ -1,5 +1,5 @@
 """Corpus-scale query engine on the card: heavy terms as dense rows + tail
-scatter + exact integer top-k.
+scatter + exact top-k.
 
 Counterpart of ``improving_learned_index_tpu/search/hybrid_engine.py``, the
 replacement for the reference's per-query Python postings loop
@@ -17,6 +17,15 @@ replacement for the reference's per-query Python postings loop
   matrix.
 - **Exact top-k without sorting** (``ops.exact_topk``, its search passes
   counted by ``ops.count_ge``): boundary ties resolve in doc-id order.
+- **Float mode** (``integer_scores=False``, built by ``from_term_impacts``
+  from encoder output: SparseSearch's in-memory index of large eval
+  corpora).  Impacts stay fp32 from the posting arrays through the dense
+  rows (always fp32: float impacts are never bf16-exact) and the tail, and
+  the top-k is a stable descending sort, ``jax.lax.top_k``'s order (the
+  lower doc id first among ties): the threshold search of
+  ``exact_topk_integer`` needs an integer score lattice.  Float sums depend
+  on the order of the adds in the last ulps; the kernels add in another
+  order than XLA does.
 
 On CUDA tensors the two stages and the top-k's counts always launch the
 hand-written kernels (``csrc/``); on the CPU, and on the card with
@@ -28,9 +37,8 @@ rows.  Batches are not split into 64-query sub-batches: the score matrix
 costs nq x n_pad x 4 B (9 GB for 256 queries at 8.85M docs), which the
 card's 80 GB holds, and neither kernel has a per-batch limit.
 
-Not ported yet: float-impact mode (``integer_scores=False``,
-``from_term_impacts``), the opt-in ``tail_partitioned`` layout and
-approximate top-k.
+Not ported: the opt-in ``tail_partitioned`` layout (it lost its own A/B in
+the JAX package) and approximate top-k.
 
 The public contract matches the JAX engine: ``score_batch(term_sets, k)``
 -> per query, a list of (doc_id, score) with score > 0, exact scores, exact
@@ -40,6 +48,7 @@ top-k in score order with ties in doc-id order.
 from __future__ import annotations
 
 from collections import deque
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
@@ -92,6 +101,7 @@ def build_dense_rows(
     heavy_starts: np.ndarray,
     t_heavy: int,
     n_pad: int,
+    force_fp32: bool = False,
 ) -> torch.Tensor:
     """Scatter-accumulate dense heavy rows [t_heavy, n_pad] on the device
     holding ``doc_ids``/``impacts``.
@@ -103,11 +113,13 @@ def build_dense_rows(
     duplicate (term, doc) postings sum exactly like the scatter path; the
     rows are kept in bf16 only when every cell is <= 256, where bf16 is
     exact for 8-bit quantized impact sums, and are rebuilt in fp32
-    otherwise."""
+    otherwise.  ``force_fp32`` builds fp32 rows directly: non-integer float
+    impacts are never bf16-exact."""
     dev = doc_ids.device
     p_heavy = int(heavy_starts[-1])
     if t_heavy == 0 or p_heavy == 0:
-        return torch.zeros(max(t_heavy, 1), n_pad, dtype=torch.bfloat16, device=dev)
+        dtype = torch.float32 if force_fp32 else torch.bfloat16
+        return torch.zeros(max(t_heavy, 1), n_pad, dtype=dtype, device=dev)
     if p_heavy >= 2**31:
         raise ValueError(f"int32 posting positions: {p_heavy} heavy postings")
     ch = min(_DENSE_CHUNK_ROWS, t_heavy)
@@ -130,6 +142,8 @@ def build_dense_rows(
             dense[r0:r1] = block
         return dense, mx
 
+    if force_fp32:
+        return build(torch.float32)[0]
     dense, mx = build(torch.bfloat16)
     if float(mx) > 256:
         del dense
@@ -137,17 +151,32 @@ def build_dense_rows(
     return dense
 
 
-def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool):
-    """Exact integer top-k over the real docs.  When the padded width is a
-    whole number of selection blocks the padding stays (its columns score
-    0, and zero is never selected), which spares a copy of the matrix."""
+def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool,
+                 integer_scores: bool):
+    """Exact top-k over the real docs, (values, int32 doc ids).
+
+    Integer scores: ``exact_topk_integer``; when the padded width is a whole
+    number of selection blocks the padding stays (its columns score 0, and
+    zero is never selected), which spares a copy of the matrix.  Float
+    scores: the padding is dropped and a stable descending sort takes the
+    first k, the lower doc id first among ties."""
+    if not integer_scores:
+        vals, idx = torch.sort(scores[:, :num_docs], dim=1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k].to(torch.int32)
     if scores.shape[1] % _BLOCK:
         scores = scores[:, :num_docs]
     return exact_topk_integer(scores, k, use_kernel=use_kernel)
 
 
 class HybridSearchEngine:
-    """Batched exact scoring over a quantized inverted index, corpus scale."""
+    """Batched exact scoring over an inverted index, corpus scale.
+
+    ``integer_scores``: True for quantized indexes (integer impact sums,
+    bf16 rows where exact, ``exact_topk_integer``); False for float impacts
+    (fp32 postings and rows, sort-based top-k).  Heavy rows are picked by the
+    JAX engine's rule in both modes, ``dense_budget_bytes`` over 2 bytes a
+    cell, so both packages pick the same rows; fp32 rows can then take up to
+    twice ``dense_budget_bytes``."""
 
     def __init__(
         self,
@@ -155,12 +184,14 @@ class HybridSearchEngine:
         config: SearchConfig = SearchConfig(),
         heavy_min: int = 1024,
         dense_budget_bytes: int = 4 << 30,
+        integer_scores: bool = True,
         device: Optional[Union[str, torch.device]] = None,
         use_kernels: Optional[bool] = None,
     ):
         if config.approx_top_k:
             raise ValueError("approximate top-k is not ported; the port's top-k is exact")
         self.config = config
+        self.integer_scores = integer_scores
         self.device = resolve_device(device)
         self.use_kernels = resolve_use_kernels(self.device, use_kernels)
         if self.use_kernels:
@@ -181,7 +212,8 @@ class HybridSearchEngine:
         lengths = np.diff(offsets)
 
         # Pick heavy terms: longest lists first, bounded by the device
-        # memory budget for the bf16 dense matrix.
+        # memory budget for a bf16 dense matrix (in both modes, as the JAX
+        # engine counts it).
         max_rows = max(1, dense_budget_bytes // (2 * self.n_pad))
         heavy_tids = np.nonzero(lengths >= heavy_min)[0]
         if len(heavy_tids) > max_rows:
@@ -196,7 +228,7 @@ class HybridSearchEngine:
         self.is_heavy = is_heavy
 
         doc_ids = np.asarray(index.doc_ids, dtype=np.uint32)
-        impacts = np.asarray(index.impacts, dtype=np.uint8)
+        impacts = np.asarray(index.impacts, dtype=np.uint8 if integer_scores else np.float32)
         dev = self.device
 
         # Heavy postings go to the card only for the dense build, in
@@ -209,10 +241,12 @@ class HybridSearchEngine:
                 np.concatenate([doc_ids[s:e] for s, e in spans]).view(np.int32)
             ).to(dev)
             h_vals = torch.from_numpy(np.concatenate([impacts[s:e] for s, e in spans])).to(dev)
-            self.dense = build_dense_rows(h_docs, h_vals, heavy_starts, self.t_heavy, self.n_pad)
+            self.dense = build_dense_rows(h_docs, h_vals, heavy_starts, self.t_heavy, self.n_pad,
+                                          force_fp32=not integer_scores)
             del h_docs, h_vals
         else:
-            self.dense = torch.zeros(1, self.n_pad, dtype=torch.bfloat16, device=dev)
+            self.dense = torch.zeros(1, self.n_pad, device=dev,
+                                     dtype=torch.bfloat16 if integer_scores else torch.float32)
 
         # Tail postings in term order; term_start is each term's position
         # among them (heavy terms: 0, dense-only, never gathered).
@@ -228,6 +262,28 @@ class HybridSearchEngine:
         self.doc_ids = torch.from_numpy(t_docs.astype(np.int32)).to(dev)
         self.impacts = torch.from_numpy(np.ascontiguousarray(t_vals)).to(dev).float()
         self._released = False
+
+    @classmethod
+    def from_term_impacts(
+        cls,
+        per_doc_impacts,  # iterable of [(term, float score), ...] per doc
+        config: SearchConfig = SearchConfig(),
+        heavy_min: int = 1024,
+        dense_budget_bytes: int = 4 << 30,
+        device: Optional[Union[str, torch.device]] = None,
+        use_kernels: Optional[bool] = None,
+    ) -> "HybridSearchEngine":
+        """In-memory float-impact engine straight from encoder output (the
+        reference SparseSearch index semantics, nano_beir_evaluator.py:78-101:
+        keep score > 0, no quantization), for eval corpora too large for the
+        device engine's flat [Q, num_docs] scatter."""
+        from .device_engine import csr_from_term_impacts
+
+        vocab, offsets, doc_ids, impacts, n_docs = csr_from_term_impacts(per_doc_impacts)
+        index = SimpleNamespace(term_to_id=vocab, offsets=offsets, doc_ids=doc_ids,
+                                impacts=impacts, num_docs=n_docs)
+        return cls(index, config, heavy_min=heavy_min, dense_budget_bytes=dense_budget_bytes,
+                   integer_scores=False, device=device, use_kernels=use_kernels)
 
     def _tables(self, query_term_sets: Sequence[Set[str]]):
         """Host-side prep: heavy (query, dense row) incidences + tail chunk
@@ -339,7 +395,7 @@ class HybridSearchEngine:
             scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=dev)
         if tail is not None:
             scores = self._apply_tail_chunks(scores, self.doc_ids, self.impacts, *tail, TAIL_CHUNK)
-        vals, idx = _finish_topk(scores, self.num_docs, k, self.use_kernels)
+        vals, idx = _finish_topk(scores, self.num_docs, k, self.use_kernels, self.integer_scores)
         del scores
         # one host copy per batch: [nq, 2, k] int32 (scores bit-cast)
         packed = torch.stack([vals.view(torch.int32), idx], dim=1)

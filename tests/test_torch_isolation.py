@@ -3,7 +3,8 @@ and its entry points refuse to run on the CPU unless asked to.  Covers the
 query path, the encode path (text, encoder, indexer, CLIs), the other
 query engines (host, native, device, dense, blocked) and query CLIs, and
 training (losses, collates, packing, trainer, checkpoints, data parallelism,
-``cli.train``)."""
+``cli.train``), and the in-memory eval (``SparseSearch``, NanoBEIR, TREC
+metrics, BM25 and their CLIs)."""
 
 import ast
 import os
@@ -43,7 +44,9 @@ def test_port_sources_import_no_jax():
                    "train/losses.py", "train/packed.py", "train/collate.py", "train/trainer.py",
                    "core/checkpoint.py", "core/metrics_log.py", "core/profiling.py",
                    "parallel/dataloader.py", "parallel/distributed.py", "data/datasets.py",
-                   "cli/train.py"):
+                   "cli/train.py", "evaluation/sparse_search.py", "evaluation/nano_beir.py",
+                   "evaluation/trec_metrics.py", "evaluation/bm25.py", "cli/nano_beir.py",
+                   "cli/bm25.py"):
         assert module in names
     assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
@@ -260,3 +263,37 @@ def test_train_entry_point_without_cuda_raises(tmp_path):
                     "--collection_path", str(tmp_path / "c.tsv"), "--checkpoint_dir", str(tmp_path / "ck"),
                     "--vocab_path", str(tmp_path / "vocab.txt"), "--tiny", "--no_beir_eval"])
     assert not (tmp_path / "ck").exists()
+
+
+def test_cpu_eval_leaves_jax_unimported(tmp_path):
+    """NanoBEIR through cli.nano_beir on the CPU, with both engines of
+    ``SparseSearch`` (the switch lowered so the hybrid one runs too)."""
+    code = """
+import json, sys
+from pathlib import Path
+root = Path(sys.argv[1])
+d = root / "tiny"
+d.mkdir()
+docs = ["the quick brown fox", "a lazy dog sleeps", "fox and dog", "brown dogs run"]
+(d / "corpus.jsonl").write_text("".join(json.dumps({"_id": str(i), "text": t}) + "\\n" for i, t in enumerate(docs)))
+(d / "queries.jsonl").write_text(json.dumps({"_id": "q", "text": "brown fox"}) + "\\n")
+(d / "qrels.tsv").write_text("q\\t0\\t1\\n")
+from improving_learned_index_tpu_torch.cli.nano_beir import main
+from improving_learned_index_tpu_torch.evaluation import sparse_search
+from improving_learned_index_tpu_torch.text import WordPieceVocab
+WordPieceVocab.build(docs, max_size=64).save(root / "vocab.txt")
+for switch in (10, 2):
+    sparse_search.HYBRID_MIN_DOCS = switch
+    assert main(["--vocab_path", str(root / "vocab.txt"), "--tiny", "--device", "cpu", "--max_length", "128",
+                 "--local_data_dir", str(root), "--output", str(root / "m.json")]) == 0
+    assert set(json.loads((root / "m.json").read_text())) == {"tiny", "avg"}
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "improving_learned_index_tpu")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], capture_output=True, text=True, env=env,
+        cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-2000:]

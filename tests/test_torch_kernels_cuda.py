@@ -8,7 +8,13 @@ there without the suite's conftest:
 
 Integer impacts keep every fp32 sum exact and counts are integers, so the
 query kernels' comparisons (``gather_rows``, both ``scatter_scores``
-entries, ``count_ge``, the blocked scoring kernel) are equality.  ``short_attention`` is held to its plain version within two
+entries, ``count_ge``, the blocked scoring kernel) are equality.  Float
+impacts (the hybrid engine's float mode) are summed in another order by the
+kernels than by their plain versions: ``gather_rows``' fp32 instance is
+held within 4 x 2^-23 of each cell's sum of absolute values (at least 4
+fp32 ulps of it), and the float engine's scores within 1e-5 relative, its
+doc order exact except between two scores that close; dyadic impacts
+(multiples of 2^-8) sum exactly in any order and are compared equal.  ``short_attention`` is held to its plain version within two
 bf16 ulps of the largest output: both round the same fp32 context to bf16
 once, and only the fp32 summation order differs.  Its backward is one
 recompute for both routes (equal gradients); a training step's loss and
@@ -410,3 +416,122 @@ def test_other_engines_on_card_equal_cpu(cuda):
         assert got == cls(idx, device="cuda", use_kernels=False).score_batch(batch, 100), cls
         assert got == cls(idx, device="cpu").score_batch(batch, 100), cls
     assert ps.KERNEL.launches > b0 and COUNT_KERNEL.launches > c0
+
+
+def _ulp_tolerance(dense, ids, pairs, counts, nq):
+    """4 x 2^-23 of each cell's sum of absolute values: the bound on two
+    fp32 sums of the same few terms in different orders."""
+    return 4 * 2.0 ** -23 * gr.accumulate_rows_plain(dense.abs(), ids, pairs, counts, nq)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_fp32_float_rows_within_ulps(cuda):
+    """The fp32 instance on float rows (the hybrid engine's float mode):
+    not bit-equal to the plain ``w @ rows``, within 4 ulps of each cell's
+    sum of absolute values; exact where a cell has one term."""
+    g, dev = cuda, "cuda"
+    t_heavy, n_pad, nq, p = 60, 2 * TILE + 512, 50, 400
+    dense = torch.rand(t_heavy, n_pad, generator=g, device=dev) * 3
+    dense[:, ::7] = 0
+    ids = torch.randperm(t_heavy, generator=g, device=dev)[:48].int()
+    pairs = torch.stack(
+        [torch.randint(0, nq, (p,), generator=g, device=dev),
+         torch.randint(0, 48, (p,), generator=g, device=dev)], 1
+    ).int().contiguous()
+    counts = torch.tensor([48, p], dtype=torch.int32, device=dev)
+    before = gr.KERNEL.launches
+    got = gr.accumulate_rows(dense, ids, pairs, counts, nq)
+    want = gr.accumulate_rows_plain(dense, ids, pairs, counts, nq)
+    torch.cuda.synchronize()
+    assert gr.KERNEL.launches == before + 1 and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= _ulp_tolerance(dense, ids, pairs, counts, nq)).all())
+    one = torch.tensor([[0, 0]], dtype=torch.int32, device=dev)
+    single = torch.tensor([1, 1], dtype=torch.int32, device=dev)
+    assert torch.equal(gr.accumulate_rows(dense, ids, one, single, 1),
+                       gr.accumulate_rows_plain(dense, ids, one, single, 1))
+
+
+def _float_docs(rng, num_docs, n_terms, dyadic):
+    """Per-doc (term, impact) lists: 5 terms with 1,500-2,500 postings (dense
+    rows at heavy_min 1,000), the rest short (tail)."""
+    per_doc = [[] for _ in range(num_docs)]
+    for t in range(n_terms):
+        n_post = int(rng.integers(1500, 2500)) if t < 5 else int(rng.integers(3, 200))
+        for d in np.unique(rng.integers(0, num_docs, n_post)).tolist():
+            v = rng.integers(1, 9) / 256 if dyadic else rng.random() * 3
+            per_doc[d].append((f"t{t}", float(v)))
+    return per_doc
+
+
+def _float_rankings_close(got, want, rel=1e-5):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        gs, ws = np.array([s for _, s in g]), np.array([s for _, s in w])
+        np.testing.assert_allclose(gs, ws, rtol=rel)
+        score = dict(g)
+        for (gd, sg), (wd, _) in zip(g, w):
+            if gd != wd:  # a swap between two scores within the tolerance
+                assert abs(score[wd] - sg) <= 2 * rel * sg, (gd, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_hybrid_float_engine_on_card_equals_cpu(cuda, dyadic):
+    """The float hybrid engine on the card (both kernels, no count_ge: the
+    float top-k is a sort), on the card with the plain versions, and on the
+    CPU; every doc with a positive score comes back (k = num_docs)."""
+    rng = np.random.default_rng(5)
+    num_docs, n_terms = 70_000, 40
+    docs = _float_docs(rng, num_docs, n_terms, dyadic)
+    batch = [{f"t{i}" for i in rng.choice(n_terms, 4, replace=False)} for _ in range(14)]
+    batch += [set(), {"t0"}, {"t30", "zz"}, {"zz"}]
+    g0, s0, c0 = gr.KERNEL.launches, ss.KERNEL.launches, COUNT_KERNEL.launches
+    card = HybridSearchEngine.from_term_impacts(docs, heavy_min=1000, device="cuda")
+    assert card.t_heavy == 5 and card.dense.dtype == torch.float32
+    got = card.score_batch(batch, num_docs)
+    assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and COUNT_KERNEL.launches == c0
+    plain = HybridSearchEngine.from_term_impacts(docs, heavy_min=1000, device="cuda", use_kernels=False)
+    cpu = HybridSearchEngine.from_term_impacts(docs, heavy_min=1000, device="cpu")
+    device = DeviceSearchEngine.from_term_impacts(docs, device="cuda")
+    for want in (plain.score_batch(batch, num_docs), cpu.score_batch(batch, num_docs),
+                 device.score_batch(batch, num_docs)):
+        if dyadic:
+            assert got == want
+        else:
+            _float_rankings_close(got, want)
+    assert sum(map(len, got)) > 10_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_docs", [5_000, 100_000])
+def test_sparse_search_on_card_kernels_equal_plain(cuda, n_docs):
+    """SparseSearch on the card on both sides of its engine switch, with the
+    kernels and with their plain versions (``use_kernels=False``): equal
+    results for dyadic impacts (a word's length / 8)."""
+    from improving_learned_index_tpu_torch.evaluation import SparseSearch
+
+    class Stub:
+        device = "cuda"
+
+        def process_query(self, query):
+            return set(query.split())
+
+        def get_impact_scores_batch(self, texts):
+            return [[(t, len(t) / 8) for t in dict.fromkeys(text.split())] for text in texts]
+
+    rng = np.random.default_rng(2)
+    # 100 common words (dense rows past 100,000 docs) and 20,000 rare ones
+    # (the tail): each doc 4 of the first and 2 of the second
+    common = np.array([f"w{i}" for i in range(100)])
+    rare = np.array([f"rare{i}" for i in range(20_000)])
+    corpus = {str(i): " ".join([*rng.choice(common, 4), *rng.choice(rare, 2)]) for i in range(n_docs)}
+    queries = {str(q): " ".join([*rng.choice(common, 2), *rng.choice(rare, 1)]) for q in range(40)}
+    g0, s0 = gr.KERNEL.launches, ss.KERNEL.launches
+    card = SparseSearch(Stub(), batch_size=4096)
+    got = card.search(queries, corpus, k=100)
+    want_engine = HybridSearchEngine if n_docs >= 100_000 else DeviceSearchEngine
+    assert type(card.engine) is want_engine and card.engine.device.type == "cuda"
+    assert ss.KERNEL.launches > s0 and (gr.KERNEL.launches > g0) == (want_engine is HybridSearchEngine)
+    assert got == SparseSearch(Stub(), batch_size=4096, use_kernels=False).search(queries, corpus, k=100)
+    assert got == SparseSearch(Stub(), batch_size=4096, device="cpu").search(queries, corpus, k=100)

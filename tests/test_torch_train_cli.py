@@ -116,9 +116,13 @@ def test_cli_refusals(data):
         train_cli.main(_train_args(data, "c", "--in_batch_negatives", "--pack"))
     with pytest.raises(SystemExit):
         train_cli.main(_train_args(data, "c", "--pack", "--no_pack"))
+    # the in-training eval is on without --no_beir_eval: a --nano_beir_dir
+    # that holds no BEIR-format dataset is refused before training starts
+    (data / "no_beir").mkdir()
     args = [a for a in _train_args(data, "c") if a != "--no_beir_eval"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        train_cli.main(args)
+    with pytest.raises(ValueError, match="no BEIR-format datasets"):
+        train_cli.main(args + ["--nano_beir_dir", str(data / "no_beir")])
+    assert not (data / "c" / "metrics.txt").exists()
     for flag in ("--pairwise", "--cross_encoder"):
         with pytest.raises(NotImplementedError, match="queue 1 item 3"):
             train_cli.main(_train_args(data, "c", flag))
