@@ -20,8 +20,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    engine through ``build_engine``.  Each kernel runs on the inputs the
    first 64-query batch gives it and must equal its plain PyTorch version
    exactly: ``gather_rows`` and ``scatter_scores`` on the batch's stages
-   (the scatter's chunk-table entry, which the engines call, and its flat
-   entry, whose time the row gives, with the tail stage's time by route),
+   (the gather's entry on the staged pair table, which the engines call,
+   and its JAX-signature entry on the same pairs; the scatter's chunk-table
+   entry, which the engines call, and its flat entry, whose time the row
+   gives, with the tail stage's time by route),
    ``count_ge`` on the batch's score matrix with its first-pass thresholds,
    and the blocked kernel on the batch's tables in a ``PallasBlockedEngine``
    over the same index.  Kernel, plain and library-call times (CUDA events)
@@ -95,8 +97,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    doc may move only by such a near-tie); on ``large`` the CLI's hybrid
    engine holds fp32 rows, its ``gather_rows`` and ``scatter_scores`` equal
    their plain versions on the first query batch within 4 x 2^-23 of each
-   cell's sum of absolute values (times printed beside their bounds), and
-   its rows equal ``DeviceSearchEngine``'s; ``short_attention`` at the
+   cell's sum of absolute values (times printed beside their bounds), 20
+   heavy-stage calls under the profiler run nothing on the card but the
+   table's upload and the gather kernel, and its rows equal
+   ``DeviceSearchEngine``'s; ``short_attention`` at the
    eval's packed shape within two bf16 ulps.  Then ``cli.train`` at phase
    8's set-up for 8 steps with ``--eval_every 4 --eval_datasets nano``:
    records at iterations 0 and 4 with their stall, ``short_attention``
@@ -302,30 +306,41 @@ def ulps_apart(got, want, sum_abs) -> bool:
 
 
 def gather_row(engine, heavy, nq):
-    """Gather kernel against its plain version on one batch's heavy inputs:
-    equal on integer rows, within ``ulps_apart`` on float rows (the float
-    mode's fp32 instance)."""
+    """Gather kernel against its plain version on one batch's staged pair
+    table (the engines' route, ``accumulate_grouped``): equal on integer
+    rows, within ``ulps_apart`` on float rows (the float mode's fp32
+    instance).  The JAX-signature entry ``accumulate_rows`` on the same
+    pairs (its table built on the card) must give the same scores; its time
+    is the row's ``jax_signature_ms``."""
     from improving_learned_index_tpu_torch.ops import gather_rows as gr
 
-    ids, pairs, counts = heavy
-    dense = engine.dense
-    exact = engine.integer_scores
-    out_k = gr.accumulate_rows(dense, ids, pairs, counts, nq)
-    out_p = gr.accumulate_rows_plain(dense, ids, pairs, counts, nq)
+    table, dense, exact = heavy, engine.dense, engine.integer_scores
+    out_k = gr.accumulate_grouped(dense, table, nq)
+    out_p = gr.accumulate_grouped_plain(dense, table, nq)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
     if not (torch.equal(out_k, out_p) if exact else
-            ulps_apart(out_k, out_p, gr.accumulate_rows_plain(dense.abs(), ids, pairs, counts, nq))):
+            ulps_apart(out_k, out_p, gr.accumulate_grouped_plain(dense.abs(), table, nq))):
         raise AssertionError(f"gather_rows kernel != plain (max abs err {err})")
+    # the same pairs in the JAX layout (ids, pairs, counts)
+    host = table.cpu().numpy()
+    n_hit = int(host[0])
+    qptr, hits = host[1 : nq + 2], host[nq + 2 : nq + 2 + n_hit]
+    slots = host[nq + 2 + n_hit : nq + 2 + n_hit + qptr[-1]]
+    n_pairs = len(slots)
+    q_of = np.repeat(np.arange(nq), np.diff(qptr))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dense.device)  # noqa: E731
+    ids, pairs, counts = to(hits), to(np.stack([q_of, slots], 1)), to([n_hit, n_pairs])
+    if not torch.equal(gr.accumulate_rows(dense, ids, pairs, counts, nq), out_k):
+        raise AssertionError("gather_rows: accumulate_rows != accumulate_grouped on the same pairs")
     del out_k
-    n_hit, n_pairs = (int(x) for x in counts.tolist())
     t_heavy, n_pad = dense.shape
     # the same function as one library call: one-hot [nq, t_heavy] times the
     # whole dense matrix, bf16 operands and an fp32 result (torch.mm's
     # out_dtype, CUDA only, where this torch version has it)
-    q_of, slot = pairs[:n_pairs].long().unbind(1)
     w = torch.zeros(nq, t_heavy, dtype=torch.float32, device=dense.device)
-    w.index_put_((q_of, ids.long()[slot]), torch.ones_like(q_of, dtype=torch.float32), accumulate=True)
+    w.index_put_((to(q_of).long(), to(hits[slots]).long()),
+                 torch.ones(n_pairs, dtype=torch.float32, device=dense.device), accumulate=True)
     w = w.to(dense.dtype)
     if dense.dtype == torch.float32:
         library = lambda: torch.mm(w, dense)  # noqa: E731
@@ -337,15 +352,18 @@ def gather_row(engine, heavy, nq):
         except (TypeError, RuntimeError, NotImplementedError) as exc:
             log(f"no single-call library yardstick for gather_rows: {exc!r:.200}")
             library, library_equal = None, None
-    b, by = bound_ms(n_hit * n_pad * dense.element_size() + nq * n_pad * 4 + pairs.numel() * 4, n_pairs * n_pad)
+    b, by = bound_ms(n_hit * n_pad * dense.element_size() + nq * n_pad * 4 + table.numel() * 4,
+                     n_pairs * n_pad)
     row = {
         "name": "gather_rows",
         "route": "cuda",
         "source": "improving_learned_index_tpu_torch/csrc/gather_rows.cu",
         "replaces": "improving_learned_index_tpu/ops/gather_rows.py:39",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: gr.accumulate_rows(dense, ids, pairs, counts, nq)),
-        "plain_ms": cuda_ms(lambda: gr.accumulate_rows_plain(dense, ids, pairs, counts, nq)),
+        "ms": cuda_ms(lambda: gr.accumulate_grouped(dense, table, nq)),
+        "jax_signature_ms": cuda_ms(lambda: gr.accumulate_rows(dense, ids, pairs, counts, nq)),
+        "upload_and_gather_ms": cuda_ms(lambda: gr.accumulate_grouped(dense, to(host), nq)),
+        "plain_ms": cuda_ms(lambda: gr.accumulate_grouped_plain(dense, table, nq)),
         "bound_ms": b,
         "bound_by": by,
         "library_ms": cuda_ms(library) if library else None,
@@ -1678,13 +1696,20 @@ def run_eval(cfg, workdir: Path, ckpt: Path, train_args: list) -> dict:
     for row in (g_row, s_row):
         log(f"{row['name']} (float mode): within tolerance of plain; {json.dumps(row)}")
     out["kernels"] = {"gather_rows": g_row, "scatter_scores": s_row}
-    # where a gather call's time goes at this small shape: 20 calls of the
-    # wrapper (its pair tables, then the kernel) under the profiler
+    # where the engine's heavy stage goes at this small shape: 20 calls of
+    # its route (the table's one upload, then the kernel) under the
+    # profiler; nothing else may run on the card
     from improving_learned_index_tpu_torch.ops import gather_rows as gr
 
-    prof = profile_window(lambda: [gr.accumulate_rows(engine.dense, *heavy, len(batch)) for _ in range(20)])
+    host_table = heavy.cpu()
+    prof = profile_window(lambda: [gr.accumulate_grouped(engine.dense, host_table.to(dev), len(batch))
+                                   for _ in range(20)])
     out["gather_profile"] = dict(prof, calls=20)
     log(json.dumps({"gather_rows_fp32_profile": out["gather_profile"]}))
+    others = [k for k in prof["top_kernels"]
+              if "gather_grouped" not in k["kernel"] and "HtoD" not in k["kernel"]]
+    if others:
+        raise AssertionError(f"the heavy stage ran other device work: {others}")
 
     # the hybrid rows against the device engine's on the same impacts
     device = DeviceSearchEngine.from_term_impacts(by_name["large"], device=dev)

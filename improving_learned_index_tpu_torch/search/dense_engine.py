@@ -10,9 +10,10 @@ once on the card and a query batch is scored as
 
 The JAX package computes that product in XLA at ``Precision.HIGHEST`` with
 an fp32 result.  In torch a bf16 @ bf16 product returns bf16 and rounds sums
-above 256, so the port takes ``ops.gather_rows.accumulate_rows`` instead:
+above 256, so the port takes ``ops.gather_rows.accumulate_grouped`` instead:
 the fp32 sum of the bf16 (or fp32) rows each query hits, reading only those
-rows (on the card the hand-written ``gather_rows`` kernel; on the CPU, and
+rows, with the pairs grouped on the host (``group_pairs``) and staged in one
+upload (on the card the hand-written ``gather_rows`` kernel; on the CPU, and
 with ``use_kernels=False``, its plain version: the one-hot product in fp32,
 TF32 off).  Integer impacts (<= 255, exact in bf16) give sums equal to the
 host engine's bit for bit; float impacts keep fp32 rows, summed in another
@@ -81,8 +82,9 @@ class DenseSearchEngine:
         self.config = config
         self.device = dev = resolve_device(device)
         self.use_kernels = resolve_use_kernels(dev, use_kernels)
-        self._accumulate_rows = (
-            gather_rows.accumulate_rows if self.use_kernels else gather_rows.accumulate_rows_plain
+        self._accumulate_grouped = (
+            gather_rows.accumulate_grouped if self.use_kernels
+            else gather_rows.accumulate_grouped_plain
         )
         if index is not None:
             vocab = index.term_to_id
@@ -149,14 +151,6 @@ class DenseSearchEngine:
         if not pairs:
             return [[] for _ in range(nq)]
         q_of, tids = np.asarray(pairs, dtype=np.int64).T
-        ids, slot = np.unique(tids, return_inverse=True)
-        dev = self.device
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
-
-        scores = self._accumulate_rows(
-            self.impact_matrix, put(ids), put(np.stack([q_of, slot.reshape(-1)], axis=1)),
-            put([len(ids), len(pairs)]), nq,
-        )
+        table = torch.from_numpy(gather_rows.group_pairs(q_of, tids, nq)).to(self.device)
+        scores = self._accumulate_grouped(self.impact_matrix, table, nq)
         return host_topk(scores[:, : self.num_docs].cpu().numpy(), k)

@@ -195,10 +195,10 @@ class HybridSearchEngine:
         self.device = resolve_device(device)
         self.use_kernels = resolve_use_kernels(self.device, use_kernels)
         if self.use_kernels:
-            self._accumulate_rows = gather_rows.accumulate_rows
+            self._accumulate_grouped = gather_rows.accumulate_grouped
             self._apply_tail_chunks = scatter_scores.apply_tail_chunks
         else:
-            self._accumulate_rows = gather_rows.accumulate_rows_plain
+            self._accumulate_grouped = gather_rows.accumulate_grouped_plain
             self._apply_tail_chunks = scatter_scores.apply_tail_chunks_plain
         self.vocab: Dict[str, int] = index.term_to_id
         self.num_docs = max(int(index.num_docs), 1)
@@ -291,7 +291,8 @@ class HybridSearchEngine:
         the per-term chunk expansion is numpy (``expand_tail_chunks``).
 
         Returns (heavy_q, heavy_rows, chunk_starts, chunk_lengths,
-        chunk_rows); ``heavy_q`` ascends (pairs grouped by query)."""
+        chunk_rows): each heavy pair's query and dense row, then the tail's
+        chunk table."""
         qs: List[int] = []
         tids: List[int] = []
         get = self.vocab.get
@@ -318,10 +319,11 @@ class HybridSearchEngine:
 
     def stage_inputs(self, query_term_sets: Sequence[Set[str]]):
         """One batch's inputs to the two scoring stages, on the engine's
-        device: ``heavy`` = (ids, pairs, counts) for ``accumulate_rows``,
-        ``tail`` = the chunk table (starts, lengths, rows) of TAIL_CHUNK
-        windows into ``doc_ids``/``impacts`` for ``apply_tail_chunks``;
-        each is None when no query term falls in that stage."""
+        device: ``heavy`` = the pair table for ``accumulate_grouped``
+        (``gather_rows.group_pairs``, one upload), ``tail`` = the chunk
+        table (starts, lengths, rows) of TAIL_CHUNK windows into
+        ``doc_ids``/``impacts`` for ``apply_tail_chunks``; each is None when
+        no query term falls in that stage."""
         heavy_q, heavy_rows, starts, lengths, rows = self._tables(query_term_sets)
         dev = self.device
 
@@ -330,12 +332,7 @@ class HybridSearchEngine:
 
         heavy = tail = None
         if len(heavy_q):
-            uniq, inv = np.unique(heavy_rows, return_inverse=True)
-            heavy = (
-                put(uniq),
-                put(np.stack([heavy_q, inv.reshape(-1)], axis=1)),
-                put([len(uniq), len(heavy_q)]),
-            )
+            heavy = put(gather_rows.group_pairs(heavy_q, heavy_rows, len(query_term_sets)))
         if len(starts):
             tail = (put(starts), put(lengths), put(rows))
         return heavy, tail
@@ -390,7 +387,7 @@ class HybridSearchEngine:
             return lambda: [[] for _ in range(nq)]
         dev = self.device
         if heavy is not None:
-            scores = self._accumulate_rows(self.dense, *heavy, nq)
+            scores = self._accumulate_grouped(self.dense, heavy, nq)
         else:
             scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=dev)
         if tail is not None:

@@ -126,6 +126,27 @@ def test_duplicate_postings_force_fp32_rows():
     ]
 
 
+def test_stage_inputs_stage_one_heavy_table():
+    """The heavy stage's input is one int32 table, the host grouping of the
+    batch's (query, dense row) pairs; scoring through it equals the JAX
+    layout (ids, pairs, counts) that ``accumulate_rows`` takes."""
+    from improving_learned_index_tpu_torch.ops import gather_rows as gr
+
+    jidx, rng = _toy_corpus_index(seed=6)
+    eng = _port(jidx)
+    batch = _toy_batch(jidx, rng, 70)
+    heavy, tail = eng.stage_inputs(batch)
+    heavy_q, heavy_rows = eng._tables(batch)[:2]
+    assert heavy.dtype == torch.int32 and heavy.dim() == 1 and tail is not None
+    assert np.array_equal(heavy.numpy(), gr.group_pairs(heavy_q, heavy_rows, len(batch)))
+    uniq, slot = np.unique(heavy_rows, return_inverse=True)
+    jax_layout = (torch.from_numpy(uniq.astype(np.int32)),
+                  torch.from_numpy(np.stack([heavy_q, slot.reshape(-1)], 1).astype(np.int32)),
+                  torch.tensor([len(uniq), len(heavy_q)], dtype=torch.int32))
+    assert torch.equal(gr.accumulate_grouped(eng.dense, heavy, len(batch)),
+                       gr.accumulate_rows(eng.dense, *jax_layout, len(batch)))
+
+
 def test_bf16_rows_when_sums_fit():
     jidx = _random_index(np.random.default_rng(2), num_docs=300, vocab_size=30, postings=3000)
     eng = _port(jidx, heavy_min=32)

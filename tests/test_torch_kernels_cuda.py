@@ -70,6 +70,70 @@ def test_gather_kernel_equals_plain(cuda, dtype):
     assert torch.equal(got, want)
 
 
+_GROUPED_CASES = ["ragged", "narrow", "one_query", "many_queries", "rows_past_the_ring",
+                  "no_pairs", "queries_without_pairs", "rows_out_of_range"]
+
+
+def _grouped_case(name, dtype, g):
+    """(dense, table, nq) for ``accumulate_grouped``: integer cells, the
+    table from the host builder, pairs drawn in random order.  n_pad is
+    ragged against both dtypes' tiles (256 and 128 docs); rows_past_the_ring
+    has 500 hit rows, more than the 12 stages of 32 rows hold."""
+    dev = "cuda"
+    t_heavy, n_pad, nq, n_hit, n_pairs = 60, 3 * TILE + 1032, 67, 40, 300
+    if name == "narrow":
+        n_pad = 24
+    elif name == "one_query":
+        nq, n_pairs = 1, 12
+    elif name == "many_queries":
+        nq, n_pairs = 300, 1500
+    elif name == "rows_past_the_ring":
+        t_heavy, n_hit, n_pairs = 600, 500, 1200
+    elif name == "no_pairs":
+        n_pairs = 0
+    dense = torch.randint(0, 257, (t_heavy, n_pad), generator=g, device=dev).to(dtype)
+    rows = torch.randperm(t_heavy, generator=g, device=dev)[:n_hit]
+    q = torch.randint(0, nq, (n_pairs,), generator=g, device=dev)
+    if name == "queries_without_pairs":
+        q = q % 5 * 13
+    r = rows[torch.randint(0, n_hit, (n_pairs,), generator=g, device=dev)]
+    if name == "rows_out_of_range":
+        r[::7] = -2
+        r[1::7] = t_heavy + 3
+    table = torch.from_numpy(gr.group_pairs(q.cpu().numpy(), r.cpu().numpy(), nq)).to(dev)
+    return dense, table, nq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", _GROUPED_CASES)
+def test_gather_grouped_kernel_equals_plain(cuda, name, dtype):
+    """The engines' entry, one launch a call, equal to its plain version."""
+    dense, table, nq = _grouped_case(name, dtype, cuda)
+    before = gr.KERNEL.launches
+    got = gr.accumulate_grouped(dense, table, nq)
+    want = gr.accumulate_grouped_plain(dense, table, nq)
+    torch.cuda.synchronize()
+    assert gr.KERNEL.launches == before + 1
+    assert got.shape == (nq, dense.shape[1]) and torch.equal(got, want)
+    if name == "no_pairs":
+        assert not got.any()
+
+
+@pytest.mark.cuda
+def test_gather_grouped_kernel_refuses_what_it_cannot_take(cuda):
+    """A table past the kernel's int32 indexing (8 GiB of int32) and an
+    n_pad that is no multiple of 16 bytes raise before any launch."""
+    dense = torch.zeros(2, 64, dtype=torch.bfloat16, device="cuda")
+    before = gr.KERNEL.launches
+    with pytest.raises(ValueError, match="exceeds"):
+        gr.accumulate_grouped(dense, torch.zeros(2**31, dtype=torch.int32, device="cuda"), 1)
+    torch.cuda.empty_cache()
+    with pytest.raises(ValueError, match="n_pad"):
+        gr.accumulate_grouped(dense[:, :60].contiguous(), torch.zeros(3, dtype=torch.int32, device="cuda"), 1)
+    assert gr.KERNEL.launches == before
+
+
 def _scatter_case(name, g):
     """(base scores, d, v, r) flat updates on the card.  v == 0 marks
     padding; the out_of_range case holds docs and rows outside the matrix,

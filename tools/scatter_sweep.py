@@ -136,7 +136,7 @@ def main() -> int:
                                 dense_budget_bytes=int(cfg.dense_budget_gb * (1 << 30)), device=dev)
     del docs, vals
     heavy, tail = engine.stage_inputs([{terms[t] for t in q} for q in queries[: cfg.nq]])
-    base = gr.accumulate_rows(engine.dense, *heavy, cfg.nq)
+    base = gr.accumulate_grouped(engine.dense, heavy, cfg.nq)
     table = (engine.doc_ids, engine.impacts, *tail, TAIL_CHUNK)
     d, v, r = ss.gather_updates(*table)
     slots = d.numel()
