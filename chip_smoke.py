@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: the query path at MS MARCO passage
-scale, every query engine on the same index, and the encode path, training
-and the in-memory eval at BERT-base width.
+scale, every query engine on the same index, and the encode path, training,
+the in-memory eval and the rerankers at BERT-base width.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -105,16 +105,52 @@ Phases, in order; any failed check raises and the script exits non-zero:
    8's set-up for 8 steps with ``--eval_every 4 --eval_datasets nano``:
    records at iterations 0 and 4 with their stall, ``short_attention``
    launched 12 x 8 times for training plus 12 a packed eval batch.
+10. Rerankers, at BERT-base width and S=256, in phase 6's work directory.
+   Data: phase 9's ``nano`` dataset as TSV files and a first-stage run of
+   its 50 queries x 100 candidates (each query's qrel passage and 99 seeded
+   others, in seeded order), also written as a top-k file.  Launch counts
+   are set to 0 just before each CLI and read just after.  (1)
+   ``cli.rerank`` on phase 8's final checkpoint, 128 passages an encode
+   batch: 50 queries written, ``short_attention`` launched 12 times an
+   encode batch; every score within 1e-5 relative of the fp64 sum of the
+   impacts the CLI encoded, in their stable descending order but for
+   near-ties (counted); an in-process ``ReRanker`` with ``use_kernels=False``
+   on the same checkpoint encodes the same terms with impacts within phase
+   7's tolerance, and its run holds the CLI's scores within what those
+   impacts add up to, the order exact but for near-ties (counted); MRR@10
+   of the candidates and of the reranked run, and the candidates' recall
+   as a top-k file.  (2) The cross-encoder, from phase 7's seeded trunk:
+   on one batch of 32 query groups (64 rows of 256) the kernel route
+   against the plain route with phase 8's rules, then ``cli.train
+   --cross_encoder`` for 4 unpacked steps: ``short_attention`` launched 12
+   x 4 times (the backward launches none), every logged loss finite,
+   ``DeepImpactCrossEncoder_final.pt`` written.  (3)
+   ``cli.cross_encoder_rerank`` on that snapshot over 20 queries x 100
+   candidates, 32 a batch: ``short_attention`` launched 12 times a batch
+   (4 batches a query), scores within phase 7's tolerance of the plain
+   route's (relative to the largest score), the order exact but for
+   near-ties (counted); the exact zeros counted.  (4) Pairwise, phase 7's
+   trunk with a seeded pair head: ``cli.train --pairwise`` for 2 unpacked
+   steps of 4 query groups (losses, peak memory), and the ``Indexer``'s
+   pairwise route over 256 passages: neither launches ``short_attention``
+   (the attention maps take the plain route, as in the JAX package), the
+   forward index holds composite ``a|b`` terms, and the single-term impacts
+   are within phase 7's tolerance of ``DeepImpact``'s kernel route on the
+   same trunk.  Each part prints its wall seconds and a rate (pairs/s,
+   docs/s) and each training CLI its peak memory.
 
 The second-to-last line is the ``kernels`` JSON object (five rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
-``cli.index``, ``cli.train``, ``cli.nano_beir`` and ``cli.train`` with eval,
-``gather_rows`` over ``cli.rank`` and ``cli.nano_beir``'s fp32 rows), the
-last line ``{"ok": true, "device": {...}}``.
+``cli.index``, ``cli.train``, ``cli.nano_beir``, ``cli.train`` with eval,
+``cli.rerank``, ``cli.train --cross_encoder``, ``cli.cross_encoder_rerank``
+and the pairwise routes (0), ``gather_rows`` over ``cli.rank`` and
+``cli.nano_beir``'s fp32 rows), the last line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -159,6 +195,17 @@ TRAIN = SimpleNamespace(
 EVAL = SimpleNamespace(
     nano_docs=5_000, large_docs=131_072, queries=50, batch=512, train_steps=8, eval_every=4,
     seed=1, device="cuda",
+)
+# The rerank configuration: phase 9's nano dataset (5,000 passages, 50
+# queries) as a first-stage run of 100 candidates a query (the qrel passage
+# and 99 seeded others) reranked by cli.rerank on phase 8's checkpoint, 128
+# passages an encode batch (the CLI's default); a cross-encoder trained by
+# cli.train from phase 7's seeded trunk at S=256, 32 query groups (64 rows) a
+# step, reranking 20 of those queries at 32 candidates a batch (the CLI's
+# default); the pairwise model on the same trunk with a seeded pair head.
+RERANK = SimpleNamespace(
+    candidates=100, batch=128, ce_groups=32, ce_steps=4, ce_queries=20, ce_batch=32,
+    pw_groups=4, pw_steps=2, pw_index_docs=256, pw_batch=64, seed=2, device="cuda",
 )
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
@@ -1247,6 +1294,33 @@ def write_triples(workdir: Path, passages: list, n: int, seed: int) -> tuple:
     return qpath, tpath
 
 
+def kernel_vs_plain_step(module, loss_name: str, batch: dict) -> dict:
+    """One training batch's loss and gradients on the kernel route and on
+    the plain route (``use_kernels=False``): the loss within 1%, the global
+    gradient norm within 2%, the gradients' cosine >= 0.99, else
+    AssertionError.  The same bf16 argument as phase 7's impact tolerance:
+    the forwards differ by at most two bf16 ulps of an attention output, and
+    the backwards are one recompute."""
+    from improving_learned_index_tpu_torch.train import make_loss_fn
+
+    routes = {}
+    for use_kernels in (True, False):
+        loss = make_loss_fn(module, loss_name, use_kernels=use_kernels)(batch)
+        loss.backward()
+        grads = torch.cat([p.grad.flatten() for p in module.parameters()])
+        routes[use_kernels] = (loss.item(), grads)
+        for p in module.parameters():
+            p.grad = None
+    (lk, gk), (lp, gp) = routes[True], routes[False]
+    nk, npl = float(gk.norm()), float(gp.norm())
+    cos = float(torch.dot(gk, gp)) / (nk * npl) if nk * npl > 0 else float("nan")
+    check = {"loss": [lk, lp], "grad_norm": [nk, npl], "cosine": cos}
+    if not (np.isfinite(lk) and abs(lk - lp) <= 0.01 * abs(lp) and npl > 0
+            and abs(nk - npl) <= 0.02 * npl and check["cosine"] >= 0.99):
+        raise AssertionError(f"{loss_name} step: kernel route vs plain route out of tolerance: {check}")
+    return check
+
+
 def train_metrics(ckpt: Path, steps: int, save_every: int) -> dict:
     """The CLI's logged steps: every loss finite, each step's seconds
     (``train/elapsed_s`` is read after the step's loss reached the host and
@@ -1265,7 +1339,7 @@ def train_metrics(ckpt: Path, steps: int, save_every: int) -> dict:
     saving = [d for i, d in enumerate(step_s[1:], start=3) if not i % save_every]
     return {"losses": losses, "grad_norms": [r["train/grad_norm"] for r in train],
             "first_two_steps_s": t[1], "step_s": step_s,
-            "steady_steps_per_s": len(steady) / sum(steady),
+            "steady_steps_per_s": len(steady) / sum(steady) if steady else None,
             "checkpoint_step_s": saving}
 
 
@@ -1279,7 +1353,7 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
     from improving_learned_index_tpu_torch.ops import short_attention as sa
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
-    from improving_learned_index_tpu_torch.train import COLLATES, Trainer, make_loss_fn
+    from improving_learned_index_tpu_torch.train import COLLATES, Trainer
     from improving_learned_index_tpu_torch.train.packed import pack_collated
 
     log("== phase 8: training on the card (BERT-base, S=256, 128 query groups a step)")
@@ -1300,26 +1374,8 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     trainer = Trainer(model, TrainConfig(batch_size=cfg.groups, save_every=10**9, eval_every=10**9),
                       workdir / "ckpt_profile")
     put = trainer._put_batch(batches[0])
-    routes = {}
-    for use_kernels in (True, False):
-        loss = make_loss_fn(model.module, "pairwise_ce", use_kernels=use_kernels)(put)
-        loss.backward()
-        grads = torch.cat([p.grad.flatten() for p in model.module.parameters()])
-        routes[use_kernels] = (loss.item(), grads)
-        for p in model.module.parameters():
-            p.grad = None
-    (lk, gk), (lp, gp) = routes[True], routes[False]
-    nk, npl = float(gk.norm()), float(gp.norm())
-    cos = float(torch.dot(gk, gp)) / (nk * npl)
     check1 = {"rows": int(batches[0]["input_ids"].shape[0]), "docs": 2 * cfg.groups,
-              "loss": [lk, lp], "grad_norm": [nk, npl], "cosine": cos}
-    del gk, gp, routes
-    # The same bf16 argument as phase 7's impact tolerance: the forwards
-    # differ by at most two bf16 ulps of an attention output, and the
-    # backwards are one recompute.
-    if not (np.isfinite(lk) and abs(lk - lp) <= 0.01 * abs(lp) and npl > 0
-            and abs(nk - npl) <= 0.02 * npl and cos >= 0.99):
-        raise AssertionError(f"training step: kernel route vs plain route out of tolerance: {check1}")
+              **kernel_vs_plain_step(model.module, "pairwise_ce", put)}
     log(f"check 1, kernel route vs plain route on a packed batch: {json.dumps(check1)}")
     out["kernel_vs_plain"] = check1
 
@@ -1805,6 +1861,397 @@ def run_eval(cfg, workdir: Path, ckpt: Path, train_args: list) -> dict:
     return out
 
 
+# -- rerankers ------------------------------------------------------------------------
+
+
+def read_run(path: Path) -> dict:
+    """A run file as {qid: [(pid, score), ...]} in file order."""
+    out = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            qid, pid, _, score = line.rstrip("\n").split("\t")
+            out.setdefault(qid, []).append((pid, float(score)))
+    return out
+
+
+def runs_close(got: dict, want: dict, tol_max: float, tol_mean: float, what: str) -> dict:
+    """Two routes' run files over the same candidates: each query's scores
+    within ``tol_max`` (their mean difference within ``tol_mean``), and its
+    order the same except where a position holds two candidates whose
+    ``want`` scores lie within twice the query's largest difference (a
+    near-tie, which the routes' rounding may swap; counted)."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: queries {sorted(got)[:5]}... against {sorted(want)[:5]}...")
+    diffs, swaps = [], 0
+    for qid, rows in want.items():
+        score = dict(rows)
+        if sorted(p for p, _ in got[qid]) != sorted(score):
+            raise AssertionError(f"{what}: query {qid} has other candidates")
+        d = [abs(s - score[p]) for p, s in got[qid]]
+        diffs.extend(d)
+        for (gp, _), (wp, _) in zip(got[qid], rows):
+            if gp != wp:
+                if abs(score[gp] - score[wp]) > 2 * max(d):
+                    raise AssertionError(f"{what}: query {qid}: {gp} in place of {wp} without a near-tie")
+                swaps += 1
+    d = np.asarray(diffs)
+    out = {"max": float(d.max()), "mean": float(d.mean()), "pairs": len(diffs), "near_tie_swaps": swaps}
+    if out["max"] > tol_max or out["mean"] > tol_mean:
+        raise AssertionError(f"{what}: score differences {out} beyond {tol_max} / {tol_mean}")
+    return out
+
+
+def run_rerank(cfg, workdir: Path, ckpt: Path) -> dict:
+    """Phase 10: the rerankers on the card at BERT-base width, S=256."""
+    from improving_learned_index_tpu_torch.cli import cross_encoder_rerank as cross_cli
+    from improving_learned_index_tpu_torch.cli import rerank as rerank_cli
+    from improving_learned_index_tpu_torch.cli.train import main as train_main
+    from improving_learned_index_tpu_torch.core.checkpoint import load_params
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig, IndexConfig, TrainConfig
+    from improving_learned_index_tpu_torch.data.datasets import (
+        MSMarcoTriples, QueryRelevanceDataset, TopKDataset,
+    )
+    from improving_learned_index_tpu_torch.evaluation import CrossEncoderReRanker, Metrics, ReRanker
+    from improving_learned_index_tpu_torch.index.indexer import Indexer
+    from improving_learned_index_tpu_torch.models import (
+        DeepImpact, DeepImpactCrossEncoder, DeepPairwiseImpact, load_hf_checkpoint,
+    )
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+    from improving_learned_index_tpu_torch.text.processor import batch_arrays
+    from improving_learned_index_tpu_torch.train import COLLATES, Trainer
+
+    log("== phase 10: rerankers (cli.rerank, cli.train --cross_encoder, cli.cross_encoder_rerank, "
+        "pairwise; BERT-base, S=256)")
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    dev = torch.device(cfg.device)
+    config = EncoderConfig.bert_base()
+    max_length = ENCODE.max_length
+    vocab, bert = workdir / "vocab.txt", workdir / "bert"
+    tok = ImpactTokenizer(WordPieceVocab.load(vocab), max_length=max_length)
+    d = workdir / "rerank"
+    d.mkdir()
+    out, launches_by_path = {}, {}
+
+    def launches_now():
+        return {k.name: k.launches for k in kernels}
+
+    def zero_counts():
+        for k in kernels:
+            k.launches = 0
+
+    # data: phase 9's nano dataset as TSV files, and a first-stage run of
+    # each query's qrel passage and 99 seeded others, in seeded order
+    beir = workdir / "beir" / "nano"
+    with open(beir / "corpus.jsonl", encoding="utf-8") as f:
+        corpus = [(r["_id"], r["text"]) for r in map(json.loads, f)]
+    with open(beir / "queries.jsonl", encoding="utf-8") as f:
+        queries = {r["_id"]: r["text"] for r in map(json.loads, f)}
+    qrels = dict(line.split("\t")[:2] for line in (beir / "qrels.tsv").read_text().splitlines()[1:])
+    passages = dict(corpus)
+    pids = [pid for pid, _ in corpus]
+    coll, qpath, qrels_path = d / "collection.tsv", d / "queries.tsv", d / "qrels.tsv"
+    coll.write_text("".join(f"{pid}\t{text}\n" for pid, text in corpus), encoding="utf-8")
+    qpath.write_text("".join(f"{q}\t{t}\n" for q, t in queries.items()), encoding="utf-8")
+    qrels_path.write_text("".join(f"{q}\t0\t{p}\t1\n" for q, p in qrels.items()), encoding="utf-8")
+    rng = np.random.default_rng(cfg.seed)
+    cands = {}
+    for qid in queries:
+        rel = pids.index(qrels[qid])
+        others = rng.choice(len(pids) - 1, cfg.candidates - 1, replace=False)
+        order = rng.permutation(np.append(others + (others >= rel), rel))
+        cands[qid] = [pids[i] for i in order]
+    run_path, topk_path = d / "candidates.run", d / "candidates.topk.tsv"
+    run_path.write_text("".join(f"{q}\t{p}\t{r}\t{cfg.candidates + 1 - r}\n"
+                                for q, ps in cands.items() for r, p in enumerate(ps, 1)), encoding="utf-8")
+    topk_path.write_text("".join(f"{q}\t{p}\t{queries[q]}\t{passages[p]}\n"
+                                 for q, ps in cands.items() for p in ps), encoding="utf-8")
+    n_pairs = len(queries) * cfg.candidates
+
+    # 1. cli.rerank on phase 8's checkpoint, counts zeroed just before
+    reranked = d / "reranked.run"
+    spies = Spies()
+    spies.wrap(rerank_cli, "build_model")
+    spies.wrap(DeepImpact, "get_impact_scores_batch")
+    spies.wrap(DeepImpact, "encode_term_scores")
+    spies.wrap(ReRanker, "run", keep=lambda a, o: (a[0], o))
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        rerank_cli.main(["--top_k_run_file_path", str(run_path), "--queries_path", str(qpath),
+                         "--collection_path", str(coll), "--output_path", str(reranked),
+                         "--vocab_path", str(vocab), "--max_length", str(max_length), "--checkpoint", str(ckpt),
+                         "--batch_size", str(cfg.batch), "--device", cfg.device])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_now()
+    finally:
+        spies.restore()
+    (rr, n_queries), = spies.records["run"]
+    batches = spies.calls["encode_term_scores"]
+    sec = spies.seconds
+    breakdown = {"build_model": sec["build_model"],
+                 "tokenize_and_term_lists": sec["get_impact_scores_batch"] - sec["encode_term_scores"],
+                 "encode": sec["encode_term_scores"],
+                 "host_rest": wall - sec["build_model"] - sec["get_impact_scores_batch"]}
+    got = read_run(reranked)
+    if n_queries != len(queries) or list(got) != list(queries) or any(
+            len(rows) != cfg.candidates for rows in got.values()):
+        raise AssertionError(f"cli.rerank wrote {len(got)} queries ({n_queries} counted), want {len(queries)}")
+    if launches["short_attention"] != config.num_layers * batches or batches == 0:
+        raise AssertionError(f"cli.rerank: short_attention launched {launches['short_attention']} times, "
+                             f"want {config.num_layers} x {batches} encode batches")
+    launches_by_path["cli.rerank"] = launches["short_attention"]
+    # its scores: fp64 sums of the impacts it encoded, its order their
+    # stable descending sort (near-ties within 2e-5 relative may swap)
+    swaps = 0
+    for qid, ps in cands.items():
+        terms = tok.process_query(queries[qid])
+        sums = [(p, float(np.sum([rr.cache[p].get(t, 0.0) for t in terms], dtype=np.float64))) for p in ps]
+        swaps += float_rows_close(got[qid], sorted(sums, key=lambda x: x[1], reverse=True))
+    # the plain route on the same checkpoint: impacts within phase 7's
+    # tolerance, the run within what those impacts add up to
+    plain = DeepImpact(config, tok, state_dict=load_params(ckpt), device=cfg.device, use_kernels=False)
+    rr_plain = ReRanker(plain, run_path, qpath, coll, d / "reranked.plain.run", batch_size=cfg.batch)
+    rr_plain.run()
+    encoded = sorted(rr.cache)
+    ref = [rr_plain.cache[p] for p in encoded]
+    peak = max(max(c.values(), default=0.0) for c in ref)
+    tol = (0.05 * peak, 0.002 * peak)
+    err = impacts_close([rr.cache[p] for p in encoded], ref, *tol, "cli.rerank's impacts vs the plain route")
+    most_terms = max(len(tok.process_query(q)) for q in queries.values())
+    vs_plain = runs_close(got, read_run(d / "reranked.plain.run"), most_terms * tol[0], most_terms * tol[1],
+                          "cli.rerank vs the plain route")
+    mrr = {"candidates": Metrics(run_path, qrels_path).evaluate()["MRR@10"],
+           "reranked": Metrics(reranked, qrels_path).evaluate()["MRR@10"]}
+    recall = Metrics.evaluate_recall_for_top_k(QueryRelevanceDataset(qrels_path), TopKDataset(topk_path))
+    # where an encode batch's time goes: a query's 100 candidates, twice
+    q0 = next(iter(queries))
+    docs0 = [passages[p] for p in cands[q0]]
+    profile = dict(profile_window(lambda: [rr.model.get_impact_scores_batch(docs0) for _ in range(2)]),
+                   calls=2, docs_a_call=len(docs0))
+    out["rerank"] = {"wall_s": wall, "pairs": n_pairs, "pairs_per_s": n_pairs / wall,
+                     "pairs_per_s_after_model_build": n_pairs / (wall - sec["build_model"]),
+                     "breakdown_s": breakdown, "profile": profile,
+                     "encoded_docs": len(encoded), "encode_batches": batches, "launches": launches,
+                     "fp64_near_tie_swaps": swaps, "impacts_vs_plain": err, "impact_tolerance": tol,
+                     "vs_plain": vs_plain, "mrr10": mrr, "candidates_recall": recall}
+    log(f"1. cli.rerank: {json.dumps(out['rerank'])}; scores equal fp64 sums of its impacts within 1e-5 "
+        "relative")
+    del rr, rr_plain, plain, spies
+    torch.cuda.empty_cache()
+
+    # 2. cli.train --cross_encoder from phase 7's seeded trunk (unpacked).
+    # A random trunk's [CLS] states are nearly alike.  Through the seeded
+    # head every [CLS] score lies below 0 (on an H100: -1.82 +- 0.11 on the
+    # first training batch, -2.10 +- 0.050 on the first query's
+    # candidates), so the ReLU would zero every score and gradient, and the
+    # routes' bf16 differences are as large as that spread.  So the head is
+    # rebuilt from the trunk: its weight the direction in which the first
+    # query's 100 candidates' [CLS] states vary most, scaled to unit spread
+    # of their scores; its bias puts the lowest score of those candidates
+    # and of the first training batch at 1, so no score sits at the ReLU's
+    # knee.  Training starts from that checkpoint.
+    tq, tt, tc = workdir / "train_queries.tsv", workdir / "triples.tsv", workdir / "collection.tsv"
+    dataset = MSMarcoTriples(tt, tq, tc)
+    model = DeepImpactCrossEncoder(config, tok, state_dict=load_hf_checkpoint(bert, config), device=cfg.device)
+    trainer = Trainer(model, TrainConfig(batch_size=cfg.ce_groups, loss="cross_encoder", save_every=10**9,
+                                         eval_every=10**9), d / "ckpt_check")
+    batch = COLLATES["cross_encoder"]([dataset[i] for i in range(cfg.ce_groups)], tok, max_length)
+    put = trainer._put_batch(batch)
+    q0 = next(iter(queries))
+    sample = batch_arrays(model.process_cross_encoder_documents_and_query(
+        [passages[p] for p in cands[q0]], queries[q0]))
+    head = model.module.impact_head.dense
+    with torch.no_grad():
+        states = {}
+        for name, arrays in (("training batch", put), ("first query's candidates", sample)):
+            ids = [torch.as_tensor(arrays[k]).to(dev) for k in ("input_ids", "attention_mask", "type_ids")]
+            states[name] = model.module.encoder(*ids)[:, 0, :]
+        seeded = {k: head(v)[:, 0] for k, v in states.items()}
+        cand = states["first query's candidates"]
+        w = torch.linalg.svd(cand - cand.mean(0), full_matrices=False).Vh[0]
+        w = w / (cand @ w).std()
+        low = min(float((v @ w).min()) for v in states.values())
+        head.weight.copy_(w[None])
+        head.bias.fill_(1.0 - low)
+        rebuilt = {k: head(v)[:, 0] for k, v in states.items()}
+    ce_init = d / "cross_encoder_init.pt"
+    model.save(ce_init)
+    check1 = {"rows": int(batch["input_ids"].shape[0]),
+              "seeded_head_mean_std": {k: [float(v.mean()), float(v.std())] for k, v in seeded.items()},
+              "rebuilt_head_mean_std_min": {k: [float(v.mean()), float(v.std()), float(v.min())]
+                                            for k, v in rebuilt.items()},
+              **kernel_vs_plain_step(model.module, "cross_encoder", put)}
+    log(f"2. cross-encoder kernel route vs plain route on one batch: {json.dumps(check1)}")
+    del model, trainer, batch, put, states, cand
+    torch.cuda.empty_cache()
+    train_common = ["--dataset_path", str(tt), "--queries_path", str(tq), "--collection_path", str(tc),
+                    "--vocab_path", str(vocab), "--max_length", str(max_length),
+                    "--no_beir_eval", "--device", cfg.device, "--save_every", "1000000"]
+    ck = d / "ckpt_ce"
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    train_main(train_common + ["--cross_encoder", "--checkpoint", str(ce_init), "--checkpoint_dir", str(ck),
+                               "--batch_size", str(cfg.ce_groups), "--total_steps", str(cfg.ce_steps)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_now()
+    if launches["short_attention"] != config.num_layers * cfg.ce_steps:
+        raise AssertionError(f"cli.train --cross_encoder: short_attention launched {launches['short_attention']} "
+                             f"times, want {config.num_layers} x {cfg.ce_steps} forwards")
+    launches_by_path["cli.train --cross_encoder"] = launches["short_attention"]
+    final = ck / "DeepImpactCrossEncoder_final.pt"
+    if not final.exists():
+        raise AssertionError("cli.train --cross_encoder wrote no DeepImpactCrossEncoder_final.pt")
+    ce = dict(train_metrics(ck, cfg.ce_steps, 10**6), wall_s=wall, launches=launches,
+              peak_gb=torch.cuda.max_memory_allocated() / 2**30, kernel_vs_plain=check1)
+    ce["steady_docs_per_s"] = ce["steady_steps_per_s"] * 2 * cfg.ce_groups
+    out["train_cross_encoder"] = ce
+    log(f"2. cli.train --cross_encoder: {json.dumps(ce)}")
+    torch.cuda.empty_cache()
+
+    # 3. cli.cross_encoder_rerank on that snapshot, counts zeroed just before
+    ce_queries = list(queries)[: cfg.ce_queries]
+    ce_topk, ce_run = d / "ce.topk.tsv", d / "ce_reranked.run"
+    ce_topk.write_text("".join(f"{q}\t{p}\t{queries[q]}\t{passages[p]}\n" for q in ce_queries for p in cands[q]),
+                       encoding="utf-8")
+    spies = Spies()
+    spies.wrap(cross_cli, "build_model")
+    spies.wrap(DeepImpactCrossEncoder, "process_cross_encoder_documents_and_query")
+    spies.wrap(DeepImpactCrossEncoder, "score_batch")
+    spies.wrap(CrossEncoderReRanker, "run", keep=lambda a, o: a[0])
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        cross_cli.main(["--top_k_path", str(ce_topk), "--collection_path", str(coll),
+                        "--output_path", str(ce_run), "--vocab_path", str(vocab),
+                        "--max_length", str(max_length), "--checkpoint", str(final),
+                        "--batch_size", str(cfg.ce_batch), "--device", cfg.device])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_now()
+    finally:
+        spies.restore()
+    calls = spies.calls["score_batch"]
+    sec = spies.seconds
+    breakdown = {"build_model": sec["build_model"],
+                 "tokenize": sec["process_cross_encoder_documents_and_query"],
+                 "score_batch": sec["score_batch"],
+                 "host_rest": wall - sec["build_model"] - sec["score_batch"]
+                 - sec["process_cross_encoder_documents_and_query"]}
+    ce_rr, = spies.records["run"]
+    profile = dict(profile_window(lambda: [ce_rr.rerank(q) for q in ce_queries[:2]]), queries=2)
+    del ce_rr
+    want_calls = len(ce_queries) * -(-cfg.candidates // cfg.ce_batch)
+    if calls != want_calls or launches["short_attention"] != config.num_layers * calls:
+        raise AssertionError(f"cli.cross_encoder_rerank: short_attention launched {launches['short_attention']} "
+                             f"times in {calls} batches, want {config.num_layers} x {want_calls}")
+    launches_by_path["cli.cross_encoder_rerank"] = launches["short_attention"]
+    got = read_run(ce_run)
+    plain = DeepImpactCrossEncoder(config, tok, state_dict=load_params(final), device=cfg.device, use_kernels=False)
+    CrossEncoderReRanker(plain, ce_topk, coll, d / "ce_reranked.plain.run", batch_size=cfg.ce_batch).run()
+    want = read_run(d / "ce_reranked.plain.run")
+    spread = float(np.std([s for rows in want.values() for _, s in rows]))
+    if spread == 0:
+        raise AssertionError("cli.cross_encoder_rerank: every candidate scores alike on the plain route")
+    # The routes' [CLS] states differ by bf16 roundings, which the rebuilt
+    # head reads along the direction of the candidates' largest spread.
+    # Tolerance, relative to the spread of the plain route's scores (1 on
+    # the first query by the head's construction): every score within half
+    # of it, the mean difference within a tenth.  A wrong mask or scale
+    # moves the [CLS] states by far more than their spread.  (Phase 7's
+    # rule, relative to the largest score, does not fit here: the scores
+    # sit ~5 above 0, and the bf16 differences scale with the head's weight
+    # rather than with the scores: on an H100 the mean difference was 0.0214
+    # against that rule's 0.0137.)
+    tol = (0.5 * spread, 0.1 * spread)
+    vs_plain = runs_close(got, want, *tol, "cli.cross_encoder_rerank vs the plain route")
+    n_ce = len(ce_queries) * cfg.candidates
+    out["cross_encoder_rerank"] = {
+        "wall_s": wall, "pairs": n_ce, "pairs_per_s": n_ce / wall,
+        "pairs_per_s_after_model_build": n_ce / (wall - sec["build_model"]), "breakdown_s": breakdown,
+        "profile": profile, "batches": calls, "launches": launches,
+        "vs_plain": vs_plain, "tolerance": tol, "plain_score_spread": spread,
+        "exact_zero_scores": sum(s == 0.0 for rows in got.values() for _, s in rows)}
+    log(f"3. cli.cross_encoder_rerank: {json.dumps(out['cross_encoder_rerank'])}")
+    del plain, spies
+    torch.cuda.empty_cache()
+
+    # 4. pairwise: phase 7's trunk with a seeded pair head; cli.train
+    # --pairwise (unpacked) and the Indexer's pairwise route
+    ck_pw = d / "ckpt_pw"
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    train_main(train_common + ["--pairwise", "--hf_name", str(bert), "--checkpoint_dir", str(ck_pw),
+                               "--batch_size", str(cfg.pw_groups), "--total_steps", str(cfg.pw_steps)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_pw = launches_now()
+    if not (ck_pw / "DeepPairwiseImpact_final.pt").exists():
+        raise AssertionError("cli.train --pairwise wrote no DeepPairwiseImpact_final.pt")
+    pw = train_metrics(ck_pw, cfg.pw_steps, 10**6)
+    pw = {"wall_s": wall, "losses": pw["losses"], "step_s": pw["step_s"],
+          "docs_per_s_last_step": 2 * cfg.pw_groups / pw["step_s"][-1], "launches": train_pw,
+          "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    torch.cuda.empty_cache()
+    with open(tc, encoding="utf-8") as f:
+        head = [line.rstrip("\n").split("\t", 1)[1] for line in islice(f, cfg.pw_index_docs)]
+    head_path, fwd = d / "pairwise_head.tsv", d / "forward.pairwise.txt"
+    head_path.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(head)), encoding="utf-8")
+    trunk = load_hf_checkpoint(bert, config)
+    model = DeepPairwiseImpact(config, tok, state_dict=trunk, device=cfg.device)
+    zero_counts()
+    t0 = time.perf_counter()
+    Indexer(model, IndexConfig(max_length=max_length, max_terms=max_length,
+                               model_batch_size=cfg.pw_batch)).index_to_file(head_path, fwd)
+    torch.cuda.synchronize()
+    index_wall = time.perf_counter() - t0
+    index_pw = launches_now()
+    for what, counts in (("cli.train --pairwise", train_pw), ("the pairwise Indexer", index_pw)):
+        if counts["short_attention"] != 0:
+            raise AssertionError(f"{what} launched short_attention {counts['short_attention']} times: "
+                                 "the attention maps route takes the plain attention")
+    launches_by_path["cli.train --pairwise"] = launches_by_path["Indexer (pairwise)"] = 0
+    docs = parse_forward(fwd)
+    composite = sum("|" in t for doc in docs for t in doc)
+    if len(docs) != len(head) or composite == 0:
+        raise AssertionError(f"pairwise forward index: {len(docs)} docs, {composite} composite terms")
+    # the single-term impacts against DeepImpact on the same trunk: through
+    # the same plain attention route and batches, equal (the pair head does
+    # not touch them); against its kernel route, within phase 7's tolerance
+    def batched(m):
+        return [doc for i in range(0, len(head), cfg.pw_batch)
+                for doc in m.get_impact_scores_batch(head[i : i + cfg.pw_batch])]
+
+    single = [{t: v for t, v in doc if "|" not in t} for doc in batched(model)]
+    del model
+    plain_config = dataclasses.replace(config, use_short_attention=False)
+    errs = {}
+    for route, m in (("plain", DeepImpact(plain_config, tok, state_dict=trunk, device=cfg.device)),
+                     ("kernel", DeepImpact(config, tok, state_dict=trunk, device=cfg.device))):
+        ref = [dict(doc) for doc in batched(m)]
+        if any(g.keys() != w.keys() for g, w in zip(single, ref)):
+            raise AssertionError(f"pairwise single terms differ from DeepImpact's ({route} route)")
+        peak = max(max(w.values(), default=0.0) for w in ref)
+        tol = (1e-5 * peak, 1e-6 * peak) if route == "plain" else (0.05 * peak, 0.002 * peak)
+        errs[route] = dict(impacts_close([{t: g[t] for t in w} for g, w in zip(single, ref)], ref, *tol,
+                                         f"pairwise single terms vs DeepImpact's {route} route"), tolerance=tol)
+        del m
+    pw["index"] = {"docs": len(docs), "wall_s": index_wall, "docs_per_s": len(docs) / index_wall,
+                   "terms": sum(map(len, docs)), "composite_terms": composite, "launches": index_pw,
+                   "single_vs_deep_impact": errs}
+    out["pairwise"] = pw
+    log(f"4. pairwise: {json.dumps(pw)}")
+    torch.cuda.empty_cache()
+    out["launches"] = launches_by_path
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10 in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     log("== phase 1: environment")
     if shutil.which("nvidia-smi"):
@@ -1834,6 +2281,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         evaluation = run_eval(EVAL, workdir, workdir / "ckpt" / "DeepImpact_final.pt",
                               train.pop("train_args"))
+        torch.cuda.empty_cache()
+        rerank = run_rerank(RERANK, workdir, workdir / "ckpt" / "DeepImpact_final.pt")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     g_row, s_row, c_row, b_row = query["kernels"]
@@ -1841,7 +2290,8 @@ def main() -> int:
     a_row = encode["row"]
     a_row["launches_by_path"] = {"cli.index": a_row["launches"], "cli.train": train["launches"],
                                  "cli.nano_beir": nano_beir["short_attention"],
-                                 "cli.train with eval": train_eval["short_attention"]}
+                                 "cli.train with eval": train_eval["short_attention"],
+                                 **rerank.pop("launches")}
     s_row["launches_by_path"] = {"cli.rank": s_row["launches"], "cli.nano_beir": nano_beir["scatter_scores"],
                                  "cli.train with eval": train_eval["scatter_scores"]}
     # phase 9's gather launches are all the fp32 instance (float rows)
@@ -1853,6 +2303,7 @@ def main() -> int:
     log(json.dumps({"encode": {k: v for k, v in encode.items() if k != "row"}}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "profile"}}))
     log(json.dumps({"eval": evaluation}))
+    log(json.dumps({"rerank": rerank}))
     print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,12 +2,14 @@
 
 Counterpart of ``improving_learned_index_tpu/cli/common.py``: the built-in
 tokenizer over a WordPiece ``vocab.txt`` (``--vocab_path``) with the
-whitespace/punctuation segmenter, and the DeepImpact model kinds
-``deepimpact``, ``phobert`` and ``xlmr`` with random init, ``--tiny`` or
-``--hf_name`` (a local directory's ``pytorch_model.bin``), then
+whitespace/punctuation segmenter, and the model kinds ``deepimpact``,
+``phobert``, ``xlmr`` (``DeepImpact``), ``pairwise`` (``DeepPairwiseImpact``)
+and ``cross_encoder`` (``DeepImpactCrossEncoder``) with random init,
+``--tiny`` or ``--hf_name`` (a local directory's ``pytorch_model.bin``), then
 ``--checkpoint`` (a ``.pt`` file of ``core.checkpoint``: ``DeepImpact.save``
-or a ``cli.train`` snapshot such as ``DeepImpact_final.pt``) over them.  Not
-ported yet: the ``pairwise`` and ``cross_encoder`` kinds, ``--hf_tokenizer``,
+or a ``cli.train`` snapshot such as ``DeepImpact_final.pt``) over them.  A
+DeepImpact state dict loads into every kind (the pairwise model then draws
+its pair head from the seed).  Not ported yet: ``--hf_tokenizer``,
 ``--segmenter vncorenlp`` and the JAX package's msgpack checkpoints; each
 raises.  ``--device`` picks the torch device (default ``cuda``).
 """
@@ -28,7 +30,6 @@ MODEL_KINDS = {
     "pairwise": ("bert_base", "relu"),
     "cross_encoder": ("bert_base", "relu"),
 }
-_NOT_PORTED_KINDS = ("pairwise", "cross_encoder")
 
 
 def add_tokenizer_args(parser: argparse.ArgumentParser) -> None:
@@ -70,13 +71,14 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
 
 def build_model(args):
     from ..core.checkpoint import load_params
-    from ..models.deep_impact import DeepImpact
+    from ..models import DeepImpact, DeepImpactCrossEncoder, DeepPairwiseImpact
     from ..models.hf_import import load_hf_checkpoint
 
-    if args.model_kind in _NOT_PORTED_KINDS:
-        raise NotImplementedError(f"--model_kind {args.model_kind} is not ported yet")
     tokenizer = build_tokenizer(args)
     cfg_factory, activation = MODEL_KINDS[args.model_kind]
+    cls = {"pairwise": DeepPairwiseImpact, "cross_encoder": DeepImpactCrossEncoder}.get(
+        args.model_kind, DeepImpact
+    )
     if args.tiny:
         config = EncoderConfig.tiny(vocab_size=len(tokenizer.vocab), impact_activation=activation)
     else:
@@ -84,4 +86,4 @@ def build_model(args):
     state_dict = load_hf_checkpoint(args.hf_name, config) if args.hf_name else None
     if args.checkpoint:
         state_dict = load_params(args.checkpoint)
-    return DeepImpact(config, tokenizer, state_dict=state_dict, device=args.device)
+    return cls(config, tokenizer, state_dict=state_dict, device=args.device)

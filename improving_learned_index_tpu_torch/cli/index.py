@@ -7,6 +7,9 @@
 
 The short-attention kernel runs at ``--max_length`` 128 or 256 (the default
 is 512, where the plain attention route runs, as in the JAX package).
+``--model_kind pairwise`` writes ``term1|term2`` composite postings too; its
+pair head reads attention maps, so it runs the plain attention route at
+every length, as the JAX package does.
 """
 
 from __future__ import annotations

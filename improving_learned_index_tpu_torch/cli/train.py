@@ -7,14 +7,21 @@
         --vocab_path vocab.txt --max_length 256 \\
         --nano_beir_dir beir --eval_datasets msmarco,nfcorpus [--device cpu]
 
-The flags are the JAX package's.  ``--xlmr`` picks the model, and
+The flags are the JAX package's.  ``--xlmr`` picks the model;
+``--pairwise`` (``DeepPairwiseImpact``, the pairwise-impact loss) and
+``--cross_encoder`` (``DeepImpactCrossEncoder``, pairwise cross-entropy of
+its [CLS] scores) pick model and objective; otherwise
 ``--distil_kl/--distil_mse/--in_batch_negatives`` pick the objective
 (default: pairwise cross-entropy on triples).  Sequence packing is the
 default for the losses that allow it (``--no_pack`` restores the
-row-per-document layout).  Checkpoints land in ``--checkpoint_dir`` as
-``DeepImpact_{latest,<step>,best,final}.pt``; a rerun resumes from
+row-per-document layout; the pairwise and cross-encoder losses refuse
+``--pack``).  Checkpoints land in ``--checkpoint_dir`` as
+``<Model>_{latest,<step>,best,final}.pt`` (``DeepImpact``,
+``DeepPairwiseImpact``, ``DeepImpactCrossEncoder``); a rerun resumes from
 ``latest``, and ``cli.index --checkpoint <dir>/DeepImpact_final.pt`` indexes
-with the trained weights.
+with the trained weights (``cli.cross_encoder_rerank --checkpoint
+<dir>/DeepImpactCrossEncoder_final.pt`` reranks with a trained
+cross-encoder).
 
 In-training eval: every ``--eval_every`` batches, counting from the first,
 ``evaluation.NanoBEIREvaluator`` scores the model on the BEIR-format
@@ -26,9 +33,6 @@ Data parallelism: under a launcher that sets ``WORLD_SIZE``/``RANK``/
 ``MASTER_ADDR``/``MASTER_PORT`` (``torchrun``) each process trains its share
 of every global batch (``parallel.distributed``).  Rank 0 alone runs the
 eval; the other ranks wait at their next collective for the whole stall.
-
-Not ported yet, and raising: the ``--pairwise`` / ``--cross_encoder`` models
-(ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -108,12 +112,12 @@ def main(argv=None) -> int:
         parser.error("qrels_path is required for margin-MSE distillation")
     if sum([args.xlmr, args.pairwise, args.cross_encoder]) > 1:
         parser.error("only one of --xlmr/--pairwise/--cross_encoder")
-    if args.pairwise or args.cross_encoder:
-        raise NotImplementedError(
-            "--pairwise / --cross_encoder wait for their models (ROADMAP queue 1 item 3: rerankers)"
-        )
     if args.xlmr:
         args.model_kind = "xlmr"
+    elif args.pairwise:
+        args.model_kind = "pairwise"
+    elif args.cross_encoder:
+        args.model_kind = "cross_encoder"
 
     if args.distil_kl:
         loss = "distil_kl"
@@ -121,6 +125,10 @@ def main(argv=None) -> int:
         loss = "distil_mse"
     elif args.in_batch_negatives:
         loss = "in_batch_negatives"
+    elif args.cross_encoder:
+        loss = "cross_encoder"
+    elif args.pairwise:
+        loss = "pairwise_impact"
     else:
         loss = "pairwise_ce"
 

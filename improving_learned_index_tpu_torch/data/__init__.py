@@ -8,6 +8,8 @@ from .datasets import (
     QueryParser,
     QueryRelevanceDataset,
     RunFile,
+    TopKDataset,
+    TopKRunFile,
     stream_collection,
 )
 
@@ -21,5 +23,7 @@ __all__ = [
     "QueryParser",
     "QueryRelevanceDataset",
     "RunFile",
+    "TopKDataset",
+    "TopKRunFile",
     "stream_collection",
 ]

@@ -1,10 +1,12 @@
 """Collection / query / qrels / run-file / training-data I/O.
 
-The port's copy of ``improving_learned_index_tpu/data/datasets.py`` (the
-top-k files wait for the rerankers), format-compatible with the reference's
-data layer (src/utils/datasets.py): TSV or BEIR-JSONL collections and
-queries, MS MARCO triples, qrels ``qid\\t0\\tpid\\t1``, gzip-pickled
-distillation score maps and 4-column run files.  All ids are strings.
+The port's copy of ``improving_learned_index_tpu/data/datasets.py``,
+format-compatible with the reference's data layer (src/utils/datasets.py):
+TSV or BEIR-JSONL collections and queries, MS MARCO triples, qrels
+``qid\\t0\\tpid\\t1``, top-k files ``qid\\tpid\\tquery\\tpassage``,
+gzip-pickled distillation score maps and 4-column run files.  All ids are
+strings.  A malformed top-k file raises ``AssertionError`` with the JAX
+package's message (raised, not asserted, so ``-O`` keeps the check).
 """
 
 from __future__ import annotations
@@ -194,6 +196,40 @@ class QueryRelevanceDataset:
         return self.qrels.keys()
 
 
+class TopKDataset:
+    """Top-k file: qid \\t pid \\t query \\t passage (reference datasets.py:181-222)."""
+
+    def __init__(self, top_k_path: PathLike):
+        self.queries: Dict[str, str] = {}
+        self.passages: Dict[str, str] = {}
+        self.top_k: Dict[str, List[str]] = {}
+        with open(top_k_path, encoding="utf-8") as f:
+            for line in f:
+                if not line.strip():
+                    continue
+                qid, pid, query, passage = line.rstrip("\n").split("\t")
+                qid, pid = str(qid), str(pid)
+                if qid in self.queries and self.queries[qid] != query:
+                    raise AssertionError("TopK file is not in the expected format")
+                self.queries[qid] = query
+                self.passages[pid] = passage
+                self.top_k.setdefault(qid, []).append(pid)
+        if not all(len(v) == len(set(v)) for v in self.top_k.values()):
+            raise AssertionError("TopK file contains duplicates")
+        lens = [len(v) for v in self.top_k.values()]
+        self.min_len, self.max_len = min(lens), max(lens)
+        self.avg_len = round(sum(lens) / len(lens), 2)
+
+    def __len__(self):
+        return len(self.top_k)
+
+    def __getitem__(self, qid):
+        return self.top_k[str(qid)]
+
+    def keys(self):
+        return self.top_k.keys()
+
+
 class _ScoresUnpickler(pickle.Unpickler):
     """A score map holds dicts, strings and numbers: refuse any other class
     (numpy scalars excepted), so a score file cannot run code."""
@@ -287,3 +323,27 @@ class RunFile:
                     continue
                 qid, pid, rank, score = line.rstrip("\n").split("\t")
                 yield str(qid), str(pid), int(rank), float(score)
+
+
+class TopKRunFile(RunFile):
+    """A run file read back as each query's pids in rank order, the first
+    ``k`` (the candidates ``evaluation.ReRanker`` rescores)."""
+
+    def __init__(self, run_file_path: PathLike, k: int = 2000):
+        super().__init__(run_file_path)
+        top_k: Dict[str, List[Tuple[int, str]]] = {}
+        for qid, pid, rank, _ in self.read():
+            top_k.setdefault(qid, []).append((rank, pid))
+        self.top_k: Dict[str, List[str]] = {}
+        for qid, ranked in top_k.items():
+            ranked.sort()
+            self.top_k[qid] = [pid for _, pid in ranked[:k]]
+
+    def __len__(self):
+        return len(self.top_k)
+
+    def __getitem__(self, qid):
+        return self.top_k[str(qid)]
+
+    def __iter__(self):
+        return iter(self.top_k.items())

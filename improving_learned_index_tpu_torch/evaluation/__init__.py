@@ -1,6 +1,7 @@
 from .bm25 import BM25Index
 from .nano_beir import BaseEvaluator, NanoBEIREvaluator, load_local_beir_dir
 from .ranker import Ranker
+from .reranker import CrossEncoderReRanker, ReRanker
 from .run_metrics import MRR_DEPTHS, RECALL_DEPTHS, Metrics
 from .sparse_search import SparseSearch
 from .trec_metrics import evaluate as trec_evaluate
@@ -11,6 +12,8 @@ __all__ = [
     "NanoBEIREvaluator",
     "load_local_beir_dir",
     "Ranker",
+    "CrossEncoderReRanker",
+    "ReRanker",
     "MRR_DEPTHS",
     "RECALL_DEPTHS",
     "Metrics",

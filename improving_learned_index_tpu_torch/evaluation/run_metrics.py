@@ -6,7 +6,8 @@ with the reference Metrics class, src/deep_impact/evaluation/
 metrics.py:13-74): MRR uses the best (lowest) rank of any relevant passage
 per query; recall divides hits-at-depth by the query's total relevant
 count; both average over *all* qrels queries (queries missing from the run
-contribute 0); reported rounded to 3 decimals.
+contribute 0); reported rounded to 3 decimals.  ``evaluate_recall_for_top_k``
+is the recall of a top-k file at its full depth.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Union
 
 from ..core.logging import get_logger
-from ..data.datasets import QueryRelevanceDataset, RunFile
+from ..data.datasets import QueryRelevanceDataset, RunFile, TopKDataset
 
 logger = get_logger("metrics")
 
@@ -64,3 +65,16 @@ class Metrics:
             out[f"Recall@{d}"] = round(recall_sums[d] / n, 3)
             logger.info(f"Recall@{d} = {out[f'Recall@{d}']}")
         return out
+
+    @staticmethod
+    def evaluate_recall_for_top_k(qrels: QueryRelevanceDataset, top_k: TopKDataset) -> float:
+        """Recall at max depth over a top-k file (reference metrics.py:59-74)."""
+        if not set(top_k.queries.keys()).issubset(set(qrels.keys())):
+            raise AssertionError("TopK file contains queries not in the Qrels file")
+        vals = [
+            len(qrels[qid].intersection(set(top_k[qid]))) / len(qrels[qid])
+            for qid in top_k.keys()
+        ]
+        recall = round(sum(vals) / len(vals), 3)
+        logger.info(f"Recall@{top_k.max_len} = {recall}")
+        return recall

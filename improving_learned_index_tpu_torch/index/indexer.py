@@ -5,10 +5,12 @@ Counterpart of ``improving_learned_index_tpu/index/indexer.py`` (reference
 Indexer, src/deep_impact/indexing/indexer.py:12-68).  A producer thread
 tokenizes while the consumer keeps one device batch in flight: batch i+1 is
 dispatched before batch i's scores are read, so the device->host copy and
-the device's compute overlap the next step.  Packed and unpacked routes.
+the device's compute overlap the next step.  Packed and unpacked routes,
+and the pairwise route: a ``DeepPairwiseImpact`` model encodes through its
+own ``get_impact_scores_batch`` in batches of ``model_batch_size``, so its
+``term1|term2`` composite postings reach the forward index.
 
-Not ported yet: the binary impact store (``store_path``) and pairwise
-models.
+Not ported yet: the binary impact store (``store_path``).
 """
 
 from __future__ import annotations
@@ -134,7 +136,20 @@ class Indexer:
 
     def encode_document_rows(self, documents: Iterable[str]) -> Iterator[Tuple[List[str], np.ndarray]]:
         """Yield (terms, impact_row) per document, overlapping host
-        tokenization with device compute via a bounded queue."""
+        tokenization with device compute via a bounded queue.
+
+        Models with composite postings (DeepPairwiseImpact emits
+        ``term1|term2`` entries, reference pairwise_impact.py:97-129) go
+        through their own ``get_impact_scores_batch``."""
+        from ..models.pairwise import DeepPairwiseImpact
+
+        if isinstance(self.model, DeepPairwiseImpact):
+            docs = iter(documents)
+            while batch := list(islice(docs, self.config.model_batch_size)):
+                for pairs in self.model.get_impact_scores_batch(batch):
+                    yield [t for t, _ in pairs], np.asarray([v for _, v in pairs], np.float64)
+            return
+
         if self.config.pack_sequences:
             yield from self._encode_packed_rows(documents)
             return

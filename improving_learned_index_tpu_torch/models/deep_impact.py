@@ -22,6 +22,10 @@ xlmr_original.py:87-267): ``process_query`` / ``process_document`` /
 
 Random init (no checkpoint) uses ``torch.Generator(seed)`` with flax's
 initializer shapes and scales; it does not reproduce flax's numbers.
+
+``DeepImpactCrossEncoder`` (JAX ``models/deep_impact.py:280-328``) scores
+"{document} [SEP] {query}" from the [CLS] state; it takes a DeepImpact
+state dict as it is.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from ..core.config import EncoderConfig
 from ..core.device import resolve_device, resolve_use_kernels
 from ..text.processor import DocumentEncoding, batch_arrays, batch_term_slots
-from .encoder import DeepImpactModel, init_weights
+from .encoder import CrossEncoderModel, DeepImpactModel, init_weights
 
 
 class HostCopy:
@@ -60,6 +64,8 @@ class HostCopy:
 class DeepImpact:
     """Term-impact encoder with a pluggable tokenizer (BERT/RoBERTa/XLM-R trunk)."""
 
+    module_class = DeepImpactModel
+
     def __init__(
         self,
         config: EncoderConfig,
@@ -73,15 +79,18 @@ class DeepImpact:
         self.use_kernels = resolve_use_kernels(self.device, use_kernels)
         self.config = config
         self.tokenizer = tokenizer
-        self.module = DeepImpactModel(config)
+        self.module = self.module_class(config)
         if state_dict is None:
             g = torch.Generator()
             g.manual_seed(seed)
             init_weights(self.module, g)
         else:
-            self.module.load_state_dict(state_dict)
+            self._load_state_dict(state_dict, seed)
         self.module.to(self.device).eval()
         self.max_length = getattr(tokenizer, "max_length", config.max_position_embeddings)
+
+    def _load_state_dict(self, state_dict: Dict[str, torch.Tensor], seed: int) -> None:
+        self.module.load_state_dict(state_dict)
 
     # -- text API (delegates to the pluggable tokenizer) ---------------------
     def process_query(self, query: str) -> Set[str]:
@@ -224,3 +233,33 @@ class DeepImpact:
 
             kwargs["state_dict"] = load_params(checkpoint_path)
         return cls(config, tokenizer, **kwargs)
+
+
+class DeepImpactCrossEncoder(DeepImpact):
+    """Relevance scoring from the [CLS] state of "{doc} [SEP] {query}"
+    (reference models/cross_encoder.py)."""
+
+    module_class = CrossEncoderModel
+
+    def process_cross_encoder_document_and_query(self, document: str, query: str) -> DocumentEncoding:
+        return self.tokenizer.process_document(f"{document} [SEP] {query}")
+
+    def process_cross_encoder_documents_and_query(
+        self, documents: Sequence[str], query: str
+    ) -> List[DocumentEncoding]:
+        return [self.process_cross_encoder_document_and_query(d, query) for d in documents]
+
+    @torch.inference_mode()
+    def score_batch(self, encodings: Sequence[DocumentEncoding]) -> np.ndarray:
+        """[n] fp32 scores (host numpy).  Rows are encoded as they come: no
+        row is padded in, so no score depends on the batch's size."""
+        if not encodings:
+            return np.zeros((0,), dtype=np.float32)
+        arrays = batch_arrays(encodings)
+        out = self.module(
+            self._upload(arrays["input_ids"]),
+            self._upload(arrays["attention_mask"]),
+            self._upload(arrays["type_ids"]),
+            use_kernels=self.use_kernels,
+        )  # [n, 1]
+        return out[:, 0].float().cpu().numpy()

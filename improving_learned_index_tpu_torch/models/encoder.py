@@ -28,13 +28,18 @@ compute dtype cast to fp32, ``/ sqrt(hd)``, ``finfo(fp32).min`` masking, an
 fp32 softmax cast back.  That route is not a Pallas kernel in the JAX
 package either.
 
+``output_attentions=True`` takes the plain route at every S, as the JAX
+package turns its kernels off when the maps are asked for, and returns each
+layer's probabilities as JAX does (fp32 softmax, cast to the compute dtype,
+back to fp32), already averaged over heads: [B, S, S] a layer, the one form
+``models.pairwise`` reads, never [L, B, heads, S, S].
+
 Parameter layout is torch's: ``Linear`` weights are [out, in]
 (``models.hf_import`` carries the flax [in, out] / [H, heads, hd] /
 [heads, hd, H] kernels across).  The same modules encode and train
 (``train/trainer.py`` differentiates them as the JAX loss differentiates
-the flax module with ``deterministic=True``): no dropout, no attention
-maps, no library flash path (the JAX package's flash route is off by
-default).
+the flax module with ``deterministic=True``): no dropout, no library flash
+path (the JAX package's flash route is off by default).
 """
 
 from __future__ import annotations
@@ -122,7 +127,9 @@ class SelfAttention(nn.Module):
     def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True):
         """``attention_bias`` None selects the short-attention route (mask
         as int32 padding mask or segment ids), else the additive fp32 bias
-        of the plain route."""
+        of the plain route.  Returns (output, probabilities), the
+        probabilities [B, heads, S, S] in the compute dtype on the plain
+        route and None on the kernel's."""
         c = self.config
         b, s, hid = x.shape
         heads = c.num_heads
@@ -133,6 +140,7 @@ class SelfAttention(nn.Module):
             _linear(x, lin, dt).view(b, s, heads, hd).permute(0, 2, 1, 3)
             for lin in (self.query, self.key, self.value)
         )
+        probs = None
         if attention_bias is None:  # the short-attention route
             ctx = short_attention(q, k, v, attention_mask, 1.0 / math.sqrt(hd), packed,
                                   use_kernel=use_kernels)
@@ -142,7 +150,7 @@ class SelfAttention(nn.Module):
             probs = torch.softmax(logits + attention_bias, dim=-1).to(dt)
             ctx = torch.matmul(probs, v)
         ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, hid)
-        return _linear(ctx, self.output_dense, dt)
+        return _linear(ctx, self.output_dense, dt), probs
 
 
 class EncoderLayer(nn.Module):
@@ -157,16 +165,19 @@ class EncoderLayer(nn.Module):
         self.output_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
     def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True):
+        """Returns (hidden, the attention's probabilities or None)."""
         dt = compute_dtype(self.config)
-        attn = self.attention(x, attention_bias, attention_mask, packed, use_kernels)
+        attn, probs = self.attention(x, attention_bias, attention_mask, packed, use_kernels)
         x = self.attention_norm((x + attn).float()).to(dt)
         h = F.gelu(_linear(x, self.intermediate, dt), approximate="none")
         h = _linear(h, self.output, dt)
-        return self.output_norm((x + h).float()).to(dt)
+        return self.output_norm((x + h).float()).to(dt), probs
 
 
 class TransformerEncoder(nn.Module):
-    """BERT-family trunk returning the last hidden state [B, L, H] (fp32)."""
+    """BERT-family trunk returning the last hidden state [B, L, H] (fp32);
+    with ``output_attentions`` also each layer's head-mean attention map
+    [B, L, L] (fp32), in layer order."""
 
     def __init__(self, config: EncoderConfig):
         super().__init__()
@@ -174,7 +185,8 @@ class TransformerEncoder(nn.Module):
         self.embeddings = Embeddings(config)
         self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_layers))
 
-    def forward(self, input_ids, attention_mask, type_ids=None, segment_ids=None, use_kernels=True):
+    def forward(self, input_ids, attention_mask, type_ids=None, segment_ids=None, use_kernels=True,
+                output_attentions=False):
         c = self.config
         if type_ids is None:
             type_ids = torch.zeros_like(input_ids)
@@ -191,7 +203,7 @@ class TransformerEncoder(nn.Module):
             x = self.embeddings(input_ids, type_ids)
             kernel_mask = attention_mask
         bias = None
-        if not (c.use_short_attention and can_use_short_attention(
+        if output_attentions or not (c.use_short_attention and can_use_short_attention(
             input_ids.shape[1], c.hidden_size // c.num_heads
         )):
             if packed:
@@ -200,8 +212,13 @@ class TransformerEncoder(nn.Module):
                 allowed = attention_mask[:, None, None, :].bool()
             bias = torch.where(allowed, 0.0, torch.finfo(torch.float32).min).to(torch.float32)
         kernel_mask = kernel_mask.to(torch.int32)
+        maps = []
         for layer in self.layers:
-            x = layer(x, bias, kernel_mask, packed, use_kernels)
+            x, probs = layer(x, bias, kernel_mask, packed, use_kernels)
+            if output_attentions:
+                maps.append(probs.float().mean(dim=1))
+        if output_attentions:
+            return x.float(), maps
         return x.float()
 
 
@@ -240,6 +257,22 @@ class DeepImpactModel(nn.Module):
     ):
         hidden = self.encoder(input_ids, attention_mask, type_ids, segment_ids, use_kernels)
         return self.impact_head(hidden)
+
+
+class CrossEncoderModel(nn.Module):
+    """Trunk + impact head on the [CLS] hidden state -> [B, 1] relevance
+    score (reference models/cross_encoder.py:9-37).  Its parameter names are
+    ``DeepImpactModel``'s, so a DeepImpact state dict loads into it."""
+
+    def __init__(self, config: EncoderConfig):
+        super().__init__()
+        self.config = config
+        self.encoder = TransformerEncoder(config)
+        self.impact_head = ImpactHead(config.hidden_size, config.impact_activation)
+
+    def forward(self, input_ids, attention_mask, type_ids=None, use_kernels: bool = True):
+        hidden = self.encoder(input_ids, attention_mask, type_ids, use_kernels=use_kernels)
+        return self.impact_head(hidden[:, 0, :])
 
 
 @torch.no_grad()

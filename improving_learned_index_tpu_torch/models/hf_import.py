@@ -9,8 +9,9 @@ torch ``Linear`` weights [out, in]; the flax attention projections are
 [H, H] in the same (head, dim) order.
 
 - ``flax_params_to_port(params, config)``: the JAX package's parameter tree
-  (numpy leaves) -> the port's ``state_dict``.  The tests carry weights
-  across with it.
+  (numpy leaves) of ``DeepImpactModel``, ``CrossEncoderModel`` (the same
+  keys) or ``PairwiseImpactModel`` (plus ``pairwise_head``) -> the port's
+  ``state_dict``.  The tests carry weights across with it.
 - ``hf_deep_impact_to_port(state_dict, config)``: an HF-format state dict
   (``bert.``/``roberta.`` prefixes stripped, reference head keys
   ``impact_score_encoder.0``) -> the port's ``state_dict``; without head
@@ -47,7 +48,8 @@ def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def flax_params_to_port(params: Dict[str, Any], config: EncoderConfig) -> Dict[str, torch.Tensor]:
-    """The JAX ``DeepImpactModel`` parameter tree -> the port's state dict."""
+    """A JAX ``DeepImpactModel`` / ``CrossEncoderModel`` /
+    ``PairwiseImpactModel`` parameter tree -> the port's state dict."""
     H = config.hidden_size
     enc = params["encoder"]
     emb = enc["embeddings"]
@@ -76,6 +78,9 @@ def flax_params_to_port(params: Dict[str, Any], config: EncoderConfig) -> Dict[s
     head = params["impact_head"]["dense"]
     sd["impact_head.dense.weight"] = _np(head["kernel"]).T
     sd["impact_head.dense.bias"] = _np(head["bias"])
+    if "pairwise_head" in params:  # flax Dense(1): kernel [2H+1, 1]
+        sd["pairwise_head.weight"] = _np(params["pairwise_head"]["kernel"]).T
+        sd["pairwise_head.bias"] = _np(params["pairwise_head"]["bias"])
     return _tensors(sd)
 
 

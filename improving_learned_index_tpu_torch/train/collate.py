@@ -11,9 +11,10 @@ reference collates (src/deep_impact/train.py:18-82):
 - in-batch negs  : per query, positive + own negative, masks expanded so
                    every query scores against all B negatives
                    (reference train.py:63-82, training/in_batch_negatives.py)
-
-``cross_encoder`` and ``pairwise_impact`` wait for their models (ROADMAP
-queue 1 item 3): their entries in ``COLLATES`` raise.
+- cross-encoder  : "{doc} [SEP] {query}" per (pos, neg) -> encoded [2B, L]
+- pairwise impact: triples + directed pair slots [2B, P, 2] and their mask
+                   from each row's query-matching tokens
+                   (reference training/pairwise_trainer.py:11-17)
 """
 
 from __future__ import annotations
@@ -90,13 +91,35 @@ def collate_in_batch_negatives(
     return arrays
 
 
-def _not_ported(name: str):
-    def collate(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {name} collate waits for its model (ROADMAP queue 1 item 3: rerankers)"
-        )
+def collate_cross_encoder(
+    batch: Sequence[Tuple[str, str, str]], tokenizer, max_length: int
+) -> Dict[str, np.ndarray]:
+    encoded_list = []
+    for query, positive, negative in batch:
+        for doc in (positive, negative):
+            encoded_list.append(tokenizer.process_document(f"{doc} [SEP] {query}", max_length))
+    arrays = batch_arrays(encoded_list)
+    arrays["group_size"] = 2
+    return arrays
 
-    return collate
+
+def collate_pairwise_impact(
+    batch: Sequence[Tuple[str, str, str]],
+    tokenizer,
+    max_length: int,
+    max_pairs: int = 256,
+) -> Dict[str, np.ndarray]:
+    """Triples collate + directed pair slots built from the query-matching
+    token indices (reference training/pairwise_trainer.py:11-17: nonzero
+    mask indices, combinations in both orders)."""
+    from ..models.pairwise import build_pair_slots
+
+    arrays = collate_triples(batch, tokenizer, max_length)
+    token_indices = [np.flatnonzero(m).tolist() for m in arrays["masks"]]
+    pair_idx, pair_mask = build_pair_slots(token_indices, max_pairs, directed=True)
+    arrays["pair_indices"] = pair_idx
+    arrays["pair_mask"] = pair_mask
+    return arrays
 
 
 COLLATES = {
@@ -104,6 +127,6 @@ COLLATES = {
     "distil_kl": collate_distillation,
     "distil_mse": collate_distillation,
     "in_batch_negatives": collate_in_batch_negatives,
-    "cross_encoder": _not_ported("cross_encoder"),
-    "pairwise_impact": _not_ported("pairwise_impact"),
+    "cross_encoder": collate_cross_encoder,
+    "pairwise_impact": collate_pairwise_impact,
 }

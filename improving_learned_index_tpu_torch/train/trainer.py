@@ -63,7 +63,9 @@ def packed_doc_scores(token_scores: torch.Tensor, batch: Dict) -> torch.Tensor:
 
 def make_loss_fn(module, loss_name: str, use_kernels: bool = True) -> Callable:
     """Build loss_fn(batch) -> scalar for the given objective, ``batch`` a
-    dict of tensors on the module's device.
+    dict of tensors on the module's device; ``module`` is the objective's
+    model (``PairwiseImpactModel`` for ``pairwise_impact``,
+    ``CrossEncoderModel`` for ``cross_encoder``, else ``DeepImpactModel``).
 
     Batches carrying ``segment_ids`` (sequence-packed, train/packed.py) take
     the packed forward (block-diagonal attention, per-segment positions)
@@ -109,10 +111,24 @@ def make_loss_fn(module, loss_name: str, use_kernels: bool = True) -> Callable:
             scores = (batch["masks"] * combined).sum(dim=-1).reshape(b, b + 1)
             return pairwise_ce(scores)
 
-    elif loss_name in ("pairwise_impact", "cross_encoder"):
-        raise NotImplementedError(
-            f"the {loss_name} loss waits for its model (ROADMAP queue 1 item 3: rerankers)"
-        )
+    elif loss_name == "pairwise_impact":
+
+        def loss_fn(batch):
+            single, pair_scores, pair_attn = module(
+                batch["input_ids"], batch["attention_mask"], batch["type_ids"],
+                batch["pair_indices"], batch["pair_mask"], use_kernels=use_kernels,
+            )
+            # attention-weighted pairwise contribution per doc (reference
+            # training/pairwise_trainer.py:26-36); pair_attn is detached
+            pair_contrib = (pair_scores * pair_attn).sum(dim=-1)
+            scores = masked_doc_scores(single, batch["masks"]) + pair_contrib
+            return pairwise_ce(scores.reshape(batch["masks"].shape[0] // 2, -1))
+
+    elif loss_name == "cross_encoder":
+
+        def loss_fn(batch):
+            return pairwise_ce(forward(batch).reshape(-1, 2))  # [2B, 1] -> [B, 2]
+
     else:
         raise ValueError(f"unknown loss {loss_name}")
 
@@ -144,7 +160,7 @@ class Trainer:
 
     def __init__(
         self,
-        model,  # models.DeepImpact
+        model,  # models.DeepImpact, DeepImpactCrossEncoder or DeepPairwiseImpact
         config: TrainConfig,
         checkpoint_dir,
         evaluator=None,

@@ -3,8 +3,10 @@ and its entry points refuse to run on the CPU unless asked to.  Covers the
 query path, the encode path (text, encoder, indexer, CLIs), the other
 query engines (host, native, device, dense, blocked) and query CLIs, and
 training (losses, collates, packing, trainer, checkpoints, data parallelism,
-``cli.train``), and the in-memory eval (``SparseSearch``, NanoBEIR, TREC
-metrics, BM25 and their CLIs)."""
+``cli.train``), the in-memory eval (``SparseSearch``, NanoBEIR, TREC
+metrics, BM25 and their CLIs), and the rerankers (the pairwise and
+cross-encoder models, ``ReRanker``, ``CrossEncoderReRanker``, their CLIs and
+``cli.train --pairwise/--cross_encoder``)."""
 
 import ast
 import os
@@ -46,7 +48,9 @@ def test_port_sources_import_no_jax():
                    "parallel/dataloader.py", "parallel/distributed.py", "data/datasets.py",
                    "cli/train.py", "evaluation/sparse_search.py", "evaluation/nano_beir.py",
                    "evaluation/trec_metrics.py", "evaluation/bm25.py", "cli/nano_beir.py",
-                   "cli/bm25.py"):
+                   "cli/bm25.py", "models/pairwise.py", "models/factory.py", "evaluation/reranker.py",
+                   "evaluation/run_metrics.py", "cli/rerank.py", "cli/cross_encoder_rerank.py",
+                   "cli/common.py"):
         assert module in names
     assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
@@ -297,3 +301,86 @@ print("ok")
         cwd=tmp_path, timeout=120,
     )
     assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-2000:]
+
+
+def test_cpu_rerankers_leave_jax_unimported(tmp_path):
+    """cli.train --cross_encoder and --pairwise, cli.rerank,
+    cli.cross_encoder_rerank and the pairwise index route on the CPU, in a
+    fresh process: nothing of JAX loads."""
+    code = """
+import sys
+from pathlib import Path
+from improving_learned_index_tpu_torch.cli.cross_encoder_rerank import main as cross_main
+from improving_learned_index_tpu_torch.cli.index import main as index_main
+from improving_learned_index_tpu_torch.cli.rerank import main as rerank_main
+from improving_learned_index_tpu_torch.cli.train import main as train_main
+from improving_learned_index_tpu_torch.text import WordPieceVocab
+d = Path(sys.argv[1])
+docs = ["the quick brown fox", "a lazy dog sleeps", "fox and dog", "quick dog naps"]
+(d / "c.tsv").write_text("".join(f"{i}\\t{t}\\n" for i, t in enumerate(docs)))
+(d / "q.tsv").write_text("0\\tquick fox\\n1\\tlazy dog\\n")
+(d / "t.tsv").write_text("0\\t0\\t1\\n1\\t1\\t2\\n")
+(d / "run.tsv").write_text("".join(f"{q}\\t{p}\\t{p + 1}\\t1.0\\n" for q in (0, 1) for p in range(4)))
+(d / "topk.tsv").write_text("".join(f"0\\t{p}\\tquick fox\\t{t}\\n" for p, t in enumerate(docs)))
+WordPieceVocab.build(docs, max_size=64).save(d / "vocab.txt")
+common = ["--vocab_path", str(d / "vocab.txt"), "--tiny", "--device", "cpu", "--max_length", "32"]
+for flag in ("--cross_encoder", "--pairwise"):
+    assert train_main(["--dataset_path", str(d / "t.tsv"), "--queries_path", str(d / "q.tsv"),
+                       "--collection_path", str(d / "c.tsv"), "--checkpoint_dir", str(d / flag.strip("-")),
+                       "--batch_size", "2", "--no_beir_eval", flag, *common]) == 0
+assert rerank_main(["--top_k_run_file_path", str(d / "run.tsv"), "--queries_path", str(d / "q.tsv"),
+                    "--collection_path", str(d / "c.tsv"), "--output_path", str(d / "r1"), *common]) == 0
+assert cross_main(["--top_k_path", str(d / "topk.tsv"), "--collection_path", str(d / "c.tsv"),
+                   "--output_path", str(d / "r2"), "--checkpoint",
+                   str(d / "cross_encoder" / "DeepImpactCrossEncoder_final.pt"), *common]) == 0
+index_main(["--collection_path", str(d / "c.tsv"), "--output_file_path", str(d / "fwd.txt"),
+            "--model_kind", "pairwise", *common])
+assert len((d / "r1").read_text().splitlines()) == 8 and len((d / "r2").read_text().splitlines()) == 4
+assert len((d / "fwd.txt").read_text().splitlines()) == len(docs)
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "improving_learned_index_tpu")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], capture_output=True, text=True, env=env,
+        cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-2000:]
+
+
+def test_reranker_entry_points_without_cuda_raise(tmp_path):
+    """The new models and CLIs default to cuda and raise without one,
+    before they write an output."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from improving_learned_index_tpu_torch.cli.cross_encoder_rerank import main as cross_main
+    from improving_learned_index_tpu_torch.cli.rerank import main as rerank_main
+    from improving_learned_index_tpu_torch.cli.train import main as train_main
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models import DeepImpactCrossEncoder, DeepPairwiseImpact
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    vocab = WordPieceVocab.build(["a b c"], max_size=32)
+    tok = ImpactTokenizer(vocab, max_length=32)
+    for cls in (DeepImpactCrossEncoder, DeepPairwiseImpact):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(EncoderConfig.tiny(vocab_size=len(vocab)), tok)
+    vocab.save(tmp_path / "vocab.txt")
+    for name in ("c.tsv", "q.tsv", "t.tsv"):
+        (tmp_path / name).write_text("0\ta\n")
+    (tmp_path / "run.tsv").write_text("0\t0\t1\t1.0\n")
+    (tmp_path / "topk.tsv").write_text("0\t0\ta\ta\n")
+    common = ["--vocab_path", str(tmp_path / "vocab.txt"), "--tiny"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rerank_main(["--top_k_run_file_path", str(tmp_path / "run.tsv"), "--queries_path", str(tmp_path / "q.tsv"),
+                     "--collection_path", str(tmp_path / "c.tsv"), "--output_path", str(tmp_path / "r1"), *common])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cross_main(["--top_k_path", str(tmp_path / "topk.tsv"), "--collection_path", str(tmp_path / "c.tsv"),
+                    "--output_path", str(tmp_path / "r2"), *common])
+    for flag in ("--pairwise", "--cross_encoder"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_main(["--dataset_path", str(tmp_path / "t.tsv"), "--queries_path", str(tmp_path / "q.tsv"),
+                        "--collection_path", str(tmp_path / "c.tsv"), "--checkpoint_dir", str(tmp_path / "ck"),
+                        "--no_beir_eval", flag, *common])
+    assert not any((tmp_path / n).exists() for n in ("r1", "r2", "ck"))

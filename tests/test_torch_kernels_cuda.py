@@ -388,6 +388,118 @@ def test_train_step_kernel_route_matches_plain(cuda, tmp_path):
     assert any(not torch.equal(a, b) for a, b in zip(before, after))
 
 
+def _impacts_close(got, want, rel_max=0.05, rel_mean=0.002):
+    """Flat score lists: every difference within ``rel_max`` of the largest
+    |want|, the mean difference within ``rel_mean`` of it (the kernel and
+    plain routes differ by a bf16 ulp of an attention output)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    peak, diff = float(np.abs(want).max()), np.abs(got - want)
+    assert peak > 0 and diff.max() <= rel_max * peak and diff.mean() <= rel_mean * peak, (
+        float(diff.max()), float(diff.mean()), peak)
+
+
+@pytest.mark.cuda
+def test_cross_encoder_kernel_route_matches_plain(cuda, tmp_path):
+    """BERT-base width (768 wide, 12 heads of 64) with 2 layers at S=256:
+    64 candidates' cross-encoder scores on the kernel route against the
+    plain route (every score within 5% of the largest, the mean within
+    0.2%), one launch a layer; then a cross-encoder training batch's loss
+    within 1%, gradient norm within 2%, cosine >= 0.99."""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig, TrainConfig
+    from improving_learned_index_tpu_torch.models import DeepImpactCrossEncoder
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+    from improving_learned_index_tpu_torch.train import COLLATES, Trainer, make_loss_fn
+
+    rng = np.random.default_rng(4)
+    words = [f"w{i}x" for i in range(400)]
+    passages = [" ".join(rng.choice(words, int(rng.integers(20, 120)))) for _ in range(64)]
+    tok = ImpactTokenizer(WordPieceVocab.build(passages, max_size=1000), max_length=256)
+    config = EncoderConfig(vocab_size=len(tok.vocab), num_layers=2, impact_activation="softplus")
+    model = DeepImpactCrossEncoder(config, tok, seed=0, device="cuda")
+    plain = DeepImpactCrossEncoder(config, tok, state_dict=model.module.state_dict(), device="cuda",
+                                   use_kernels=False)
+    encs = model.process_cross_encoder_documents_and_query(passages, " ".join(words[:4]))
+    before = sa.KERNEL.launches
+    got = model.score_batch(encs)
+    torch.cuda.synchronize()
+    assert sa.KERNEL.launches - before == config.num_layers
+    _impacts_close(got, plain.score_batch(encs))
+
+    triples = [(" ".join(passages[i].split()[:3]), passages[i], passages[32 + i]) for i in range(16)]
+    trainer = Trainer(model, TrainConfig(batch_size=16, loss="cross_encoder", save_every=10**6,
+                                         eval_every=10**9), tmp_path)
+    put = trainer._put_batch(COLLATES["cross_encoder"](triples, tok, 256))
+    out = {}
+    for use_kernels in (True, False):
+        loss = make_loss_fn(model.module, "cross_encoder", use_kernels=use_kernels)(put)
+        loss.backward()
+        out[use_kernels] = (loss.item(), torch.cat([p.grad.flatten() for p in model.module.parameters()]))
+        for p in model.module.parameters():
+            p.grad = None
+    (lk, gk), (lp, gp) = out[True], out[False]
+    assert np.isfinite(lk) and abs(lk - lp) <= 0.01 * abs(lp)
+    nk, npl = float(gk.norm()), float(gp.norm())
+    assert npl > 0 and abs(nk - npl) <= 0.02 * npl
+    assert float(torch.dot(gk, gp)) / (nk * npl) >= 0.99
+
+
+@pytest.mark.cuda
+def test_reranker_on_the_card_equals_cpu(cuda, tmp_path):
+    """ReRanker with one fp32 model (2 heads of 64, S=128) on the card (the
+    kernel, one launch a layer an encode batch) and on the CPU (its plain
+    version): the cached impacts within 5% of the largest (mean within
+    0.2%), each query's candidates in the same order except where two CPU
+    scores lie within twice what three such impacts may add up to (a query
+    has at most 3 terms)."""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.evaluation import ReRanker
+    from improving_learned_index_tpu_torch.models import DeepImpact
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    rng = np.random.default_rng(5)
+    words = [f"w{i}x" for i in range(60)]
+    passages = [" ".join(rng.choice(words, int(rng.integers(5, 60)))) for _ in range(40)]
+    tok = ImpactTokenizer(WordPieceVocab.build(passages, max_size=200), max_length=128)
+    (tmp_path / "c.tsv").write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages)))
+    (tmp_path / "q.tsv").write_text("".join(f"{q}\t{' '.join(rng.choice(words, 3))}\n" for q in range(5)))
+    (tmp_path / "run.tsv").write_text("".join(
+        f"{q}\t{p}\t{r + 1}\t1.0\n" for q in range(5) for r, p in enumerate(rng.permutation(40)[:30])))
+    config = EncoderConfig(vocab_size=len(tok.vocab), hidden_size=128, num_layers=2, num_heads=2,
+                           intermediate_size=256, max_position_embeddings=128, dtype="float32")
+    card = DeepImpact(config, tok, seed=0, device="cuda")
+    cpu = DeepImpact(config, tok, state_dict={k: v.cpu() for k, v in card.module.state_dict().items()},
+                     device="cpu")
+    args = (tmp_path / "run.tsv", tmp_path / "q.tsv", tmp_path / "c.tsv")
+    calls, encode = [], card.encode_term_scores
+    card.encode_term_scores = lambda *a, **k: calls.append(1) or encode(*a, **k)
+    before = sa.KERNEL.launches
+    rr_card = ReRanker(card, *args, tmp_path / "card.run", batch_size=16)
+    rr_cpu = ReRanker(cpu, *args, tmp_path / "cpu.run", batch_size=16)
+    assert rr_card.run() == rr_cpu.run() == 5
+    assert len(calls) >= 3 and sa.KERNEL.launches - before == config.num_layers * len(calls)
+    assert rr_card.cache.keys() == rr_cpu.cache.keys()
+    pids = sorted(rr_cpu.cache)
+    assert all(list(rr_card.cache[p]) == list(rr_cpu.cache[p]) for p in pids)
+    flat = [(rr_card.cache[p][t], rr_cpu.cache[p][t]) for p in pids for t in rr_cpu.cache[p]]
+    _impacts_close([g for g, _ in flat], [w for _, w in flat])
+    tol = 0.05 * max(abs(w) for _, w in flat)
+
+    def read(path):
+        out = {}
+        for line in path.read_text().splitlines():
+            q, p, _, s = line.split("\t")
+            out.setdefault(q, []).append((p, float(s)))
+        return out
+
+    got, want = read(tmp_path / "card.run"), read(tmp_path / "cpu.run")
+    assert got.keys() == want.keys()
+    for q in want:
+        wv = dict(want[q])
+        assert sorted(dict(got[q])) == sorted(wv)
+        for (gp, _), (wp, _) in zip(got[q], want[q]):
+            assert gp == wp or abs(wv[gp] - wv[wp]) <= 2 * 3 * tol, (q, gp, wp)
+
+
 @pytest.mark.cuda
 def test_short_attention_kernel_refuses_other_shapes(cuda):
     q = torch.zeros(1, 1, 128, 24, device="cuda", dtype=torch.bfloat16)

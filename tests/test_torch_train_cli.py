@@ -123,9 +123,15 @@ def test_cli_refusals(data):
     with pytest.raises(ValueError, match="no BEIR-format datasets"):
         train_cli.main(args + ["--nano_beir_dir", str(data / "no_beir")])
     assert not (data / "c" / "metrics.txt").exists()
-    for flag in ("--pairwise", "--cross_encoder"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            train_cli.main(_train_args(data, "c", flag))
+    # the pairwise and cross-encoder losses score a document under several
+    # masks or as a pair: --pack is refused, and they train unpacked
+    for flag, name in (("--pairwise", "DeepPairwiseImpact"), ("--cross_encoder", "DeepImpactCrossEncoder")):
+        with pytest.raises(SystemExit):
+            train_cli.main(_train_args(data, "c", flag, "--pack"))
+        assert not (data / "c" / f"{name}_final.pt").exists()
+        assert train_cli.main(_train_args(data, f"c_{name}", flag, "--max_length", "32",
+                                          "--total_steps", "1")) == 0
+        assert (data / f"c_{name}" / f"{name}_final.pt").exists()
     (data / "p.msgpack").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="msgpack"):
         index_main(["--collection_path", str(data / "c.tsv"), "--output_file_path", str(data / "f.txt"),
