@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: the query path at MS MARCO passage
-scale, every query engine on the same index, and the encode path, training,
-the in-memory eval and the rerankers at BERT-base width.
+scale, every query engine on the same index, the encode path, training,
+the in-memory eval and the rerankers at BERT-base width, then the index
+lifecycle: the binary impact store at BERT-base, the index algebra and the
+serving daemons (shard router, staged hot swap) on the MS MARCO-scale index.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -16,7 +18,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. Query set-up, then the query kernels against their plain versions: a
    synthetic index at MS MARCO passage geometry is generated on the card
    from a seed (8.8M docs, 30k-term Zipf vocabulary, ~388M postings,
-   impacts 1..255), saved with the port's ``save``, and loaded into an
+   impacts 1..255, each list impact-descending as ``cli.invert`` writes
+   it), saved with the port's ``save``, and loaded into an
    engine through ``build_engine``.  Each kernel runs on the inputs the
    first 64-query batch gives it and must equal its plain PyTorch version
    exactly: ``gather_rows`` and ``scatter_scores`` on the batch's stages
@@ -139,22 +142,73 @@ Phases, in order; any failed check raises and the script exits non-zero:
    same trunk.  Each part prints its wall seconds and a rate (pairs/s,
    docs/s) and each training CLI its peak memory.
 
+11. The store route, in phase 6's work directory (its 32,768 passages,
+   phase 7's seeded BERT-base checkpoint, S=256, B=512).  ``cli.index
+   --output_file_path F --store_path S`` with the launch counts set to 0
+   just before and read just after (``short_attention`` 12 a batch); F has
+   phase 7's term lists, impacts within phase 7's tolerance (byte-equal
+   lines counted).  ``cli.quantize -i S --text_out`` and ``cli.invert`` on
+   the store against ``cli.quantize`` and ``cli.invert`` on F: the
+   quantized texts and the three index files byte-equal, each route's
+   seconds printed.  Crash and resume: copies of S (its three ``.bin``
+   files cut mid-record at a seeded document past the middle, no
+   ``meta.json``) and of F (cut mid-line at another) resume through
+   ``cli.index --resume`` at the smaller survivor R, launching
+   ``short_attention`` 12 x ceil((32,768 - R) / 512) times; both outputs
+   then have the uninterrupted run's term lists, the first R documents
+   byte-equal, the rest within the tolerance.
+12. The index lifecycle on phase 3's index.  ``cli.split_index --n_shards
+   4`` (``shards.json``: path, num_docs, doc_offset); ``cli.merge_indexes``
+   over the shards, with the manifest's ``--num_docs``, gives phase 3's
+   three index files byte for byte; ``cli.filter_index`` deletes the
+   planted docs of the first 64 queries and a seeded 1% of the docs, and
+   ``cli.rank`` over the result writes, for every query, phase 4's rows
+   less the deleted docs first (5 queries equal to the numpy scorer, no
+   planted doc of the 64 returns).  The shard tier as deployed: four
+   ``cli.serve`` processes on the card, one per shard, and a ``cli.serve
+   --shards`` router; 8 client connections send phase 4's 512 query texts
+   as single k=1000 requests, and every answer equals phase 4's run file
+   rank by rank; q/s, p50/p99 latency, each shard's batches and each
+   daemon's card memory (nvidia-smi) printed; ``{"op": "shutdown"}``
+   stops each process with exit code 0.  One card stands in for four hosts
+   here.  ``gather_rows``, ``scatter_scores`` and ``count_ge`` are then
+   held against their plain versions (exactly) on a served batch of 8 at
+   a shard daemon's shape (shard 0's engine built in this process as
+   ``cli.serve`` builds it).  Then one ``RetrievalServer`` in process over phase 3's index on
+   the card, launch counts set to 0 after its warmup: the same 512 queries
+   streamed, a ``swap_engine_staged`` to the filtered index after 256
+   answers; every query answered once, without error, with phase 4's or the
+   filtered rows (counted), then the first 64 again with the filtered rows;
+   ``torch.cuda.max_memory_allocated`` across the swap within the larger of
+   the first build's peak and the serving peak; ``gather_rows``,
+   ``scatter_scores`` and ``count_ge`` must have launched, and equal their
+   plain versions on a served batch of 8 on the server's engine after the
+   swap.  The rate before the swap began and after it returned printed
+   apart.  Every step's seconds printed.
+
 The second-to-last line is the ``kernels`` JSON object (five rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
 ``cli.index``, ``cli.train``, ``cli.nano_beir``, ``cli.train`` with eval,
-``cli.rerank``, ``cli.train --cross_encoder``, ``cli.cross_encoder_rerank``
-and the pairwise routes (0), ``gather_rows`` over ``cli.rank`` and
-``cli.nano_beir``'s fp32 rows), the last line ``{"ok": true, "device":
-{...}}``.
+``cli.rerank``, ``cli.train --cross_encoder``, ``cli.cross_encoder_rerank``,
+the pairwise routes (0), ``cli.index --store_path`` and its resume;
+``gather_rows`` over ``cli.rank``, ``cli.nano_beir``'s fp32 rows and the
+in-process ``RetrievalServer``; ``scatter_scores`` and ``count_ge`` over
+their paths and that server too; the shard daemons' launches happen in
+processes of their own and are not counted), the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import queue
 import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 from itertools import islice
 from pathlib import Path
@@ -207,6 +261,15 @@ RERANK = SimpleNamespace(
     candidates=100, batch=128, ce_groups=32, ce_steps=4, ce_queries=20, ce_batch=32,
     pw_groups=4, pw_steps=2, pw_index_docs=256, pw_batch=64, seed=2, device="cuda",
 )
+# The store route (phase 11): phase 6's corpus through phase 7's encode
+# geometry, one seeded crash point per output.
+STORE = SimpleNamespace(seed=4, device="cuda")
+# The index lifecycle (phase 12) on phase 3's index: 4 doc-range shards (one
+# daemon each, as cli.split_index deploys them), 1% of the docs plus the
+# first 64 queries' planted docs deleted, 8 client connections of single
+# k=1000 requests (phase 4's 512 query texts).
+LIFECYCLE = SimpleNamespace(shards=4, delete_share=0.01, planted_deletes=64, clients=8, k=1000, seed=5,
+                            device="cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
@@ -243,11 +306,14 @@ def make_corpus(num_docs, n_terms, n_postings, n_queries, query_terms, seed, dev
 
     Term t samples ``c_t`` distinct docs from the first ``num_docs -
     n_queries`` docs, one uniform doc in each of c_t equal strata (so lists
-    come out doc-ascending; posting order inside a list does not change
-    scores).  Queries draw ``query_terms`` distinct Zipf terms; query i's
-    planted doc ``num_docs - n_queries + i`` holds each of its terms at
-    impact 255.  Returns host arrays (offsets, doc_ids uint32, impacts
-    uint8), the queries as term-id lists, and each query's planted doc."""
+    come out doc-ascending).  Queries draw ``query_terms`` distinct Zipf
+    terms; query i's planted doc ``num_docs - n_queries + i`` holds each of
+    its terms at impact 255.  Each list is then sorted stably by impact
+    descending: the order ``cli.invert`` and the index algebra write (doc
+    ascending among equal impacts), so phase 12's split and merge can be
+    held to these bytes.  Returns host arrays (offsets, doc_ids uint32,
+    impacts uint8), the queries as term-id lists, and each query's planted
+    doc."""
     n_sampled = num_docs - n_queries
     c = zipf_counts(n_terms, n_postings, n_sampled)
     p = 1.0 / np.arange(1, n_terms + 1)
@@ -287,7 +353,11 @@ def make_corpus(num_docs, n_terms, n_postings, n_queries, query_terms, seed, dev
     doc = torch.where(sampled, doc, to(pl_d)[pl_idx])
     vals = torch.randint(1, 256, (total,), generator=g, device=device, dtype=torch.uint8)
     vals = torch.where(sampled, vals, torch.full_like(vals, 255))
-    del term_of, i, ct, pl_idx
+    del i, ct, pl_idx, sampled
+    order = torch.sort(term_of * 256 + (255 - vals.long()), stable=True).indices
+    del term_of
+    doc, vals = doc[order], vals[order]
+    del order
     docs = doc.to(torch.int32).cpu().numpy().view(np.uint32)
     return offsets, docs, vals.cpu().numpy(), queries, planted
 
@@ -689,7 +759,7 @@ def build_kernels() -> None:
         f"the native engine in {time.perf_counter() - t1:.1f} s")
 
 
-def run_query(cfg) -> dict:
+def run_query(cfg, workdir: Path) -> dict:
     from improving_learned_index_tpu_torch.cli.rank import main as rank_main
     from improving_learned_index_tpu_torch.evaluation.run_metrics import Metrics
     from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
@@ -709,117 +779,114 @@ def run_query(cfg) -> dict:
     torch.cuda.empty_cache()
     log(f"generated {len(docs)} postings over {cfg.terms} terms, {cfg.docs} docs "
         f"in {time.perf_counter() - t0:.1f} s")
-    workdir = Path(cfg.workdir)
-    shutil.rmtree(workdir, ignore_errors=True)
-    workdir.mkdir(parents=True)
-    try:
-        t0 = time.perf_counter()
-        index_dir, vocab, qpath, qrels = write_inputs(
-            workdir, offsets, docs, vals, cfg.docs, queries, planted
-        )
-        log(f"saved index + queries in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    index_dir, vocab, qpath, qrels = write_inputs(
+        workdir, offsets, docs, vals, cfg.docs, queries, planted
+    )
+    log(f"saved index + queries in {time.perf_counter() - t0:.1f} s")
 
-        t0 = time.perf_counter()
-        engine = build_engine(index_dir, dense_budget_bytes=int(cfg.dense_budget_gb * (1 << 30)),
-                              device=dev)
-        torch.cuda.synchronize()
-        log(f"engine: n_pad {engine.n_pad}, {engine.t_heavy} heavy rows "
-            f"({engine.dense.dtype}), {engine.doc_ids.numel()} tail slots, "
-            f"built in {time.perf_counter() - t0:.1f} s")
-        tok = ImpactTokenizer(WordPieceVocab.load(vocab))
-        qtext = [line.split("\t", 1)[1] for line in qpath.read_text().splitlines()]
-        batches = [
-            [tok.process_query(q) for q in qtext[i : i + cfg.nq]]
-            for i in range(0, n_queries, cfg.nq)
-        ]
+    t0 = time.perf_counter()
+    engine = build_engine(index_dir, dense_budget_bytes=int(cfg.dense_budget_gb * (1 << 30)),
+                          device=dev)
+    torch.cuda.synchronize()
+    log(f"engine: n_pad {engine.n_pad}, {engine.t_heavy} heavy rows "
+        f"({engine.dense.dtype}), {engine.doc_ids.numel()} tail slots, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    tok = ImpactTokenizer(WordPieceVocab.load(vocab))
+    qtext = [line.split("\t", 1)[1] for line in qpath.read_text().splitlines()]
+    batches = [
+        [tok.process_query(q) for q in qtext[i : i + cfg.nq]]
+        for i in range(0, n_queries, cfg.nq)
+    ]
 
-        log("== phase 3: query kernels against their plain versions (first batch)")
-        heavy, tail = engine.stage_inputs(batches[0])
-        if heavy is None or tail is None:
-            raise AssertionError("the first batch must reach both stages")
-        g_row, base = gather_row(engine, heavy, cfg.nq)
-        s_row, scores = scatter_row(engine, base, tail)
-        del base, heavy, tail
-        c_row = count_row(scores)
-        del scores
-        t0 = time.perf_counter()
-        blocked = PallasBlockedEngine(InvertedIndexData.load(index_dir), device=dev)
-        torch.cuda.synchronize()
-        log(f"blocked engine: {blocked.num_blocks} blocks, postings sorted on the card, "
-            f"built in {time.perf_counter() - t0:.1f} s")
-        b_row = blocked_row(blocked, batches[0])
-        torch.cuda.empty_cache()
-        for row in (g_row, s_row, c_row, b_row):
-            log(f"{row['name']}: equal to plain; {json.dumps(row)}")
-        log(f"scatter_scores: {s_row['ms']:.4f} ms; {SCATTER_EARLIER_MS} ms before the chunk "
-            "entry, at this shape (NVIDIA H100 80GB HBM3, 700 W)")
+    log("== phase 3: query kernels against their plain versions (first batch)")
+    heavy, tail = engine.stage_inputs(batches[0])
+    if heavy is None or tail is None:
+        raise AssertionError("the first batch must reach both stages")
+    g_row, base = gather_row(engine, heavy, cfg.nq)
+    s_row, scores = scatter_row(engine, base, tail)
+    del base, heavy, tail
+    c_row = count_row(scores)
+    del scores
+    t0 = time.perf_counter()
+    blocked = PallasBlockedEngine(InvertedIndexData.load(index_dir), device=dev)
+    torch.cuda.synchronize()
+    log(f"blocked engine: {blocked.num_blocks} blocks, postings sorted on the card, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    b_row = blocked_row(blocked, batches[0])
+    torch.cuda.empty_cache()
+    for row in (g_row, s_row, c_row, b_row):
+        log(f"{row['name']}: equal to plain; {json.dumps(row)}")
+    log(f"scatter_scores: {s_row['ms']:.4f} ms; {SCATTER_EARLIER_MS} ms before the chunk "
+        "entry, at this shape (NVIDIA H100 80GB HBM3, 700 W)")
 
-        log("== phase 4: query main path (cli.rank on the card)")
-        run_file = workdir / "run.tsv"
-        for k in kernels:
-            k.launches = 0
-        t0 = time.perf_counter()
-        rank_main([
-            "--index_path", str(index_dir), "--queries_path", str(qpath),
-            "--output_path", str(run_file), "--vocab_path", str(vocab),
-            "--qrels_path", str(qrels), "--top_k", "1000",
-            "--dense_budget_gb", str(cfg.dense_budget_gb), "--device", cfg.device,
-        ])
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in kernels}
-        log(f"cli.rank: {n_queries} queries in {time.perf_counter() - t0:.1f} s "
-            f"(index load and engine build included); launches {launches}")
-        for row in (g_row, s_row, c_row):
-            if launches[row["name"]] == 0:
-                raise AssertionError(f"query main path never launched {row['name']}")
-            row["launches"] = launches[row["name"]]
+    log("== phase 4: query main path (cli.rank on the card)")
+    run_file = workdir / "run.tsv"
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rank_main([
+        "--index_path", str(index_dir), "--queries_path", str(qpath),
+        "--output_path", str(run_file), "--vocab_path", str(vocab),
+        "--qrels_path", str(qrels), "--top_k", "1000",
+        "--dense_budget_gb", str(cfg.dense_budget_gb), "--device", cfg.device,
+    ])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    log(f"cli.rank: {n_queries} queries in {time.perf_counter() - t0:.1f} s "
+        f"(index load and engine build included); launches {launches}")
+    for row in (g_row, s_row, c_row):
+        if launches[row["name"]] == 0:
+            raise AssertionError(f"query main path never launched {row['name']}")
+        row["launches"] = launches[row["name"]]
 
-        metrics = Metrics(run_file, qrels).evaluate()
-        log(f"metrics: {json.dumps(metrics)}")
-        if metrics["MRR@10"] < 0.99:
-            raise AssertionError(f"planted docs not ranked first: MRR@10 {metrics['MRR@10']}")
+    metrics = Metrics(run_file, qrels).evaluate()
+    log(f"metrics: {json.dumps(metrics)}")
+    if metrics["MRR@10"] < 0.99:
+        raise AssertionError(f"planted docs not ranked first: MRR@10 {metrics['MRR@10']}")
 
-        ranked = {}
-        for line in run_file.read_text().splitlines():
-            qid, pid, _, score = line.split("\t")
-            ranked.setdefault(qid, []).append((pid, float(score)))
-        rng = np.random.default_rng(cfg.seed + 2)
-        for qi in rng.choice(n_queries, size=4, replace=False).tolist():
-            want = numpy_topk(offsets, docs, vals, cfg.docs, queries[qi], 1000)
-            if ranked.get(str(qi), []) != want:
-                raise AssertionError(f"query {qi}: run file differs from the numpy scorer")
-        log("4 sampled queries match the numpy scorer rank by rank")
+    ranked = {}
+    for line in run_file.read_text().splitlines():
+        qid, pid, _, score = line.split("\t")
+        ranked.setdefault(qid, []).append((pid, float(score)))
+    rng = np.random.default_rng(cfg.seed + 2)
+    for qi in rng.choice(n_queries, size=4, replace=False).tolist():
+        want = numpy_topk(offsets, docs, vals, cfg.docs, queries[qi], 1000)
+        if ranked.get(str(qi), []) != want:
+            raise AssertionError(f"query {qi}: run file differs from the numpy scorer")
+    log("4 sampled queries match the numpy scorer rank by rank")
 
-        log("== pipelined throughput (score_stream, depth 2)")
-        list(engine.score_stream(batches[:2], top_k=1000, depth=2))  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = list(engine.score_stream(batches, top_k=1000, depth=2))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        for bi, out in enumerate(outs):
-            for j, res in enumerate(out):
-                got = [(str(d), float(s)) for d, s in res]
-                if got != ranked.get(str(bi * cfg.nq + j), []):
-                    raise AssertionError(f"score_stream differs from the run file at query {bi * cfg.nq + j}")
-        qps = n_queries / dt
-        log(f"pipelined: {n_queries} queries in {dt:.3f} s = {qps:.1f} q/s "
-            f"(k=1000, {cfg.nq}-query batches) on {torch.cuda.get_device_name(0)}")
-        prof = profile_window(lambda: list(engine.score_stream(batches[:2], top_k=1000, depth=2)))
-        log(json.dumps({"profile": dict(prof, batches=2)}))
-        engine.release()
-        del engine
-        torch.cuda.empty_cache()
+    log("== pipelined throughput (score_stream, depth 2)")
+    list(engine.score_stream(batches[:2], top_k=1000, depth=2))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = list(engine.score_stream(batches, top_k=1000, depth=2))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for bi, out in enumerate(outs):
+        for j, res in enumerate(out):
+            got = [(str(d), float(s)) for d, s in res]
+            if got != ranked.get(str(bi * cfg.nq + j), []):
+                raise AssertionError(f"score_stream differs from the run file at query {bi * cfg.nq + j}")
+    qps = n_queries / dt
+    log(f"pipelined: {n_queries} queries in {dt:.3f} s = {qps:.1f} q/s "
+        f"(k=1000, {cfg.nq}-query batches) on {torch.cuda.get_device_name(0)}")
+    prof = profile_window(lambda: list(engine.score_stream(batches[:2], top_k=1000, depth=2)))
+    log(json.dumps({"profile": dict(prof, batches=2)}))
+    engine.release()
+    del engine
+    torch.cuda.empty_cache()
 
-        others = run_other_engines(cfg, workdir, index_dir, vocab, qtext, batches, ranked, blocked, b_row)
-        return {
-            "kernels": [g_row, s_row, c_row, b_row],
-            "mrr10": metrics["MRR@10"],
-            "qps": qps,
-            "other_engines": others,
-        }
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    others = run_other_engines(cfg, workdir, index_dir, vocab, qtext, batches, ranked, blocked, b_row)
+    return {
+        "kernels": [g_row, s_row, c_row, b_row],
+        "mrr10": metrics["MRR@10"],
+        "qps": qps,
+        "other_engines": others,
+        # phase 12's inputs
+        "inputs": SimpleNamespace(index_dir=index_dir, vocab=vocab, qpath=qpath, run_file=run_file,
+                                  qtext=qtext, queries=queries, planted=planted, ranked=ranked),
+    }
 
 
 def run_other_engines(cfg, workdir, index_dir, vocab, qtext, batches, ranked, blocked, b_row) -> dict:
@@ -2252,6 +2319,609 @@ def run_rerank(cfg, workdir: Path, ckpt: Path) -> dict:
     return out
 
 
+# -- index lifecycle ---------------------------------------------------------------
+
+
+def files_equal(a: Path, b: Path, chunk: int = 64 << 20) -> bool:
+    """Byte equality of two files, read in chunks."""
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(chunk), fb.read(chunk)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def same_index_files(a: Path, b: Path, what: str) -> None:
+    for name in ("vocab.txt", "inverted_index.dat", "inverted_index.idx"):
+        if not files_equal(a / name, b / name):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def run_store(cfg, workdir: Path, tol: tuple) -> dict:
+    """Phase 11: the store route at BERT-base (phase 6's corpus, phase 7's
+    seeded checkpoint, S=256, B=512), in the encode work directory."""
+    from improving_learned_index_tpu_torch.cli.index import main as index_main
+    from improving_learned_index_tpu_torch.cli.invert import main as invert_main
+    from improving_learned_index_tpu_torch.cli.quantize import main as quantize_main
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.ops import short_attention as sa
+
+    log("== phase 11: the store route (cli.index --store_path -> quantize -> invert; resume)")
+    t_phase = time.perf_counter()
+    layers = EncoderConfig.bert_base().num_layers
+    coll = workdir / "collection.tsv"
+    n_docs = sum(1 for _ in open(coll, encoding="utf-8"))
+    common = ["--collection_path", str(coll), "--vocab_path", str(workdir / "vocab.txt"),
+              "--max_length", str(ENCODE.max_length), "--model_batch_size", str(ENCODE.batch),
+              "--hf_name", str(workdir / "bert"), "--device", cfg.device]
+    d = workdir / "store_route"
+    d.mkdir()
+    fwd, store = d / "forward.txt", d / "forward.store"
+    seconds, launches = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+
+    # 1. both outputs in one encode
+    sa.KERNEL.launches = 0
+    timed("cli_index", lambda: index_main(common + ["--output_file_path", str(fwd), "--store_path", str(store)]))
+    launches["cli.index --store_path"] = sa.KERNEL.launches
+    want = layers * -(-n_docs // ENCODE.batch)
+    if sa.KERNEL.launches != want:
+        raise AssertionError(f"short_attention launched {sa.KERNEL.launches} times, want {want}")
+
+    # 2. the same term lists as phase 7's forward index, impacts within its tolerance
+    docs = parse_forward(fwd)
+    err7 = impacts_close(docs, parse_forward(workdir / "forward.txt"), *tol, "store-route text vs phase 7")
+    with open(fwd, "rb") as fa, open(workdir / "forward.txt", "rb") as fb:
+        equal_lines = sum(x == y for x, y in zip(fa, fb))
+    log(f"cli.index --store_path: {n_docs} passages in {seconds['cli_index']:.1f} s, {sa.KERNEL.launches} "
+        f"launches; against phase 7's forward index {equal_lines} of {n_docs} lines byte-equal, {err7}")
+
+    # 3. the store route and the text route to the final index
+    qs, qt, inv_s = d / "forward.q.store", d / "forward.q.from_store.txt", d / "index_store"
+    qf, inv_t = d / "forward.q.txt", d / "index_text"
+    timed("store_quantize", lambda: quantize_main(["-i", str(store), "-o", str(qs), "--text_out", str(qt)]))
+    timed("store_invert", lambda: invert_main(["-i", str(qs), "-o", str(inv_s)]))
+    timed("text_quantize", lambda: quantize_main(["-i", str(fwd), "-o", str(qf)]))
+    timed("text_invert", lambda: invert_main(["-i", str(qf), "-o", str(inv_t)]))
+    if not files_equal(qt, qf):
+        raise AssertionError("the store's quantized text differs from cli.quantize's")
+    same_index_files(inv_s, inv_t, "store route vs text route")
+    routes = {"store_s": seconds["store_quantize"] + seconds["store_invert"],
+              "text_s": seconds["text_quantize"] + seconds["text_invert"]}
+    log(f"quantize + invert: store route {routes['store_s']:.2f} s, text route {routes['text_s']:.2f} s "
+        f"(x{routes['text_s'] / routes['store_s']:.1f}); quantized text and the three index files byte-equal")
+
+    # 4. crash and resume: copies cut at seeded points past the middle, the
+    # store's three .bin files mid-record, the text mid-line elsewhere
+    rng = np.random.default_rng(cfg.seed)
+    counts = np.fromfile(store / "counts.bin", np.int32)
+    cum = np.concatenate(([0], np.cumsum(counts, dtype=np.int64)))
+    cut_store = int(rng.choice(np.flatnonzero(counts[n_docs // 2 : n_docs - 1] >= 2))) + n_docs // 2
+    cut_text = int(rng.integers(n_docs // 2, n_docs - 1))
+    while cut_text == cut_store:
+        cut_text = int(rng.integers(n_docs // 2, n_docs - 1))
+    s2, f2 = d / "crash.store", d / "crash.txt"
+    shutil.copytree(store, s2)
+    shutil.copyfile(fwd, f2)
+    (s2 / "meta.json").unlink()  # a writer that never closed left none
+    # counts past the cut doc, its postings torn: cut_store docs survive
+    os.truncate(s2 / "counts.bin", 4 * (cut_store + 1) + 2)
+    os.truncate(s2 / "term_ids.bin", 4 * (cum[cut_store] + 1) + 3)
+    os.truncate(s2 / "values.bin", 4 * cum[cut_store + 1] - 1)
+    with open(fwd, "rb") as f:
+        line_end = sum(len(next(f)) for _ in range(cut_text))
+    os.truncate(f2, line_end + 7)
+    resume_at = min(cut_store, cut_text)
+    sa.KERNEL.launches = 0
+    timed("cli_index_resume", lambda: index_main(
+        common + ["--output_file_path", str(f2), "--store_path", str(s2), "--resume"]))
+    launches["cli.index --store_path --resume"] = sa.KERNEL.launches
+    want = layers * -(-(n_docs - resume_at) // ENCODE.batch)
+    if sa.KERNEL.launches != want:
+        raise AssertionError(f"resume from {resume_at}: short_attention launched {sa.KERNEL.launches} "
+                             f"times, want {want}")
+    # text: the first resume_at lines byte-equal, the rest within tolerance
+    with open(f2, "rb") as fa, open(fwd, "rb") as fb:
+        head_equal = all(next(fa) == next(fb) for _ in range(resume_at))
+    if not head_equal:
+        raise AssertionError("resumed text: the surviving lines changed")
+    err_text = impacts_close(parse_forward(f2)[resume_at:], docs[resume_at:], *tol, "resumed text")
+    # store: term lists (counts, term ids, vocab) byte-equal; values equal
+    # for the first resume_at documents, the rest within tolerance
+    for name in ("counts.bin", "term_ids.bin", "vocab.txt", "meta.json", "format.json"):
+        if not files_equal(s2 / name, store / name):
+            raise AssertionError(f"resumed store: {name} differs from the uninterrupted run's")
+    v_got, v_want = np.fromfile(s2 / "values.bin", np.int32), np.fromfile(store / "values.bin", np.int32)
+    head = int(cum[resume_at])
+    if not np.array_equal(v_got[:head], v_want[:head]):
+        raise AssertionError("resumed store: the surviving documents' values changed")
+    dv = np.abs(v_got[head:].astype(np.int64) - v_want[head:]) / 1000.0
+    err_store = {"max": float(dv.max(initial=0.0)), "mean": float(dv.mean()) if dv.size else 0.0}
+    if err_store["max"] > tol[0] + 1e-3 or err_store["mean"] > tol[1] + 1e-3:
+        raise AssertionError(f"resumed store: impact differences {err_store} beyond {tol}")
+    log(f"cli.index --resume: store cut at doc {cut_store} (mid-record), text at doc {cut_text} (mid-line); "
+        f"resumed at {resume_at} in {seconds['cli_index_resume']:.1f} s, {sa.KERNEL.launches} launches; "
+        f"both outputs have the uninterrupted run's term lists, the first {resume_at} documents byte-equal, "
+        f"the rest within tolerance (text {err_text}, store {err_store})")
+    shutil.rmtree(d)
+    out = {"seconds": seconds, "routes": routes, "launches": launches, "equal_lines_vs_phase7": equal_lines,
+           "vs_phase7": err7, "resume": {"store_cut": cut_store, "text_cut": cut_text, "at": resume_at,
+                                         "text": err_text, "store": err_store},
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 11 in {out['phase_s']:.1f} s")
+    return out
+
+
+def spawn_daemon(args: list, log_path: Path):
+    """Start ``cli.serve`` in a process of its own, its output copied to
+    ``log_path``; returns (process, queue that gets its ``card memory``
+    line and then the port from its ``serving ... on host:port`` line, or
+    None at its end)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "improving_learned_index_tpu_torch.cli.serve", *args],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    found = queue.Queue()
+
+    def pump():
+        with open(log_path, "w") as log_file:
+            for line in proc.stdout:
+                log_file.write(line)
+                log_file.flush()
+                if line.startswith("card memory: "):
+                    found.put(line[len("card memory: "):].strip())
+                if line.startswith("serving ") and " on " in line:
+                    found.put(int(line.rsplit(":", 1)[1]))
+        found.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return proc, found
+
+
+def daemon_port(proc, found, log_path: Path, timeout: float = 600.0) -> tuple:
+    """(port, its ``card memory`` line or None) once the daemon serves."""
+    memory, port = None, None
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            item = found.get(timeout=max(deadline - time.perf_counter(), 0.001))
+        except queue.Empty:
+            item = None
+        if isinstance(item, str):
+            memory = item
+            continue
+        port = item
+        break
+    if port is None:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"cli.serve never came up:\n{log_path.read_text()[-3000:]}")
+    return port, memory
+
+
+def request(port: int, req: dict, timeout: float = 120.0) -> dict:
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as sock:
+        sock.sendall((json.dumps(req) + "\n").encode())
+        return json.loads(sock.makefile("rb").readline())
+
+
+def stream_queries(port: int, qids: list, qtext: list, clients: int, k: int, on_answer=None) -> dict:
+    """``clients`` connections, each sending single ``{"id", "query", "k"}``
+    requests and waiting for each answer (closed loop) from a shared list of
+    query ids.  Returns {qid: [answers]}, per-request latencies (ms), each
+    answer's ``perf_counter`` time, the start time and the wall seconds."""
+    todo = queue.Queue()
+    for qi in qids:
+        todo.put(qi)
+    answers, lat, done_at, errors = {}, [], [], []
+    lock = threading.Lock()
+
+    def client():
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=900) as sock:
+                f = sock.makefile("rb")
+                while True:
+                    try:
+                        qi = todo.get_nowait()
+                    except queue.Empty:
+                        return
+                    t0 = time.perf_counter()
+                    sock.sendall((json.dumps({"id": qi, "query": qtext[qi], "k": k}) + "\n").encode())
+                    resp = json.loads(f.readline())
+                    t1 = time.perf_counter()
+                    with lock:
+                        answers.setdefault(resp.get("id"), []).append(resp)
+                        lat.append((t1 - t0) * 1e3)
+                        done_at.append(t1)
+                    if on_answer is not None:
+                        on_answer()
+        except Exception as e:  # noqa: BLE001 -- reported below
+            with lock:
+                errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=1800)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"query clients failed: {errors[:3]}")
+    return {"answers": answers, "latency_ms": lat, "done_at": done_at, "t0": t0, "wall_s": wall}
+
+
+def latency_summary(stream: dict, n: int) -> dict:
+    lat = np.asarray(stream["latency_ms"])
+    return {"queries": n, "qps": n / stream["wall_s"], "wall_s": stream["wall_s"],
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+# a served batch's breakdown: the first 64 queries in batches of 8, the
+# size 8 closed-loop connections give the daemons
+BREAKDOWN_QUERIES, BREAKDOWN_BATCH = 64, 8
+
+
+def served_batch_rows(engine, sets: list, what: str) -> list:
+    """The three query kernels against their plain versions on a served
+    batch of 8 (the first ``BREAKDOWN_BATCH`` queries, un-padded, as the
+    daemons' batch threads stage them) on ``engine``, exactly as phase 3
+    holds them on its batch of 64."""
+    heavy, tail = engine.stage_inputs(sets[:BREAKDOWN_BATCH])
+    if heavy is None or tail is None:
+        raise AssertionError(f"{what}: the served batch must reach both stages")
+    nq = min(len(sets), BREAKDOWN_BATCH)
+    g_row, base = gather_row(engine, heavy, nq)
+    s_row, scores = scatter_row(engine, base, tail)
+    del base, heavy, tail
+    c_row = count_row(scores)
+    del scores
+    rows = [g_row, s_row, c_row]
+    log(f"{what}: a served batch of {nq}, n_pad {engine.n_pad}: gather_rows, scatter_scores and count_ge "
+        f"equal to plain; " + json.dumps({r["name"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                                                    "max_abs_err": r["max_abs_err"], "shape": r["shape"]}
+                                         for r in rows}))
+    return rows
+
+
+def daemon_breakdown(engine, tok, qtext: list, k: int) -> dict:
+    """Where a served batch's time goes in one daemon, each layer timed
+    alone over the first 64 queries in batches of 8: tokenize, the
+    engine's ``score_batch`` (host prep, the kernels, the top-k and its
+    syncs, the result copy) with its device busy share, and the JSON of
+    the answers (the server's own ``answer`` and ``encode``).  The rest of
+    a request's latency is the socket, the queue and the micro-batch
+    wait."""
+    from improving_learned_index_tpu_torch.serve.server import answer, encode
+
+    texts = qtext[:BREAKDOWN_QUERIES]
+    t0 = time.perf_counter()
+    sets = [tok.process_query(q) for q in texts]
+    tokenize = time.perf_counter() - t0
+    batches = [sets[i : i + BREAKDOWN_BATCH] for i in range(0, len(sets), BREAKDOWN_BATCH)]
+    engine.score_batch(batches[0], k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = [r for b in batches for r in engine.score_batch(b, k)]
+    score = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for qi, r in enumerate(rows):
+        encode(answer(qi, r, k))
+    dumps = time.perf_counter() - t0
+    prof = profile_window(lambda: [engine.score_batch(b, k) for b in batches[:4]])
+    per = 1e3 / len(batches)
+    return {"batch": BREAKDOWN_BATCH, "tokenize_ms": tokenize * per, "score_batch_ms": score * per,
+            "json_dumps_ms": dumps * per, "device_ms": prof["device_ms"] / 4,
+            "device_busy_share": prof["device_busy_share"],
+            "top_kernels": [(t["kernel"][:60], round(t["share"], 3)) for t in prof["top_kernels"][:5]]}
+
+
+def router_breakdown(spec: str, sets: list, k: int) -> dict:
+    """The router's layers for a batch of 8, from this process against the
+    live shard daemons: one shard's round trip alone (its queue, engine and
+    JSON, the socket, this side's parse), the four at once with the merge,
+    and the merge alone (the router's own ``merge`` of 4 x k rows a
+    query)."""
+    from improving_learned_index_tpu_torch.serve.router import RemoteShardedEngine, merge
+    from improving_learned_index_tpu_torch.serve.server import answer, encode
+
+    router = RemoteShardedEngine(spec, shard_timeout=120.0)
+    try:
+        batches = [sets[i : i + BREAKDOWN_BATCH] for i in range(0, len(sets), BREAKDOWN_BATCH)]
+        router.score_batch(batches[0], k)
+        t0 = time.perf_counter()
+        parts = [router.shards[0].score_batch(b, k) for b in batches]
+        one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for b in batches:
+            router.score_batch(b, k)
+        fanout = time.perf_counter() - t0
+        per_shard = [[s.score_batch(b, k) for s in router.shards] for b in batches[:2]]
+        t0 = time.perf_counter()
+        for shard_rows in per_shard:
+            merge(shard_rows, k)
+        merge_s = (time.perf_counter() - t0) / len(per_shard)
+        t0 = time.perf_counter()
+        for p in parts:
+            for qi, r in enumerate(p):
+                json.loads(encode(answer(qi, r, k)))
+        loads = time.perf_counter() - t0
+    finally:
+        router.close()
+    per = 1e3 / len(batches)
+    return {"batch": BREAKDOWN_BATCH, "one_shard_round_trip_ms": one * per, "four_shards_and_merge_ms": fanout * per,
+            "merge_ms": merge_s * 1e3, "json_loads_one_shard_ms": loads * per}
+
+
+def as_rows(resp: dict) -> list:
+    if "error" in resp or "degraded" in resp:
+        raise AssertionError(f"query {resp.get('id')}: {resp}")
+    return [(str(int(d)), float(s)) for d, s in resp["results"]]
+
+
+def run_lifecycle(cfg, workdir: Path, inputs) -> dict:
+    """Phase 12: the index algebra and serving on phase 3's index."""
+    from improving_learned_index_tpu_torch.cli.filter_index import main as filter_main
+    from improving_learned_index_tpu_torch.cli.merge_indexes import main as merge_main
+    from improving_learned_index_tpu_torch.cli.rank import main as rank_main
+    from improving_learned_index_tpu_torch.cli.split_index import main as split_main
+    from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
+    from improving_learned_index_tpu_torch.search.select import build_engine
+    from improving_learned_index_tpu_torch.serve import RetrievalServer
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    log("== phase 12: index algebra (split, merge, filter) and serving on phase 3's index")
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    dev = torch.device(cfg.device)
+    n_docs, n_queries, k = SMOKE.docs, len(inputs.qtext), cfg.k
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    # 1-2. split into shards, merge them back
+    shards = workdir / "shards"
+    timed("split", lambda: split_main(["-i", str(inputs.index_dir), "-o", str(shards), "--n_shards",
+                                       str(cfg.shards), "--num_docs", str(n_docs)]))
+    manifest = json.loads((shards / "shards.json").read_text())
+    if [set(m) for m in manifest] != [{"path", "num_docs", "doc_offset"}] * cfg.shards \
+            or sum(m["num_docs"] for m in manifest) != n_docs:
+        raise AssertionError(f"bad manifest {manifest}")
+    merged = workdir / "merged"
+    timed("merge", lambda: merge_main(["-i", *(str(shards / m["path"]) for m in manifest), "-o", str(merged),
+                                       "--num_docs", *(str(m["num_docs"]) for m in manifest)]))
+    same_index_files(merged, inputs.index_dir, "merged shards vs phase 3's index")
+    shutil.rmtree(merged)
+    log(f"split into {cfg.shards} ({[m['num_docs'] for m in manifest]} docs) in {seconds['split']:.1f} s; "
+        f"merged back in {seconds['merge']:.1f} s, byte-equal to phase 3's index")
+
+    # 3. delete the first 64 queries' planted docs plus 1% of the docs
+    rng = np.random.default_rng(cfg.seed)
+    planted = [int(inputs.planted[qi]) for qi in range(cfg.planted_deletes)]
+    deleted = np.union1d(rng.choice(n_docs, int(cfg.delete_share * n_docs), replace=False), planted)
+    (workdir / "deleted.txt").write_text("".join(f"{x}\n" for x in deleted.tolist()))
+    filtered = workdir / "filtered"
+    timed("filter", lambda: filter_main(["-i", str(inputs.index_dir), "-o", str(filtered), "--delete_ids_path",
+                                         str(workdir / "deleted.txt"), "--num_docs", str(n_docs)]))
+    run_f = workdir / "run_filtered.tsv"
+    timed("rank_filtered", lambda: rank_main([
+        "--index_path", str(filtered), "--queries_path", str(inputs.qpath), "--output_path", str(run_f),
+        "--vocab_path", str(inputs.vocab), "--top_k", str(k), "--device", cfg.device]))
+    keep = np.ones(n_docs, bool)
+    keep[deleted] = False
+    old_id = np.flatnonzero(keep)  # filtered id -> phase 3 id
+    ranked_f = {}
+    for line in run_f.read_text().splitlines():
+        qid, pid, _, score = line.split("\t")
+        ranked_f.setdefault(qid, []).append((pid, float(score)))
+    for qi in range(n_queries):
+        got = [(str(int(old_id[int(p)])), sc) for p, sc in ranked_f.get(str(qi), [])]
+        want = [(p, sc) for p, sc in inputs.ranked[str(qi)] if keep[int(p)]]
+        if got[: len(want)] != want:
+            raise AssertionError(f"filtered query {qi}: rows do not begin with phase 4's rows less the deleted")
+        if qi < cfg.planted_deletes and str(planted[qi]) in {p for p, _ in got}:
+            raise AssertionError(f"filtered query {qi}: its deleted planted doc came back")
+    fidx = InvertedIndexData.load(filtered, num_docs=n_docs - len(deleted))
+    tid = {t: i for i, t in enumerate(fidx.vocab)}
+    for qi in rng.choice(n_queries, 4, replace=False).tolist() + [0]:
+        terms = inputs.qtext[qi].split()
+        want = numpy_topk(fidx.offsets, fidx.doc_ids, fidx.impacts, fidx.num_docs,
+                          [tid[t] for t in terms if t in tid], k)
+        if ranked_f.get(str(qi), []) != want:
+            raise AssertionError(f"filtered query {qi}: run file differs from the numpy scorer")
+    del fidx
+    log(f"filter: {len(deleted)} docs deleted in {seconds['filter']:.1f} s; cli.rank over the filtered index "
+        f"in {seconds['rank_filtered']:.1f} s: every query's rows begin with phase 4's less the deleted docs, "
+        f"no planted doc of the first {cfg.planted_deletes} queries returns, 5 queries equal the numpy scorer")
+
+    tok = ImpactTokenizer(WordPieceVocab.load(inputs.vocab))
+    term_sets = [tok.process_query(q) for q in inputs.qtext[:BREAKDOWN_QUERIES]]
+
+    # 4. the shard tier: one cli.serve process per shard, and a router;
+    # this process hands its cached blocks back to the card first
+    torch.cuda.empty_cache()
+    log(f"this process before the daemons: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    procs, logs = [], workdir / "daemon_logs"
+    logs.mkdir()
+    tier = {}
+    try:
+        t0 = time.perf_counter()
+        spawned = [spawn_daemon(["--index_path", str(shards / m["path"]), "--num_docs", str(m["num_docs"]),
+                                 "--port", "0", "--top_k", str(k), "--device", cfg.device,
+                                 "--dense_budget_gb", str(SMOKE.dense_budget_gb), "--allow_remote_shutdown"],
+                                logs / f"shard{i}.log") for i, m in enumerate(manifest)]
+        shard_memory = []
+        for i, (proc, found) in enumerate(spawned):
+            port, memory = daemon_port(proc, found, logs / f"shard{i}.log")
+            procs.append((proc, port))
+            shard_memory.append(memory)
+        seconds["shards_up"] = time.perf_counter() - t0
+        spec = ",".join(f"127.0.0.1:{port}:{m['doc_offset']}" for (_, port), m in zip(procs, manifest))
+        t0 = time.perf_counter()
+        proc, found = spawn_daemon(["--shards", spec, "--vocab_path", str(inputs.vocab), "--port", "0",
+                                    "--top_k", str(k), "--allow_remote_shutdown"], logs / "router.log")
+        router = (proc, daemon_port(proc, found, logs / "router.log")[0])
+        procs.insert(0, router)
+        seconds["router_up"] = time.perf_counter() - t0
+        stream = timed("shard_tier_queries", lambda: stream_queries(
+            router[1], list(range(n_queries)), inputs.qtext, cfg.clients, k))
+        for qi in range(n_queries):
+            got = stream["answers"].get(qi, [])
+            if len(got) != 1 or as_rows(got[0]) != inputs.ranked[str(qi)]:
+                raise AssertionError(f"router query {qi}: the answer differs from phase 4's run file")
+        tier = latency_summary(stream, n_queries)
+        # each daemon's own torch counters after its warmup (nvidia-smi
+        # inside a container may not attribute memory to these processes),
+        # and the card's whole use with every daemon up, CUDA contexts included
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip() if shutil.which("nvidia-smi") else ""
+        apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                              capture_output=True, text=True).stdout.strip() if shutil.which("nvidia-smi") else ""
+        tier["card_memory_used"] = smi or "not measured"
+        tier["compute_apps"] = apps.splitlines()
+        tier["shards"] = []
+        for (proc, port), m, memory in zip(procs[1:], manifest, shard_memory):
+            st = request(port, {"op": "stats"})
+            # the shard's queries include the router's warmup batch
+            tier["shards"].append({"docs": m["num_docs"], "batches": st["batches"], "queries": st["queries"],
+                                   "mean_batch": st["queries"] / max(st["batches"], 1),
+                                   "card_memory": memory or "not printed"})
+        tier["router_stats"] = request(router[1], {"op": "stats"})
+        tier["breakdown"] = router_breakdown(spec, term_sets, k)
+        for proc, port in procs:
+            if request(port, {"op": "shutdown"}) != {"op": "bye"}:
+                raise AssertionError(f"daemon on port {port} refused the shutdown")
+            if proc.wait(timeout=120) != 0:
+                raise AssertionError(f"daemon on port {port} exited {proc.returncode}")
+        log(f"shard tier (4 cli.serve shard processes and a router on ONE card, standing in for four "
+            f"hosts): {n_queries} queries over {cfg.clients} connections, k={k}, every answer equal to "
+            f"phase 4's rows; {json.dumps(tier)}")
+        log("the shard daemons' kernel launches happen in their own processes: this process cannot count them")
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # the kernels at a shard daemon's shape: shard 0's engine as cli.serve
+    # builds it, on a served batch of 8
+    budget = int(SMOKE.dense_budget_gb * (1 << 30))
+    shard_engine = build_engine(shards / manifest[0]["path"], dense_budget_bytes=budget, device=dev,
+                                num_docs=manifest[0]["num_docs"])
+    checks = {f"shard 0 engine ({manifest[0]['num_docs']} docs)":
+              served_batch_rows(shard_engine, term_sets, "shard 0's engine")}
+    del shard_engine
+
+    # 5. one daemon in process, a staged hot swap to the filtered index midway
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = timed("engine_build", lambda: build_engine(inputs.index_dir, dense_budget_bytes=budget, device=dev))
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() - base
+    engine.warmup(max_batch=64, top_k=k)
+    torch.cuda.synchronize()
+    steady = torch.cuda.memory_allocated() - base
+    srv = RetrievalServer(engine, tokenizer=tok, top_k=k, max_batch=64, max_wait_ms=5.0)
+    del engine  # the server holds the only reference: the staged swap frees it
+    srv.start()
+    try:
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        answered = threading.Semaphore(0)
+        swap = {}
+
+        def do_swap():
+            for _ in range(n_queries // 2):
+                answered.acquire()
+            torch.cuda.synchronize()
+            swap["serve_peak"] = torch.cuda.max_memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            swap["t0"] = time.perf_counter()
+            srv.swap_engine_staged(lambda: build_engine(filtered, dense_budget_bytes=budget, device=dev,
+                                                        num_docs=n_docs - len(deleted)))
+            torch.cuda.synchronize()
+            swap["t1"] = time.perf_counter()
+            swap["s"] = swap["t1"] - swap["t0"]
+            swap["peak"] = torch.cuda.max_memory_allocated() - base
+
+        swapper = threading.Thread(target=do_swap, daemon=True)
+        swapper.start()
+        stream = timed("swap_queries", lambda: stream_queries(
+            srv.port, list(range(n_queries)), inputs.qtext, cfg.clients, k, on_answer=answered.release))
+        swapper.join(timeout=900)
+        if "peak" not in swap:
+            raise AssertionError("the staged swap did not finish")
+        launches = {kern.name: kern.launches for kern in kernels}
+        counts = {"old": 0, "new": 0}
+        for qi in range(n_queries):
+            got = stream["answers"].get(qi, [])
+            if len(got) != 1:
+                raise AssertionError(f"hot swap: query {qi} answered {len(got)} times")
+            rows = as_rows(got[0])
+            if rows == inputs.ranked[str(qi)]:
+                counts["old"] += 1
+            elif rows == ranked_f.get(str(qi), []):
+                counts["new"] += 1
+            else:
+                raise AssertionError(f"hot swap: query {qi} equals neither phase 4's nor the filtered rows")
+        again = stream_queries(srv.port, list(range(cfg.planted_deletes)), inputs.qtext, cfg.clients, k)
+        for qi in range(cfg.planted_deletes):
+            if as_rows(again["answers"][qi][0]) != ranked_f.get(str(qi), []):
+                raise AssertionError(f"after the swap query {qi} differs from the filtered rows")
+        breakdown = daemon_breakdown(srv.engine, tok, inputs.qtext, k)
+        checks["RetrievalServer engine after the swap"] = served_batch_rows(
+            srv.engine, term_sets, "the in-process server's engine")
+    finally:
+        srv.stop()
+    for name in ("gather_rows", "scatter_scores", "count_ge"):
+        if launches[name] == 0:
+            raise AssertionError(f"RetrievalServer never launched {name}")
+    limit = max(build_peak, swap["serve_peak"])
+    memory = {"steady_gb": steady / 1e9, "build_peak_gb": build_peak / 1e9,
+              "build_transient_gb": (build_peak - steady) / 1e9, "serve_peak_gb": swap["serve_peak"] / 1e9,
+              "swap_peak_gb": swap["peak"] / 1e9, "two_engines_gb": 2 * steady / 1e9}
+    if swap["peak"] > limit:
+        raise AssertionError(f"staged swap peak {memory} above one engine's build or serving peak")
+    served = latency_summary(stream, n_queries)
+    # the rate before the swap began (answers up to it over the time to
+    # it) and after it returned (answers after it over the time from it to
+    # the last answer); answers given while it ran count in neither
+    done = np.asarray(stream["done_at"])
+    before, after = done[done <= swap["t0"]], done[done > swap["t1"]]
+    served["before_swap"] = {"answers": len(before), "qps": len(before) / (swap["t0"] - stream["t0"])}
+    served["after_swap"] = {"answers": len(after),
+                            "qps": len(after) / (done.max() - swap["t1"]) if len(after) else None}
+    log(f"in-process RetrievalServer with a staged swap to the filtered index after {n_queries // 2} answers: "
+        f"every query answered once, {counts['old']} by phase 4's rows, {counts['new']} by the filtered rows; "
+        f"the first {cfg.planted_deletes} again equal the filtered rows; swap {swap['s']:.1f} s; memory "
+        f"{json.dumps(memory)}; launches {launches}; {json.dumps(served)}")
+    torch.cuda.empty_cache()
+    log(f"a served batch of {BREAKDOWN_BATCH} queries, by layer: {json.dumps(breakdown)}")
+    out = {"seconds": seconds, "shard_tier": tier, "hot_swap": dict(served, counts=counts, swap_s=swap["s"],
+           memory=memory, breakdown=breakdown), "deleted": len(deleted), "launches": launches,
+           "served_batch_kernels": checks,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 12 in {out['phase_s']:.1f} s; seconds {json.dumps(seconds)}")
+    return out
+
+
 def main() -> int:
     log("== phase 1: environment")
     if shutil.which("nvidia-smi"):
@@ -2269,12 +2939,15 @@ def main() -> int:
         return 1
 
     build_kernels()
-    query = run_query(SMOKE)
-    torch.cuda.empty_cache()
-    workdir = Path(ENCODE.workdir)
-    shutil.rmtree(workdir, ignore_errors=True)
-    workdir.mkdir(parents=True)
+    # phase 3's work directory (index, vocabulary, queries, phase 4's run
+    # file) lives until phase 12; the encode one until phase 11
+    qdir, workdir = Path(SMOKE.workdir), Path(ENCODE.workdir)
+    for d in (qdir, workdir):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
     try:
+        query = run_query(SMOKE, qdir)
+        torch.cuda.empty_cache()
         encode = run_encode(ENCODE, workdir)
         torch.cuda.empty_cache()
         train = run_train(TRAIN, workdir, encode.pop("passages"))
@@ -2283,27 +2956,40 @@ def main() -> int:
                               train.pop("train_args"))
         torch.cuda.empty_cache()
         rerank = run_rerank(RERANK, workdir, workdir / "ckpt" / "DeepImpact_final.pt")
-    finally:
+        torch.cuda.empty_cache()
+        store = run_store(STORE, workdir, encode["errors"]["tolerance"])
         shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        lifecycle = run_lifecycle(LIFECYCLE, qdir, query.pop("inputs"))
+    finally:
+        for d in (qdir, workdir):
+            shutil.rmtree(d, ignore_errors=True)
     g_row, s_row, c_row, b_row = query["kernels"]
     nano_beir, train_eval = evaluation["main_path"]["launches"], evaluation["train_eval"]["launches"]
     a_row = encode["row"]
     a_row["launches_by_path"] = {"cli.index": a_row["launches"], "cli.train": train["launches"],
                                  "cli.nano_beir": nano_beir["short_attention"],
                                  "cli.train with eval": train_eval["short_attention"],
-                                 **rerank.pop("launches")}
+                                 **rerank.pop("launches"), **store["launches"]}
+    served = lifecycle["launches"]
     s_row["launches_by_path"] = {"cli.rank": s_row["launches"], "cli.nano_beir": nano_beir["scatter_scores"],
-                                 "cli.train with eval": train_eval["scatter_scores"]}
+                                 "cli.train with eval": train_eval["scatter_scores"],
+                                 "RetrievalServer (in-process)": served["scatter_scores"]}
     # phase 9's gather launches are all the fp32 instance (float rows)
     g_row["launches_by_path"] = {"cli.rank": g_row["launches"],
-                                 "cli.nano_beir (fp32 rows)": nano_beir["gather_rows"]}
-    for row in (a_row, s_row, g_row):
+                                 "cli.nano_beir (fp32 rows)": nano_beir["gather_rows"],
+                                 "RetrievalServer (in-process)": served["gather_rows"]}
+    c_row["launches_by_path"] = {"cli.rank": c_row["launches"],
+                                 "RetrievalServer (in-process)": served["count_ge"]}
+    for row in (a_row, s_row, g_row, c_row):
         row["launches"] = sum(row["launches_by_path"].values())
     log(json.dumps({"query": {k: v for k, v in query.items() if k != "kernels"}}))
     log(json.dumps({"encode": {k: v for k, v in encode.items() if k != "row"}}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "profile"}}))
     log(json.dumps({"eval": evaluation}))
     log(json.dumps({"rerank": rerank}))
+    log(json.dumps({"store": store}))
+    log(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -32,8 +32,8 @@ MODEL_KINDS = {
 }
 
 
-def add_tokenizer_args(parser: argparse.ArgumentParser) -> None:
-    parser.add_argument("--vocab_path", type=Path, required=True,
+def add_tokenizer_args(parser: argparse.ArgumentParser, required: bool = True) -> None:
+    parser.add_argument("--vocab_path", type=Path, required=required,
                         help="WordPiece vocab.txt for the built-in tokenizer")
     parser.add_argument("--max_length", type=int, default=None)
 

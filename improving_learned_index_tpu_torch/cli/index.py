@@ -3,7 +3,12 @@
 
     python -m improving_learned_index_tpu_torch.cli.index \\
         --collection_path collection.tsv --output_file_path collection.index \\
-        --vocab_path vocab.txt --max_length 256 [--pack] [--device cpu]
+        --vocab_path vocab.txt --max_length 256 [--pack] [--device cpu] \\
+        [--store_path collection.store] [--resume]
+
+``--store_path`` writes the binary impact store (index/impact_store.py)
+beside or instead of the text forward index; ``cli.quantize`` and
+``cli.invert`` take it as their input.
 
 The short-attention kernel runs at ``--max_length`` 128 or 256 (the default
 is 512, where the plain attention route runs, as in the JAX package).
@@ -30,12 +35,13 @@ def main(argv=None) -> int:
     parser.add_argument("--output_file_path", type=Path, default=None,
                         help="reference-format text forward index")
     parser.add_argument("--store_path", type=Path, default=None,
-                        help="binary impact store directory (not ported yet)")
+                        help="binary impact store directory (array fast path "
+                        "for the quantize/invert stages)")
     parser.add_argument("--model_batch_size", type=int, default=32)
     parser.add_argument("--max_terms", type=int, default=None)
     parser.add_argument("--resume", action="store_true",
-                        help="continue a run killed mid-encode: the output is "
-                        "repaired to the last complete document and "
+                        help="continue a run killed mid-encode: outputs are "
+                        "repaired to the last consistent document and "
                         "encoding restarts there")
     parser.add_argument("--pack", action="store_true",
                         help="sequence packing: several short documents per "
@@ -44,8 +50,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.output_file_path is None and args.store_path is None:
         parser.error("need --output_file_path and/or --store_path")
-    if args.store_path is not None:
-        raise NotImplementedError("--store_path (the binary impact store) is not ported yet")
 
     model = build_model(args)
     max_length = args.max_length or model.max_length
@@ -59,9 +63,11 @@ def main(argv=None) -> int:
         args.collection_path,
         args.output_file_path,
         args.collection_type,
+        store_path=args.store_path,
         resume=args.resume,
     )
-    print(f"indexed {n} documents -> {args.output_file_path}")
+    dest = " + ".join(str(p) for p in (args.output_file_path, args.store_path) if p)
+    print(f"indexed {n} documents -> {dest}")
     return 0
 
 

@@ -8,9 +8,9 @@ dispatched before batch i's scores are read, so the device->host copy and
 the device's compute overlap the next step.  Packed and unpacked routes,
 and the pairwise route: a ``DeepPairwiseImpact`` model encodes through its
 own ``get_impact_scores_batch`` in batches of ``model_batch_size``, so its
-``term1|term2`` composite postings reach the forward index.
-
-Not ported yet: the binary impact store (``store_path``).
+``term1|term2`` composite postings reach the forward index.  The output is
+the reference text forward index, the binary impact store
+(index/impact_store.py), or both.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import os
 import threading
 import time
 from collections import deque
+from contextlib import nullcontext
 from itertools import islice
 from pathlib import Path
 from queue import Queue
@@ -32,6 +33,7 @@ from ..data.datasets import stream_collection
 from ..text.packing import SequencePacker
 from ..text.processor import DocumentEncoding
 from .forward_index import format_line
+from .impact_store import ImpactStoreWriter
 from .inverted import InvertedIndexData
 
 logger = get_logger("indexer")
@@ -233,16 +235,38 @@ class Indexer:
         store_path: Optional[PathLike] = None,
         resume: bool = False,
     ) -> int:
-        """Encode the collection to a text forward index ("term: score"
-        lines, the reference format).  ``resume=True`` continues a run
-        killed mid-encode: a torn final line is truncated and encoding
-        restarts at the first missing document.  Returns the total number
-        of documents in the output."""
+        """Encode the collection to a forward index.  ``output_file_path``
+        writes the reference text format ("term: score" lines);
+        ``store_path`` writes the binary impact store that the
+        quantize/invert stages consume at array speed; either or both.
+
+        ``resume=True`` continues a run killed mid-encode: both outputs are
+        repaired to their last consistent document (torn tail lines and
+        flushes truncated, dual outputs synced to the shorter one) and
+        encoding restarts there.  Returns the total number of documents in
+        the output(s)."""
+        if output_file_path is None and store_path is None:
+            raise ValueError("need output_file_path and/or store_path")
+        done = 0
+        store = None
         if store_path is not None:
-            raise NotImplementedError("the binary impact store (store_path) is not ported yet")
-        if output_file_path is None:
-            raise ValueError("need output_file_path")
-        done = _repair_text_forward(output_file_path) if resume else 0
+            if self.config.round_decimals != 3:
+                # the store encodes impacts as round(v, 3) integer millis; a
+                # different text rounding would desynchronize the two outputs
+                raise ValueError(
+                    "store_path requires round_decimals=3 (the store's "
+                    f"integer-milli encoding); got {self.config.round_decimals}"
+                )
+            store = ImpactStoreWriter(store_path, resume=resume)
+            done = store.resume_docs
+        if output_file_path is not None:
+            done_text = _repair_text_forward(output_file_path) if resume else 0
+            if store is not None and done_text != done:
+                done = min(done, done_text)
+                store.truncate_to(done)
+                _truncate_text_forward(output_file_path, done)
+            else:
+                done = done_text
         if done:
             logger.info(f"resuming at document {done}")
 
@@ -250,15 +274,23 @@ class Indexer:
         count = 0
         docs = (passage for _, passage in stream_collection(collection_path, collection_type))
         docs = islice(docs, done, None) if done else docs
-        with open(output_file_path, "a" if resume else "w", encoding="utf-8") as out:
+        out_cm = (
+            open(output_file_path, "a" if resume else "w", encoding="utf-8")
+            if output_file_path is not None
+            else nullcontext(None)
+        )
+        with out_cm as out, (store if store is not None else nullcontext()):
             for doc_terms, row in self.encode_document_rows(docs):
-                out.write(
-                    format_line(
-                        [(t, float(row[j])) for j, t in enumerate(doc_terms)],
-                        self.config.round_decimals,
+                if out is not None:
+                    out.write(
+                        format_line(
+                            [(t, float(row[j])) for j, t in enumerate(doc_terms)],
+                            self.config.round_decimals,
+                        )
+                        + "\n"
                     )
-                    + "\n"
-                )
+                if store is not None:
+                    store.add_doc_row(doc_terms, row)
                 count += 1
                 if count % log_every == 0:
                     rate = count / (time.time() - start)

@@ -1,11 +1,12 @@
 """Inverted index: CSR postings + reference-compatible binary serialization.
 
-The port's copy of ``improving_learned_index_tpu/index/inverted.py`` for the
-query and encode paths: the constructor, ``save``/``load``, the
-duplicate-posting merge, and the build from (doc, {term: impact}) pairs or a
-quantized forward-index file (``build``, ``from_forward_index``).  The
-binary impact-store route (``from_impact_store``) and the index algebra
-(``merge``, ``filter_docs``, ``split_docs``) are not ported yet.
+The port's copy of ``improving_learned_index_tpu/index/inverted.py``: the
+constructor, ``save``/``load``, the duplicate-posting merge, the build from
+(doc, {term: impact}) pairs, a quantized forward-index file or a quantized
+binary impact store (``build``, ``from_forward_index``,
+``from_impact_store``), and the index algebra (``merge``, ``filter_docs``,
+``delete_docs``, ``split_docs``).  Every route writes the JAX package's
+bytes on ``save``.
 
 In memory the index is three flat numpy arrays (CSR layout) — what the
 query engine uploads to the card once:
@@ -24,7 +25,7 @@ little-endian uint32 doc_id + uint8 impact records), ``inverted_index.idx``
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -78,6 +79,16 @@ def _slice_pairs(n, key_arr, data_arrs, chunk=_SCATTER_CHUNK):
     for s in range(0, n, chunk):
         e = min(s + chunk, n)
         yield key_arr[s:e], tuple(a[s:e] for a in data_arrs)
+
+
+def _consume_chunks(chunks):
+    """Yield posting chunks, releasing list entries as they are consumed
+    (a popped chunk's arrays free once copied); iterators pass through."""
+    if isinstance(chunks, list):
+        while chunks:
+            yield chunks.pop(0)
+    else:
+        yield from chunks
 
 
 def _combined_key(tid_sorted, cv):
@@ -252,14 +263,27 @@ class InvertedIndexData:
     def _finalize(
         cls,
         terms: List[str],
-        chunks: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        chunks,
         num_docs: int,
         max_doc: int,
+        compact: bool = False,
+        total: Optional[int] = None,
         check_dups: bool = False,
     ) -> "InvertedIndexData":
         """CSR construction from typed posting chunks (tid int32 in
-        insertion order, doc uint32, impact uint8); the list's entries are
-        freed as they are consumed.
+        insertion order, doc uint32, impact uint8).
+
+        ``chunks`` is a list (entries freed as they are consumed), an
+        iterator (with ``total`` giving the posting count up front), or a
+        zero-arg callable returning a fresh chunk iterator: the streaming
+        mode of ``from_impact_store``, where the source is read twice (once
+        to count, once to scatter) and no input posting column is ever
+        materialized whole.
+
+        ``compact=True`` drops vocab entries with no postings (a caller's
+        possibly-superset vocab, e.g. a quantized impact store's); empty
+        terms occupy no keys, so that is a counts/vocab subset after the
+        counting, no extra pass over the postings.
 
         The (term asc, impact desc, doc asc) order comes from stable
         counting-scatter passes: ONE pass on the combined key
@@ -275,7 +299,13 @@ class InvertedIndexData:
         remap = np.empty(max(len(terms), 1), dtype=tid_dtype)
         remap[order] = np.arange(len(terms), dtype=tid_dtype)
 
-        n = sum(len(c[0]) for c in chunks)
+        streaming = callable(chunks)
+        if total is None:
+            if streaming:
+                raise ValueError("streaming chunks need an explicit total")
+            chunks = list(chunks)
+            total = sum(len(c[0]) for c in chunks)
+        n = total
         combined = 0 < nvocab <= (1 << 17)
         nz_counts = np.zeros(nvocab, np.int64)
         z_counts = np.zeros(nvocab, np.int64)
@@ -283,34 +313,51 @@ class InvertedIndexData:
         imp_counts = np.zeros(256, np.int64)
         has_zeros = False
 
-        tid_in = np.empty(n, tid_dtype)
-        doc_in = np.empty(n, np.uint32)
-        val_in = np.empty(n, np.uint8)
-        at = 0
-        while chunks:
-            ct, cd, cv = chunks.pop(0)
-            m = len(ct)
-            tid_sorted = remap[np.asarray(ct)]
-            cv = np.asarray(cv, dtype=np.uint8)
-            tid_in[at : at + m] = tid_sorted
-            doc_in[at : at + m] = cd
-            val_in[at : at + m] = cv
+        def count_chunk(tid_sorted, cv):
+            nonlocal has_zeros
             if (cv == 0).any():
                 has_zeros = True
-                nz_counts += np.bincount(tid_sorted[cv > 0], minlength=nvocab)
-                z_counts += np.bincount(tid_sorted[cv == 0], minlength=nvocab)
+                nz_counts[:] += np.bincount(tid_sorted[cv > 0], minlength=nvocab)
+                z_counts[:] += np.bincount(tid_sorted[cv == 0], minlength=nvocab)
             else:
-                nz_counts += np.bincount(tid_sorted, minlength=nvocab)
+                nz_counts[:] += np.bincount(tid_sorted, minlength=nvocab)
             if combined:
-                key_counts += np.bincount(_combined_key(tid_sorted, cv), minlength=nvocab * 256)
+                key_counts[:] += np.bincount(_combined_key(tid_sorted, cv), minlength=nvocab * 256)
             else:
-                imp_counts += np.bincount(cv, minlength=256)
-            at += m
+                imp_counts[:] += np.bincount(cv, minlength=256)
 
-        def src():
-            for s in range(0, n, _SCATTER_CHUNK):
-                e = min(s + _SCATTER_CHUNK, n)
-                yield tid_in[s:e], doc_in[s:e], val_in[s:e]
+        if streaming:
+            at = 0
+            for ct, _, cv in chunks():
+                cv = np.asarray(cv)
+                count_chunk(remap[np.asarray(ct)], cv)
+                at += len(cv)
+            if at != n:
+                raise ValueError(f"chunk total {at} != declared total {n}")
+
+            def src():
+                for ct, cd, cv in chunks():
+                    yield remap[np.asarray(ct)], np.asarray(cd), np.asarray(cv)
+        else:
+            tid_in = np.empty(n, tid_dtype)
+            doc_in = np.empty(n, np.uint32)
+            val_in = np.empty(n, np.uint8)
+            at = 0
+            for ct, cd, cv in _consume_chunks(chunks):
+                m = len(ct)
+                tid_sorted = remap[np.asarray(ct)]
+                tid_in[at : at + m] = tid_sorted
+                doc_in[at : at + m] = cd
+                val_in[at : at + m] = cv
+                count_chunk(tid_sorted, np.asarray(cv, dtype=np.uint8))
+                at += m
+            if at != n:
+                raise ValueError(f"chunk total {at} != declared total {n}")
+
+            def src():
+                for s in range(0, n, _SCATTER_CHUNK):
+                    e = min(s + _SCATTER_CHUNK, n)
+                    yield tid_in[s:e], doc_in[s:e], val_in[s:e]
 
         doc_arr = np.empty(n, np.uint32)
         val_arr = np.empty(n, np.uint8)
@@ -330,13 +377,22 @@ class InvertedIndexData:
                 ((255 - v, (t, d, v)) for t, d, v in src()),
                 (tid1, doc1, val1),
             )
-            del tid_in, doc_in, val_in
+            if not streaming:
+                del tid_in, doc_in, val_in
             _stable_scatter_pass(
                 nvocab, nz_counts + z_counts,
                 _slice_pairs(n, tid1, (doc1, val1)),
                 (doc_arr, val_arr),
             )
             del tid1, doc1, val1
+
+        if compact:
+            occurs = (nz_counts + z_counts) > 0
+            if not occurs.all():
+                sorted_vocab = [t for t, k in zip(sorted_vocab, occurs) if k]
+                nz_counts = nz_counts[occurs]
+                z_counts = z_counts[occurs]
+                nvocab = len(sorted_vocab)
 
         def _offsets(counts):
             out = np.zeros(nvocab + 1, dtype=np.int64)
@@ -370,6 +426,149 @@ class InvertedIndexData:
         from .forward_index import iter_forward_index
 
         return cls.build(iter_forward_index(index_path), num_docs=num_docs)
+
+    @classmethod
+    def from_impact_store(cls, store) -> "InvertedIndexData":
+        """Array-speed build from a quantized binary impact store
+        (index/impact_store.py), no text parse; byte-identical on save() to
+        the text pipeline's index for the same corpus."""
+        from .impact_store import ImpactStore
+
+        if not isinstance(store, ImpactStore):
+            store = ImpactStore(store)
+        if not store.quantized:
+            raise ValueError(
+                "from_impact_store needs a quantized store (run quantize_store "
+                "first; the inverted index holds uint8 impacts)"
+            )
+        # Doc-aligned chunks off the memory-mapped store: term ids and
+        # values are memmap slices, the doc-id column is generated per chunk.
+        offsets = np.asarray(store.offsets, dtype=np.int64)
+        n_docs = store.num_docs
+
+        def chunk_iter():
+            d0 = 0
+            while d0 < n_docs:
+                d1 = int(np.searchsorted(offsets, offsets[d0] + _SCATTER_CHUNK, side="right")) - 1
+                d1 = min(max(d1, d0 + 1), n_docs)
+                s, e = int(offsets[d0]), int(offsets[d1])
+                yield (
+                    store.term_ids[s:e],
+                    np.repeat(np.arange(d0, d1, dtype=np.uint32),
+                              np.asarray(store.counts[d0:d1], dtype=np.int64)),
+                    store.values[s:e],
+                )
+                d0 = d1
+
+        # Text-route semantics: the index vocab is the terms that OCCUR in
+        # the quantized input (quantize drops all-zero terms from the text),
+        # so compact=True drops store vocab entries with no postings.
+        return cls._finalize(
+            list(store.vocab), chunk_iter, num_docs=n_docs, max_doc=n_docs - 1,
+            compact=True, total=store.num_postings,
+        )
+
+    # -- index algebra ---------------------------------------------------------
+    @classmethod
+    def merge(
+        cls,
+        indexes: Sequence["InvertedIndexData"],
+        doc_offsets: Optional[Sequence[int]] = None,
+    ) -> "InvertedIndexData":
+        """Merge indexes built over corpus shards into one index
+        (incremental indexing: encode only the new documents, then merge).
+
+        ``doc_offsets[i]`` is added to every doc id of ``indexes[i]``
+        (default: cumulative ``num_docs``, i.e. consecutive slices).  With
+        disjoint ranges the result is byte-identical on save() to a one-shot
+        build over the concatenated corpus: within a (term, impact) group
+        shard i's ids all precede shard i+1's.  Overlapping ranges can alias
+        one (term, doc) pair across indexes; those impacts are summed,
+        saturating at 255 (``_dedupe_sum_duplicates``), and disjoint ranges
+        skip that pass."""
+        if doc_offsets is None:
+            doc_offsets = np.concatenate(
+                ([0], np.cumsum([ix.num_docs for ix in indexes])[:-1])
+            ).tolist()
+        vocab = sorted(set().union(*(ix.vocab for ix in indexes)))
+        vocab_arr = np.array(vocab)
+        chunks: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        for ix, off in zip(indexes, doc_offsets):
+            if len(ix.vocab) == 0:
+                continue
+            remap = np.searchsorted(vocab_arr, np.array(ix.vocab)).astype(np.int64)
+            tid = np.repeat(remap, np.diff(ix.offsets)).astype(np.int32)
+            chunks.append((tid, (ix.doc_ids + off).astype(np.uint32), ix.impacts))
+            n_zero = np.diff(ix.zero_offsets)
+            if n_zero.sum():
+                ztid = np.repeat(remap, n_zero).astype(np.int32)
+                chunks.append((ztid, (ix.zero_doc_ids + off).astype(np.uint32),
+                               np.zeros(len(ztid), np.uint8)))
+        if not chunks:
+            chunks.append((np.empty(0, np.int32), np.empty(0, np.uint32), np.empty(0, np.uint8)))
+        total_docs = max((off + ix.num_docs for ix, off in zip(indexes, doc_offsets)), default=0)
+        spans = sorted((off, off + ix.num_docs) for ix, off in zip(indexes, doc_offsets))
+        overlap = any(b0 < a1 for (_, a1), (b0, _) in zip(spans, spans[1:]))
+        return cls._finalize(vocab, chunks, num_docs=total_docs, max_doc=total_docs - 1,
+                             check_dups=overlap)
+
+    def filter_docs(self, keep_mask: np.ndarray) -> "InvertedIndexData":
+        """Remove documents without a corpus rebuild (dedup, takedowns,
+        re-sharding).  ``keep_mask`` is bool[num_docs]; surviving documents
+        renumber compactly and terms left with no postings drop, so the
+        result is byte-identical on save() to a one-shot build over the kept
+        corpus.  O(postings) array work."""
+        keep_mask = np.asarray(keep_mask, dtype=bool)
+        if keep_mask.shape != (self.num_docs,):
+            raise ValueError(f"mask shape {keep_mask.shape} != ({self.num_docs},)")
+        new_id = np.cumsum(keep_mask, dtype=np.int64) - 1
+        nvocab = len(self.vocab)
+
+        def _filter(offsets, doc_ids, values=None):
+            pk = keep_mask[doc_ids]
+            term_of = np.repeat(np.arange(nvocab), np.diff(offsets))
+            counts = np.bincount(term_of[pk], minlength=nvocab)
+            out = np.zeros(nvocab + 1, np.int64)
+            np.cumsum(counts, out=out[1:])
+            docs = new_id[doc_ids[pk]].astype(np.uint32)
+            return out, docs, (values[pk] if values is not None else None)
+
+        offsets, doc_ids, impacts = _filter(self.offsets, self.doc_ids, self.impacts)
+        zero_offsets, zero_doc_ids, _ = _filter(self.zero_offsets, self.zero_doc_ids)
+        occurs = (np.diff(offsets) + np.diff(zero_offsets)) > 0
+        if not occurs.all():
+            vocab = [t for t, k in zip(self.vocab, occurs) if k]
+            keep_plus = np.concatenate((np.flatnonzero(occurs), [nvocab]))
+            offsets = offsets[keep_plus]
+            zero_offsets = zero_offsets[keep_plus]
+        else:
+            vocab = list(self.vocab)
+        return InvertedIndexData(
+            vocab, offsets, doc_ids, impacts, num_docs=int(keep_mask.sum()),
+            zero_offsets=zero_offsets, zero_doc_ids=zero_doc_ids,
+        )
+
+    def delete_docs(self, doc_ids: Sequence[int]) -> "InvertedIndexData":
+        """``filter_docs`` convenience: drop the given doc ids."""
+        keep = np.ones(self.num_docs, dtype=bool)
+        keep[np.asarray(list(doc_ids), dtype=np.int64)] = False
+        return self.filter_docs(keep)
+
+    def split_docs(self, n_shards: int) -> List["InvertedIndexData"]:
+        """Split into ``n_shards`` consecutive doc-range shards (bounds from
+        ``np.linspace``) for the serving router (serve/router.py: shard i's
+        doc-id offset is the doc count of shards 0..i-1).  Inverse of
+        ``merge``: merging the shards back is byte-identical to this index.
+        Cost: one full ``filter_docs`` pass per shard."""
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        bounds = np.linspace(0, self.num_docs, n_shards + 1).astype(np.int64)
+        shards = []
+        for i in range(n_shards):
+            keep = np.zeros(self.num_docs, dtype=bool)
+            keep[bounds[i] : bounds[i + 1]] = True
+            shards.append(self.filter_docs(keep))
+        return shards
 
     # -- serialization (reference binary layout) -------------------------------
     def save(self, output_path: PathLike) -> None:

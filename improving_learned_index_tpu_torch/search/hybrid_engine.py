@@ -48,6 +48,7 @@ top-k in score order with ties in doc-id order.
 from __future__ import annotations
 
 from collections import deque
+from contextlib import nullcontext
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
@@ -386,22 +387,26 @@ class HybridSearchEngine:
         if heavy is None and tail is None:
             return lambda: [[] for _ in range(nq)]
         dev = self.device
-        if heavy is not None:
-            scores = self._accumulate_grouped(self.dense, heavy, nq)
-        else:
-            scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=dev)
-        if tail is not None:
-            scores = self._apply_tail_chunks(scores, self.doc_ids, self.impacts, *tail, TAIL_CHUNK)
-        vals, idx = _finish_topk(scores, self.num_docs, k, self.use_kernels, self.integer_scores)
-        del scores
-        # one host copy per batch: [nq, 2, k] int32 (scores bit-cast)
-        packed = torch.stack([vals.view(torch.int32), idx], dim=1)
-        if dev.type == "cuda":
-            host = packed.to("cpu", non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            host, done = packed, None
+        # the engine's own device, not the calling thread's current one (a
+        # serving daemon's batch thread calls this): the kernels launch on
+        # the current device, and the event marks the engine's stream
+        with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
+            if heavy is not None:
+                scores = self._accumulate_grouped(self.dense, heavy, nq)
+            else:
+                scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=dev)
+            if tail is not None:
+                scores = self._apply_tail_chunks(scores, self.doc_ids, self.impacts, *tail, TAIL_CHUNK)
+            vals, idx = _finish_topk(scores, self.num_docs, k, self.use_kernels, self.integer_scores)
+            del scores
+            # one host copy per batch: [nq, 2, k] int32 (scores bit-cast)
+            packed = torch.stack([vals.view(torch.int32), idx], dim=1)
+            if dev.type == "cuda":
+                host = packed.to("cpu", non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+            else:
+                host, done = packed, None
 
         def finalize() -> List[List[Tuple[int, float]]]:
             if done is not None:

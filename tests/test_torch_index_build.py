@@ -11,6 +11,7 @@ invert are held byte for byte when both read the same input file.
 
 import dataclasses
 import filecmp
+import os
 
 import jax
 import numpy as np
@@ -198,7 +199,15 @@ def test_repair_and_truncate_text_forward(tmp_path):
 
 def test_index_to_file_resume(tmp_path, pair):
     """A torn run resumes to the uninterrupted run's bytes; resuming a
-    complete output is a no-op; the binary store is not ported and says so."""
+    complete output is a no-op.  The store route writes a binary impact
+    store whose quantized and inverted index equals the text route's, byte
+    for byte; a torn dual-output run (store and text cut at different
+    documents) resumes at the shorter one to the uninterrupted run's bytes;
+    a rounding other than 3 decimals is refused with a store."""
+    import dataclasses as dc
+
+    from improving_learned_index_tpu_torch.index.impact_store import quantize_store
+
     _, tm = pair
     coll = _collection(tmp_path)
     indexer = Indexer(tm, _cfg())
@@ -211,8 +220,35 @@ def test_index_to_file_resume(tmp_path, pair):
     assert crash.read_bytes() == ref.read_bytes()
     assert indexer.index_to_file(coll, crash, resume=True) == len(CORPUS)
     assert crash.read_bytes() == ref.read_bytes()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        indexer.index_to_file(coll, ref, store_path=tmp_path / "store")
+
+    both, store = tmp_path / "both.txt", tmp_path / "store"
+    assert indexer.index_to_file(coll, both, store_path=store) == len(CORPUS)
+    assert both.read_bytes() == ref.read_bytes()
+    quantize_file(ref, tmp_path / "q.txt")
+    quantize_store(store, tmp_path / "q.store")
+    InvertedIndexData.from_forward_index(tmp_path / "q.txt").save(tmp_path / "inv_text")
+    InvertedIndexData.from_impact_store(tmp_path / "q.store").save(tmp_path / "inv_store")
+    for name in ("inverted_index.dat", "inverted_index.idx", "vocab.txt"):
+        assert (tmp_path / "inv_store" / name).read_bytes() == (tmp_path / "inv_text" / name).read_bytes()
+
+    crash_store = tmp_path / "crash.store"
+    crash_store.mkdir()
+    for f in store.iterdir():
+        (crash_store / f.name).write_bytes(f.read_bytes())
+    (crash_store / "meta.json").unlink()
+    # the store keeps 3 documents and a torn fourth, the text 6 and a torn line
+    counts = np.fromfile(store / "counts.bin", np.int32)
+    keep = int(counts[:3].sum())
+    os.truncate(crash_store / "counts.bin", 4 * 4)
+    os.truncate(crash_store / "term_ids.bin", 4 * keep + 2)
+    os.truncate(crash_store / "values.bin", 4 * keep)
+    crash.write_text("".join(lines[:6]) + lines[6][:4])
+    assert indexer.index_to_file(coll, crash, store_path=crash_store, resume=True) == len(CORPUS)
+    assert crash.read_bytes() == ref.read_bytes()
+    for name in ("counts.bin", "term_ids.bin", "values.bin", "vocab.txt", "meta.json"):
+        assert (crash_store / name).read_bytes() == (store / name).read_bytes(), name
+    with pytest.raises(ValueError, match="round_decimals=3"):
+        Indexer(tm, dc.replace(_cfg(), round_decimals=2)).index_to_file(coll, ref, store_path=store)
 
 
 @pytest.mark.parametrize("pack", [False, True])

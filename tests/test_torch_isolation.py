@@ -4,9 +4,11 @@ query path, the encode path (text, encoder, indexer, CLIs), the other
 query engines (host, native, device, dense, blocked) and query CLIs, and
 training (losses, collates, packing, trainer, checkpoints, data parallelism,
 ``cli.train``), the in-memory eval (``SparseSearch``, NanoBEIR, TREC
-metrics, BM25 and their CLIs), and the rerankers (the pairwise and
+metrics, BM25 and their CLIs), the rerankers (the pairwise and
 cross-encoder models, ``ReRanker``, ``CrossEncoderReRanker``, their CLIs and
-``cli.train --pairwise/--cross_encoder``)."""
+``cli.train --pairwise/--cross_encoder``), and the index lifecycle (the
+binary impact store, merge/filter/split and their CLIs, the serving daemon,
+its shard router and ``cli.serve``)."""
 
 import ast
 import os
@@ -50,7 +52,10 @@ def test_port_sources_import_no_jax():
                    "evaluation/trec_metrics.py", "evaluation/bm25.py", "cli/nano_beir.py",
                    "cli/bm25.py", "models/pairwise.py", "models/factory.py", "evaluation/reranker.py",
                    "evaluation/run_metrics.py", "cli/rerank.py", "cli/cross_encoder_rerank.py",
-                   "cli/common.py"):
+                   "cli/common.py", "index/impact_store.py", "index/inverted.py", "cli/quantize.py",
+                   "cli/invert.py", "cli/merge_indexes.py", "cli/filter_index.py",
+                   "cli/split_index.py", "serve/__init__.py", "serve/server.py", "serve/router.py",
+                   "cli/serve.py"):
         assert module in names
     assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
@@ -384,3 +389,46 @@ def test_reranker_entry_points_without_cuda_raise(tmp_path):
                         "--collection_path", str(tmp_path / "c.tsv"), "--checkpoint_dir", str(tmp_path / "ck"),
                         "--no_beir_eval", flag, *common])
     assert not any((tmp_path / n).exists() for n in ("r1", "r2", "ck"))
+
+
+def test_cpu_store_algebra_and_serving_leave_jax_unimported(tmp_path):
+    """The store route (writer, quantize, invert), split and merge, and a
+    router over two shard servers of the CPU hybrid engine, in a fresh
+    process: nothing of JAX loads."""
+    code = """
+import json, socket, sys
+from pathlib import Path
+from improving_learned_index_tpu_torch.cli.invert import main as invert_main
+from improving_learned_index_tpu_torch.cli.quantize import main as quantize_main
+from improving_learned_index_tpu_torch.index.impact_store import ImpactStoreWriter
+from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
+from improving_learned_index_tpu_torch.search.hybrid_engine import HybridSearchEngine
+from improving_learned_index_tpu_torch.serve import RetrievalServer
+from improving_learned_index_tpu_torch.serve.router import RemoteShardedEngine
+d = Path(sys.argv[1])
+with ImpactStoreWriter(d / "s") as w:
+    for i in range(12):
+        w.add_doc([("a", 0.5 + i), ("b", 2.0)] if i % 3 else [("c", 1.25)])
+assert quantize_main(["-i", str(d / "s"), "-o", str(d / "q")]) == 0
+assert invert_main(["-i", str(d / "q"), "-o", str(d / "idx")]) == 0
+full = InvertedIndexData.load(d / "idx", num_docs=12)
+shards = full.split_docs(2)
+servers = [RetrievalServer(HybridSearchEngine(s, heavy_min=2, device="cpu"), max_wait_ms=1.0) for s in shards]
+for s in servers:
+    s.start()
+router = RemoteShardedEngine(f"127.0.0.1:{servers[0].port}:0,127.0.0.1:{servers[1].port}:{shards[0].num_docs}")
+want = HybridSearchEngine(InvertedIndexData.merge(shards), heavy_min=2, device="cpu").score_batch([{"a", "c"}], 5)
+assert router.score_batch([{"a", "c"}], 5) == want, (router.score_batch([{"a", "c"}], 5), want)
+router.close()
+for s in servers:
+    s.stop()
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "improving_learned_index_tpu")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], capture_output=True, text=True, env=env,
+        cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-2000:]

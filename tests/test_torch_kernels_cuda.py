@@ -711,3 +711,51 @@ def test_sparse_search_on_card_kernels_equal_plain(cuda, n_docs):
     assert ss.KERNEL.launches > s0 and (gr.KERNEL.launches > g0) == (want_engine is HybridSearchEngine)
     assert got == SparseSearch(Stub(), batch_size=4096, use_kernels=False).search(queries, corpus, k=100)
     assert got == SparseSearch(Stub(), batch_size=4096, device="cpu").search(queries, corpus, k=100)
+
+
+@pytest.mark.cuda
+def test_retrieval_server_on_card_answers_as_cpu(cuda):
+    """A ``RetrievalServer`` over a small hybrid engine on the card (its
+    pipelined ``score_batch_async`` route, the batch thread launching the
+    kernels) answers 48 pipelined requests as the CPU engine scores them,
+    and a staged swap to a filtered index on the card answers as the CPU
+    engine over that index."""
+    import json
+    import socket
+
+    from improving_learned_index_tpu_torch.serve import RetrievalServer
+
+    rng = np.random.default_rng(5)
+    # Zipf terms: the 15 commonest become dense rows, the rest the tail
+    p = 1.0 / np.arange(1, 201)
+    docs = [(d, {f"t{t}": int(rng.integers(1, 256))
+                 for t in rng.choice(200, rng.integers(1, 9), replace=False, p=p / p.sum())})
+            for d in range(5_000)]
+    idx = InvertedIndexData.build(iter(docs), num_docs=len(docs))
+    filtered = idx.delete_docs(range(0, len(docs), 7))
+    queries = [sorted(f"t{t}" for t in rng.choice(200, 3, replace=False)) for _ in range(48)]
+
+    def ask(srv):
+        with socket.create_connection(("127.0.0.1", srv.port), timeout=30) as sock:
+            f = sock.makefile("rb")
+            sock.sendall(b"".join(json.dumps({"id": i, "terms": q, "k": 50}).encode() + b"\n"
+                                  for i, q in enumerate(queries)))
+            got = {r["id"]: r["results"] for r in (json.loads(f.readline()) for _ in queries)}
+        return [got[i] for i in range(len(queries))]
+
+    def want(index):
+        rows = HybridSearchEngine(index, heavy_min=256, device="cpu").score_batch([set(q) for q in queries], 50)
+        return [[[int(d), float(s)] for d, s in r] for r in rows]
+
+    g0, s0, c0 = gr.KERNEL.launches, ss.KERNEL.launches, COUNT_KERNEL.launches
+    srv = RetrievalServer(HybridSearchEngine(idx, heavy_min=256, device="cuda"), top_k=50, max_batch=16,
+                          max_wait_ms=1.0)
+    assert srv.engine.t_heavy > 0 and srv.engine.doc_ids.numel() > 0
+    srv.start()
+    try:
+        assert ask(srv) == want(idx)
+        srv.swap_engine_staged(lambda: HybridSearchEngine(filtered, heavy_min=256, device="cuda"))
+        assert ask(srv) == want(filtered)
+    finally:
+        srv.stop()
+    assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and COUNT_KERNEL.launches > c0
