@@ -3,7 +3,9 @@
 scale, every query engine on the same index, the encode path, training,
 the in-memory eval and the rerankers at BERT-base width, then the index
 lifecycle: the binary impact store at BERT-base, the index algebra and the
-serving daemons (shard router, staged hot swap) on the MS MARCO-scale index.
+serving daemons (shard router, staged hot swap) on the MS MARCO-scale index,
+and last the multi-device paths (doc-sharded engine, data-parallel encode)
+with one card standing in for several.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -185,6 +187,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
    plain versions on a served batch of 8 on the server's engine after the
    swap.  The rate before the swap began and after it returned printed
    apart.  Every step's seconds printed.
+13. Multi-device on one card, after phase 12 has released its engines.
+   ``ShardedSearchEngine`` over ``["cuda:0"] * 4`` (the one-card stand-in
+   for four cards) on phase 3's index through ``InvertedIndexData.load``:
+   load, split and build seconds, ``shard_docs``, ``t_heavy`` and card
+   memory (torch's counters).  Launch counts set to 0 just before
+   ``score_stream`` (depth 2) scores phase 4's 512 queries (k=1000,
+   64-query batches) and read just after: every answer equals phase 4's
+   run file rank by rank, ``gather_rows`` and ``scatter_scores`` launch
+   once a shard a batch, ``count_ge`` for each shard's search passes; its
+   q/s beside phase 4's and its peak memory.  The three query kernels
+   against their plain versions (exactly) on the first batch's inputs to
+   shard 0, at a shard's shape [64, 2,228,224].  Then the data-parallel
+   encode: phase 6's corpus again from its seed, BERT-base from phase 7's
+   seeded trunk at S=256, ``Indexer`` over 4 batches of 512 passages
+   (unpacked) and their packed rows, through ``DeepImpact(devices=
+   ["cuda:0"] * 2)`` against the single-device route on the same weights:
+   identical term lists, impacts within phase 7's rule, ``short_attention``
+   12 launches a part; docs/s of both routes.  Last
+   ``parallel.dryrun_multidevice(["cuda:0"] * 2)``.
 
 The second-to-last line is the ``kernels`` JSON object (five rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
@@ -194,7 +215,8 @@ the pairwise routes (0), ``cli.index --store_path`` and its resume;
 ``gather_rows`` over ``cli.rank``, ``cli.nano_beir``'s fp32 rows and the
 in-process ``RetrievalServer``; ``scatter_scores`` and ``count_ge`` over
 their paths and that server too; the shard daemons' launches happen in
-processes of their own and are not counted), the last line ``{"ok": true,
+processes of their own and are not counted; phase 13's sharded engine and
+data-parallel encode add a path each), the last line ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -270,6 +292,11 @@ STORE = SimpleNamespace(seed=4, device="cuda")
 # k=1000 requests (phase 4's 512 query texts).
 LIFECYCLE = SimpleNamespace(shards=4, delete_share=0.01, planted_deletes=64, clients=8, k=1000, seed=5,
                             device="cuda")
+# Multi-device (phase 13) on one card: phase 3's index in 4 doc shards
+# (ShardedSearchEngine over ["cuda:0"] * 4, the one-card stand-in for 4
+# cards), phase 4's queries at k=1000; the data-parallel encode over 2
+# replicas for 4 of phase 6's batches.
+MULTI = SimpleNamespace(shards=4, replicas=2, encode_batches=4, k=1000, device="cuda:0")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
@@ -2922,6 +2949,190 @@ def run_lifecycle(cfg, workdir: Path, inputs) -> dict:
     return out
 
 
+def run_multidevice(cfg, workdir: Path, inputs, query_qps: float) -> dict:
+    """Phase 13: the doc-sharded engine on phase 3's index and the
+    data-parallel encode at phase 6's geometry, then the multi-device dry
+    run, all over one card named several times.  Each kernel of the two
+    paths is held against its plain version at the path's own shapes (a
+    shard's, a replica's part)."""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig, IndexConfig
+    from improving_learned_index_tpu_torch.index.indexer import Indexer
+    from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
+    from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
+    from improving_learned_index_tpu_torch.models.deep_impact import part_bounds
+    from improving_learned_index_tpu_torch.ops import short_attention as sa
+    from improving_learned_index_tpu_torch.parallel import dryrun_multidevice
+    from improving_learned_index_tpu_torch.search import ShardedSearchEngine
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, SequencePacker, WordPieceVocab
+
+    log(f"== phase 13: multi-device on one card ({cfg.shards} shards of phase 3's index, "
+        f"{cfg.replicas} encode replicas)")
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    dev = torch.device(cfg.device)
+    devices = [dev] * cfg.shards
+    seconds = {}
+
+    # 1. build through InvertedIndexData.load, shards one at a time
+    t0 = time.perf_counter()
+    index = InvertedIndexData.load(inputs.index_dir, num_docs=SMOKE.docs)
+    seconds["load"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ShardedSearchEngine(index, devices, dense_budget_bytes=int(SMOKE.dense_budget_gb * (1 << 30)))
+    torch.cuda.synchronize()
+    seconds["build"], seconds["split"] = engine.build_seconds, engine.split_seconds
+    del index
+    memory = {"steady_gb": (torch.cuda.memory_allocated() - base) / 1e9,
+              "build_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    geometry = {"shard_docs": engine.shard_docs, "t_heavy": engine.t_heavy,
+                "dense_dtypes": sorted({str(sh.dense.dtype) for sh in engine.shards}),
+                "tail_postings": [sh.doc_ids.numel() for sh in engine.shards]}
+    log(f"ShardedSearchEngine over {cfg.shards} x {dev}: load {seconds['load']:.1f} s, build "
+        f"{seconds['build']:.1f} s (split {seconds['split']:.1f} s); {json.dumps(geometry)}; "
+        f"memory {json.dumps(memory)}")
+
+    # 2-4. phase 4's queries through score_stream, counts zeroed just before
+    tok = ImpactTokenizer(WordPieceVocab.load(inputs.vocab))
+    nq = SMOKE.nq
+    batches = [[tok.process_query(q) for q in inputs.qtext[i : i + nq]]
+               for i in range(0, len(inputs.qtext), nq)]
+    list(engine.score_stream(batches[:2], top_k=cfg.k, depth=2))  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    outs = list(engine.score_stream(batches, top_k=cfg.k, depth=2))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in kernels}
+    memory["serve_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    for bi, out in enumerate(outs):
+        for j, res in enumerate(out):
+            if [(str(d), float(sc)) for d, sc in res] != inputs.ranked.get(str(bi * nq + j), []):
+                raise AssertionError(f"sharded engine: query {bi * nq + j} differs from phase 4's run file")
+    per_batch = cfg.shards * len(batches)
+    for name in ("gather_rows", "scatter_scores"):
+        if launches[name] != per_batch:
+            raise AssertionError(f"sharded engine: {name} launched {launches[name]} times, want {per_batch}")
+    if launches["count_ge"] < per_batch:
+        raise AssertionError(f"sharded engine: count_ge launched {launches['count_ge']} times, "
+                             f"fewer than one search pass a shard a batch")
+    qps = len(inputs.qtext) / dt
+    log(f"sharded: all {len(inputs.qtext)} answers equal phase 4's run file rank by rank; pipelined "
+        f"{qps:.1f} q/s (phase 4's hybrid engine in this run: {query_qps:.1f} q/s), k={cfg.k}, "
+        f"{nq}-query batches, depth 2; launches {launches}; memory {json.dumps(memory)}")
+
+    # 5. the kernels against their plain versions at one shard's shape, on
+    # the first batch's inputs to shard 0 (the global heavy rows, its tail)
+    shard0 = engine.shards[0]
+    heavy, tail = shard0.stage_inputs(batches[0])
+    if heavy is None or tail is None:
+        raise AssertionError("the first batch must reach both stages of shard 0")
+    g_row, base_scores = gather_row(shard0, heavy, nq)
+    s_row, scores = scatter_row(shard0, base_scores, tail)
+    del base_scores, heavy, tail
+    c_row = count_row(scores)
+    del scores
+    shard_rows = [g_row, s_row, c_row]
+    for row in shard_rows:
+        log(f"{row['name']} at a shard's shape: equal to plain; ms {row['ms']:.4f}, plain "
+            f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}); {json.dumps(row['shape'])}")
+    engine.release()
+    del engine, shard0
+    torch.cuda.empty_cache()
+
+    # 6. data-parallel encode: phase 6's corpus again, BERT-base from a seeded init
+    t0 = time.perf_counter()
+    passages = make_passages(ENCODE)
+    vocab = WordPieceVocab.build(passages, max_size=30522, min_freq=2)
+    seconds["corpus_and_vocab"] = time.perf_counter() - t0
+    etok = ImpactTokenizer(vocab, max_length=ENCODE.max_length)
+    docs = passages[: cfg.encode_batches * ENCODE.batch]
+    del passages
+    config = EncoderConfig.bert_base()
+    write_bert_checkpoint(workdir / "bert", config, ENCODE.seed)
+    weights = load_hf_checkpoint(workdir / "bert", config)
+    single = DeepImpact(config, etok, state_dict=weights, device=dev)
+    parallel = DeepImpact(config, etok, state_dict=weights, devices=[dev] * cfg.replicas)
+    del weights
+    unpacked = IndexConfig(max_length=ENCODE.max_length, max_terms=ENCODE.max_length,
+                           model_batch_size=ENCODE.batch)
+    packed = dataclasses.replace(unpacked, pack_sequences=True)
+    packer = SequencePacker(ENCODE.max_length, ENCODE.batch, ENCODE.max_length)
+    encs = [etok.process_document(d) for d in docs]
+    packed_batches = [b for e in encs for b in packer.add(e)] + list(packer.flush())
+    packed_rows = [b.input_ids.shape[0] for b in packed_batches]
+    first_docs = {"unpacked": ENCODE.batch, "packed": packed_batches[0].n_docs}
+
+    # short_attention against its plain version at a part's shape: the
+    # first unpacked part's padding mask, the first packed part's segments
+    rows = part_bounds(ENCODE.batch, cfg.replicas)[1]
+    if part_bounds(packed_rows[0], cfg.replicas)[1] != rows:
+        raise AssertionError(f"the first packed part has other rows than the unpacked one ({rows})")
+    heads = config.num_heads
+    rng = np.random.default_rng(ENCODE.seed + 2)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((rows, ENCODE.max_length, heads, config.hidden_size // heads),
+                                             dtype=np.float32) * 1.5).to(dev, torch.bfloat16).permute(0, 2, 1, 3)
+        for _ in range(3)
+    )
+    pad_mask = torch.from_numpy(np.asarray([e.attention_mask for e in encs[:rows]], np.int32)).to(dev)
+    seg_ids = torch.from_numpy(packed_batches[0].segment_ids[:rows]).to(dev)
+    part_row = attention_row(q, k, v, pad_mask, seg_ids)
+    del q, k, v, pad_mask, seg_ids, packed_batches, encs
+    log(f"short_attention at a part's shape: within tolerance of plain; ms {part_row['ms']:.4f}, plain "
+        f"{part_row['plain_ms']:.4f}, bound {part_row['bound_ms']:.4f} ({part_row['bound_by']}), SDPA "
+        f"{part_row['library_ms']:.4f}; {json.dumps(part_row['shape'])}")
+
+    def encode(model, icfg):
+        return [dict(zip(terms, row.tolist())) for terms, row in Indexer(model, icfg).encode_document_rows(docs)]
+
+    enc = {}
+    for route, icfg, parts in (("unpacked", unpacked, [cfg.replicas] * cfg.encode_batches),
+                               ("packed", packed, [min(r, cfg.replicas) for r in packed_rows])):
+        for kern in kernels:
+            kern.launches = 0
+        got = encode(parallel, icfg)
+        torch.cuda.synchronize()
+        n_attn = sa.KERNEL.launches
+        want_attn = config.num_layers * sum(parts)
+        if n_attn != want_attn:
+            raise AssertionError(f"data-parallel {route}: short_attention launched {n_attn} times, want {want_attn}")
+        ref = encode(single, icfg)
+        peak = max(max(d.values(), default=0.0) for d in ref)
+        err = impacts_close(got, ref, 0.05 * peak, 0.002 * peak, f"data-parallel {route} vs single-device")
+        rates = {name: steady_docs_per_s(Indexer(model, icfg), docs, first_docs[route])
+                 for name, model in (("single", single), ("replicas", parallel))}
+        enc[route] = {"launches": n_attn, "parts": sum(parts), "errors": err,
+                      "tolerance": [0.05 * peak, 0.002 * peak], "docs_per_s": rates}
+        log(f"data-parallel encode, {route}: {len(docs)} passages, term lists identical to the single-device "
+            f"route, max |diff| {err}; short_attention {n_attn} launches ({config.num_layers} x {sum(parts)} "
+            f"parts); docs/s {json.dumps(rates)}")
+    del single, parallel
+    torch.cuda.empty_cache()
+
+    # 7. the dry run
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    dry = dryrun_multidevice([dev] * cfg.replicas)
+    torch.cuda.synchronize()
+    seconds["dryrun"] = time.perf_counter() - t0
+    dry["launches"] = {kern.name: kern.launches for kern in kernels}
+    log(f"dryrun_multidevice over {cfg.replicas} x {dev} in {seconds['dryrun']:.1f} s; "
+        f"launches {dry['launches']}")
+    out = {"seconds": seconds, "geometry": geometry, "memory": memory, "qps": qps, "phase4_qps": query_qps,
+           "launches": launches, "shard_shape_kernels": shard_rows, "part_shape_attention": part_row,
+           "encode": enc, "dryrun": dry,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 13 in {out['phase_s']:.1f} s; seconds {json.dumps(seconds)}")
+    return out
+
+
 def main() -> int:
     log("== phase 1: environment")
     if shutil.which("nvidia-smi"):
@@ -2960,7 +3171,10 @@ def main() -> int:
         store = run_store(STORE, workdir, encode["errors"]["tolerance"])
         shutil.rmtree(workdir, ignore_errors=True)
         torch.cuda.empty_cache()
-        lifecycle = run_lifecycle(LIFECYCLE, qdir, query.pop("inputs"))
+        inputs = query.pop("inputs")
+        lifecycle = run_lifecycle(LIFECYCLE, qdir, inputs)
+        torch.cuda.empty_cache()
+        multi = run_multidevice(MULTI, qdir, inputs, query["qps"])
     finally:
         for d in (qdir, workdir):
             shutil.rmtree(d, ignore_errors=True)
@@ -2971,16 +3185,21 @@ def main() -> int:
                                  "cli.nano_beir": nano_beir["short_attention"],
                                  "cli.train with eval": train_eval["short_attention"],
                                  **rerank.pop("launches"), **store["launches"]}
-    served = lifecycle["launches"]
+    a_row["launches_by_path"]["DeepImpact (2 replicas)"] = sum(
+        e["launches"] for e in multi["encode"].values())
+    served, sharded = lifecycle["launches"], multi["launches"]
     s_row["launches_by_path"] = {"cli.rank": s_row["launches"], "cli.nano_beir": nano_beir["scatter_scores"],
                                  "cli.train with eval": train_eval["scatter_scores"],
-                                 "RetrievalServer (in-process)": served["scatter_scores"]}
+                                 "RetrievalServer (in-process)": served["scatter_scores"],
+                                 "ShardedSearchEngine (4 shards)": sharded["scatter_scores"]}
     # phase 9's gather launches are all the fp32 instance (float rows)
     g_row["launches_by_path"] = {"cli.rank": g_row["launches"],
                                  "cli.nano_beir (fp32 rows)": nano_beir["gather_rows"],
-                                 "RetrievalServer (in-process)": served["gather_rows"]}
+                                 "RetrievalServer (in-process)": served["gather_rows"],
+                                 "ShardedSearchEngine (4 shards)": sharded["gather_rows"]}
     c_row["launches_by_path"] = {"cli.rank": c_row["launches"],
-                                 "RetrievalServer (in-process)": served["count_ge"]}
+                                 "RetrievalServer (in-process)": served["count_ge"],
+                                 "ShardedSearchEngine (4 shards)": sharded["count_ge"]}
     for row in (a_row, s_row, g_row, c_row):
         row["launches"] = sum(row["launches_by_path"].values())
     log(json.dumps({"query": {k: v for k, v in query.items() if k != "kernels"}}))
@@ -2990,6 +3209,7 @@ def main() -> int:
     log(json.dumps({"rerank": rerank}))
     log(json.dumps({"store": store}))
     log(json.dumps({"lifecycle": lifecycle}))
+    log(json.dumps({"multidevice": multi}))
     print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,6 +8,7 @@ kernels, not the system).
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional, Union
 
 import torch
@@ -30,3 +31,10 @@ def resolve_use_kernels(device: torch.device, use_kernels: Optional[bool]) -> bo
     if use_kernels and device.type != "cuda":
         raise ValueError("use_kernels=True needs a CUDA device")
     return device.type == "cuda" if use_kernels is None else bool(use_kernels)
+
+
+def device_scope(device: torch.device):
+    """``device`` as the current one while its work is launched (the kernels
+    launch on the current device, and an event marks the current stream);
+    nothing to do for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else nullcontext()

@@ -19,24 +19,39 @@ xlmr_original.py:87-267): ``process_query`` / ``process_document`` /
   sizes as the JAX wrapper pads them for XLA.
 - ``use_kernels=False`` on the card runs the plain attention, for
   cross-checks only.
+- ``devices=[...]`` (in place of ``device``): data-parallel encode (JAX
+  ``DeepImpact(mesh=)``, the reference's DataParallel indexer,
+  indexing/indexer.py:25-26).  ``self.module`` lives on ``devices[0]``, and
+  each other distinct device holds a replica copied from it;
+  ``encode_term_scores`` and ``encode_packed`` split each batch into
+  contiguous parts, one per list entry (``["cuda:0"] * 2``: two parts on
+  one card), run each part on its device's module with that device
+  current, and gather the outputs on ``devices[0]`` in row order.  The JAX
+  wrapper pads the batch to a multiple of the data axis; a row's output
+  does not depend on the other rows, so the parts are split unpadded.  A
+  change to ``self.module``'s tensors in place (a training step,
+  ``load_state_dict``) is copied to the replicas before the next encode.
+  ``use_kernels`` is resolved per device.
 
 Random init (no checkpoint) uses ``torch.Generator(seed)`` with flax's
 initializer shapes and scales; it does not reproduce flax's numbers.
 
 ``DeepImpactCrossEncoder`` (JAX ``models/deep_impact.py:280-328``) scores
 "{document} [SEP] {query}" from the [CLS] state; it takes a DeepImpact
-state dict as it is.
+state dict as it is.  It encodes on one device (its ``score_batch`` takes
+no part of ``devices``), as the JAX one only stores its ``mesh``.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.config import EncoderConfig
-from ..core.device import resolve_device, resolve_use_kernels
+from ..core.device import device_scope, resolve_device, resolve_use_kernels
 from ..text.processor import DocumentEncoding, batch_arrays, batch_term_slots
 from .encoder import CrossEncoderModel, DeepImpactModel, init_weights
 
@@ -61,6 +76,12 @@ class HostCopy:
         return out if dtype is None else out.astype(dtype)
 
 
+def part_bounds(rows: int, parts: int) -> np.ndarray:
+    """The row bounds [parts + 1] of the data-parallel encode's contiguous
+    parts of a ``rows``-row batch."""
+    return np.linspace(0, rows, parts + 1).round().astype(int)
+
+
 class DeepImpact:
     """Term-impact encoder with a pluggable tokenizer (BERT/RoBERTa/XLM-R trunk)."""
 
@@ -74,8 +95,16 @@ class DeepImpact:
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
         use_kernels: Optional[bool] = None,
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
+        if devices is not None:
+            if not devices:
+                raise ValueError("devices must name at least one device")
+            if device is not None:
+                raise ValueError("pass device or devices, not both (devices[0] holds the outputs)")
+            device = devices[0]
         self.device = resolve_device(device)
+        self.devices = [self.device] if devices is None else [resolve_device(d) for d in devices]
         self.use_kernels = resolve_use_kernels(self.device, use_kernels)
         self.config = config
         self.tokenizer = tokenizer
@@ -86,8 +115,35 @@ class DeepImpact:
             init_weights(self.module, g)
         else:
             self._load_state_dict(state_dict, seed)
+        # one module a distinct device: (module, use_kernels)
+        self._replicas = {}
+        for dev in self.devices:
+            if dev not in self._replicas and dev != self.device:
+                self._replicas[dev] = (copy.deepcopy(self.module).to(dev).eval(),
+                                       resolve_use_kernels(dev, use_kernels))
         self.module.to(self.device).eval()
+        self._replicas[self.device] = (self.module, self.use_kernels)
+        self._synced = self._weights_stamp()
         self.max_length = getattr(tokenizer, "max_length", config.max_position_embeddings)
+
+    def _weights_stamp(self):
+        """Which tensors ``self.module`` holds and their in-place version
+        counts: a training step or ``load_state_dict`` changes it."""
+        return [(id(t), t._version) for t in self.module.state_dict(keep_vars=True).values()]
+
+    def _sync_replicas(self) -> None:
+        """Copy ``self.module``'s weights to the other devices' replicas if
+        they changed since the last copy."""
+        if len(self._replicas) == 1:
+            return
+        stamp = self._weights_stamp()
+        if stamp == self._synced:
+            return
+        state = self.module.state_dict()
+        for replica, _ in self._replicas.values():
+            if replica is not self.module:
+                replica.load_state_dict(state)
+        self._synced = stamp
 
     def _load_state_dict(self, state_dict: Dict[str, torch.Tensor], seed: int) -> None:
         self.module.load_state_dict(state_dict)
@@ -103,11 +159,35 @@ class DeepImpact:
         return self.tokenizer.process_query_and_document(query, document, max_length=max_length)
 
     # -- forward --------------------------------------------------------------
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
+    def _upload(self, array: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t
+
+    def _forward_parts(self, arrays: Sequence[np.ndarray], segmented: bool = False) -> torch.Tensor:
+        """The module's [B, L] token scores on ``self.device`` for the int
+        arrays (input_ids, attention_mask or segment ids, type_ids), split
+        by rows into one contiguous part per entry of ``self.devices``, each
+        part on its device's module with that device current (the kernels
+        launch on the current device), gathered in row order."""
+        self._sync_replicas()
+        bounds = part_bounds(len(arrays[0]), len(self.devices))
+        outs = []
+        for dev, lo, hi in zip(self.devices, bounds[:-1], bounds[1:]):
+            if lo == hi:
+                continue
+            module, use_kernels = self._replicas[dev]
+            with device_scope(dev):
+                ids, second, types = (self._upload(a[lo:hi], dev) for a in arrays)
+                if segmented:
+                    out = module(ids, (second > 0).to(torch.int32), types, segment_ids=second,
+                                 use_kernels=use_kernels)
+                else:
+                    out = module(ids, second, types, use_kernels=use_kernels)
+            outs.append(out[..., 0].to(self.device))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     @torch.inference_mode()
     def __call__(self, input_ids, attention_mask, type_ids=None) -> np.ndarray:
@@ -139,15 +219,10 @@ class DeepImpact:
             max_terms = self.max_length
         arrays = batch_arrays(encodings)
         slots, _, terms = batch_term_slots(encodings, max_terms)
-        out = self.module(
-            self._upload(arrays["input_ids"]),
-            self._upload(arrays["attention_mask"]),
-            self._upload(arrays["type_ids"]),
-            use_kernels=self.use_kernels,
-        )  # [B, L, 1]
-        scores = torch.take_along_dim(out[..., 0], self._upload(slots).long(), dim=1)
-        copy = HostCopy(scores)
-        return (np.asarray(copy) if materialize else copy), terms
+        out = self._forward_parts([arrays["input_ids"], arrays["attention_mask"], arrays["type_ids"]])
+        scores = torch.take_along_dim(out, self._upload(slots).long(), dim=1)
+        pending = HostCopy(scores)
+        return (np.asarray(pending) if materialize else pending), terms
 
     @torch.inference_mode()
     def encode_packed(self, batch, materialize: bool = True):
@@ -155,17 +230,11 @@ class DeepImpact:
         term-score array (a ``HostCopy`` in flight when
         ``materialize=False``).  Split per document with
         ``batch.term_offsets``."""
-        seg = self._upload(batch.segment_ids)
-        out = self.module(
-            self._upload(batch.input_ids),
-            (seg > 0).to(torch.int32),
-            self._upload(batch.type_ids),
-            segment_ids=seg,
-            use_kernels=self.use_kernels,
-        )  # [R, S, 1]
-        scores = out[..., 0].reshape(-1)[self._upload(batch.flat_slots).long()]
-        copy = HostCopy(scores)
-        return np.asarray(copy) if materialize else copy
+        # flat_slots index the whole [R, S] output: the parts are gathered first
+        out = self._forward_parts([batch.input_ids, batch.segment_ids, batch.type_ids], segmented=True)
+        scores = out.reshape(-1)[self._upload(batch.flat_slots).long()]
+        pending = HostCopy(scores)
+        return np.asarray(pending) if materialize else pending
 
     def get_impact_scores_batch_packed(
         self, documents: Sequence[str], rows: Optional[int] = None

@@ -16,8 +16,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+from contextlib import nullcontext
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -75,9 +78,12 @@ class CudaKernel:
             self._lib = lib
         return self._lib
 
-    def call(self, fn: str, *args) -> None:
-        """Launch through C function ``fn``; raise on a refused launch."""
-        err = getattr(self.lib(), fn)(*args)
+    def call(self, fn: str, *args, device: Optional[torch.device] = None) -> None:
+        """Launch through C function ``fn``, with ``device`` (the operands'
+        card) current: the launchers set attributes of, and launch on, the
+        current device.  Raise on a refused launch."""
+        with torch.cuda.device(device) if device is not None else nullcontext():
+            err = getattr(self.lib(), fn)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: {fn} launch failed with cudaError {err}")
         self.launches += 1

@@ -78,6 +78,6 @@ def count_ge(scores: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     KERNEL.call(
         "ili_count_ge",
         scores.data_ptr(), t.data_ptr(), out.data_ptr(), q, n, scores.stride(0), t.shape[1],
-        torch.cuda.current_stream(scores.device).cuda_stream,
+        torch.cuda.current_stream(scores.device).cuda_stream, device=scores.device,
     )
     return out

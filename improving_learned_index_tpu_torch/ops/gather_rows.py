@@ -181,7 +181,7 @@ def accumulate_grouped(dense, table, nq: int) -> torch.Tensor:
     KERNEL.call(
         _FN[dense.dtype],
         dense.data_ptr(), table.data_ptr(), table.numel(), out.data_ptr(),
-        nq, t_heavy, n_pad, torch.cuda.current_stream(dense.device).cuda_stream,
+        nq, t_heavy, n_pad, torch.cuda.current_stream(dense.device).cuda_stream, device=dense.device,
     )
     return out
 

@@ -145,7 +145,7 @@ def blocked_scores(cell_offsets, chunk_starts, chunk_meta, docs, vals,
         "ili_blocked_scoring",
         cell_offsets.data_ptr(), chunk_starts.data_ptr(), chunk_meta.data_ptr(),
         docs.data_ptr(), vals.data_ptr(), out.data_ptr(), num_queries // QG, num_blocks,
-        torch.cuda.current_stream(docs.device).cuda_stream,
+        torch.cuda.current_stream(docs.device).cuda_stream, device=docs.device,
     )
     return out
 

@@ -77,7 +77,7 @@ def _launch(fn, scores, *args):
     """Launch ``fn`` on ``scores`` and the current stream."""
     nq, n_pad = scores.shape
     KERNEL.call(fn, scores.data_ptr(), *args, nq, n_pad,
-                torch.cuda.current_stream(scores.device).cuda_stream)
+                torch.cuda.current_stream(scores.device).cuda_stream, device=scores.device)
     return scores
 
 

@@ -129,7 +129,7 @@ def _launch(q, k, v, segment_mask, sm_scale: float, packed: bool):
         "ili_short_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(), strides,
         b, h, s, d, float(sm_scale), int(bool(packed)), int(out_dtype == torch.float32),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream, device=q.device,
     )
     return out
 

@@ -4,6 +4,7 @@ from .engine import InvertedIndex
 from .hybrid_engine import HybridSearchEngine
 from .native import NativeSearchEngine
 from .select import build_engine, choose_engine
+from .sharded_engine import ShardedSearchEngine
 
 __all__ = [
     "DenseSearchEngine",
@@ -11,6 +12,7 @@ __all__ = [
     "HybridSearchEngine",
     "InvertedIndex",
     "NativeSearchEngine",
+    "ShardedSearchEngine",
     "build_engine",
     "choose_engine",
 ]

@@ -48,7 +48,6 @@ top-k in score order with ties in doc-id order.
 from __future__ import annotations
 
 from collections import deque
-from contextlib import nullcontext
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
@@ -56,7 +55,7 @@ import numpy as np
 import torch
 
 from ..core.config import SearchConfig
-from ..core.device import resolve_device, resolve_use_kernels
+from ..core.device import device_scope, resolve_device, resolve_use_kernels
 from ..index.inverted import InvertedIndexData
 from ..ops import gather_rows, scatter_scores
 from ..ops.exact_topk import _BLOCK, exact_topk_integer
@@ -152,6 +151,82 @@ def build_dense_rows(
     return dense
 
 
+def padded_width(num_docs: int) -> int:
+    """The doc axis's padded width: whole 65536-doc tiles from 2**19 docs,
+    else a multiple of 128 (the JAX engines' rule)."""
+    if num_docs >= _TILE_ALIGN_MIN_DOCS:
+        return -(-num_docs // _TILE) * _TILE
+    return ((num_docs + 127) // 128) * 128
+
+
+def pick_heavy_terms(lengths: np.ndarray, heavy_min: int, dense_budget_bytes: int, n_pad: int) -> np.ndarray:
+    """The dense rows' term ids, ascending: lists of at least ``heavy_min``
+    postings, longest first within ``dense_budget_bytes`` of bf16 rows
+    [T_heavy, n_pad] (the JAX engines' rule, in both score modes)."""
+    max_rows = max(1, dense_budget_bytes // (2 * n_pad))
+    heavy_tids = np.nonzero(lengths >= heavy_min)[0]
+    if len(heavy_tids) > max_rows:
+        order = np.argsort(lengths[heavy_tids])[::-1]
+        heavy_tids = np.sort(heavy_tids[order[:max_rows]])
+    return heavy_tids
+
+
+def lookup_terms(vocab: Dict[str, int], query_term_sets: Sequence[Set[str]]):
+    """Each known (query, term id) incidence as two int64 arrays; the only
+    Python loop of a batch's host prep is this one dict lookup a term."""
+    qs: List[int] = []
+    tids: List[int] = []
+    get = vocab.get
+    for q, terms in enumerate(query_term_sets):
+        for term in terms:
+            tid = get(term)
+            if tid is not None:
+                qs.append(q)
+                tids.append(tid)
+    return np.asarray(qs, dtype=np.int64), np.asarray(tids, dtype=np.int64)
+
+
+def split_terms(vocab: Dict[str, int], heavy_row_arr: np.ndarray, query_term_sets: Sequence[Set[str]]):
+    """A batch's known (query, term) incidences split by stage: (heavy
+    query rows (int32), their dense rows, tail query rows, tail term ids)."""
+    q_arr, tid_arr = lookup_terms(vocab, query_term_sets)
+    hrow = heavy_row_arr[tid_arr]
+    heavy = hrow >= 0
+    return q_arr[heavy].astype(np.int32), hrow[heavy], q_arr[~heavy], tid_arr[~heavy]
+
+
+def put_int32(a, device: torch.device) -> torch.Tensor:
+    """A host array as a contiguous int32 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+
+def topk_to_host(vals: torch.Tensor, idx: torch.Tensor, device: torch.device):
+    """Start one host copy of a batch's top-k, [nq, 2, k] int32 (scores
+    bit-cast), and return its zero-arg finalizer: per query, the (doc id,
+    score) pairs with score > 0.  Call it under ``device_scope(device)``."""
+    packed = torch.stack([vals.view(torch.int32), idx], dim=1)
+    if device.type == "cuda":
+        host = packed.to("cpu", non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+    else:
+        host, done = packed, None
+
+    def finalize() -> List[List[Tuple[int, float]]]:
+        if done is not None:
+            done.synchronize()
+        h = host.numpy()
+        top_scores = h[:, 0].view(np.float32)
+        top_docs = h[:, 1]
+        n_pos = (top_scores > 0).sum(axis=1)  # scores descend: a prefix
+        return [
+            list(zip(top_docs[i, : n_pos[i]].tolist(), top_scores[i, : n_pos[i]].tolist()))
+            for i in range(len(h))
+        ]
+
+    return finalize
+
+
 def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool,
                  integer_scores: bool):
     """Exact top-k over the real docs, (values, int32 doc ids).
@@ -188,7 +263,11 @@ class HybridSearchEngine:
         integer_scores: bool = True,
         device: Optional[Union[str, torch.device]] = None,
         use_kernels: Optional[bool] = None,
+        heavy_terms: Optional[np.ndarray] = None,
     ):
+        """``heavy_terms``: the dense rows' term ids, ascending, in place of
+        the pick by ``heavy_min`` and ``dense_budget_bytes`` (a doc shard of
+        ``ShardedSearchEngine`` takes the pick made on the global lists)."""
         if config.approx_top_k:
             raise ValueError("approximate top-k is not ported; the port's top-k is exact")
         self.config = config
@@ -205,21 +284,13 @@ class HybridSearchEngine:
         self.num_docs = max(int(index.num_docs), 1)
         if self.num_docs >= 2**31:
             raise ValueError("doc ids must fit int32")
-        if self.num_docs >= _TILE_ALIGN_MIN_DOCS:
-            self.n_pad = -(-self.num_docs // _TILE) * _TILE
-        else:
-            self.n_pad = ((self.num_docs + 127) // 128) * 128
+        self.n_pad = padded_width(self.num_docs)
         offsets = np.asarray(index.offsets, dtype=np.int64)
         lengths = np.diff(offsets)
-
-        # Pick heavy terms: longest lists first, bounded by the device
-        # memory budget for a bf16 dense matrix (in both modes, as the JAX
-        # engine counts it).
-        max_rows = max(1, dense_budget_bytes // (2 * self.n_pad))
-        heavy_tids = np.nonzero(lengths >= heavy_min)[0]
-        if len(heavy_tids) > max_rows:
-            order = np.argsort(lengths[heavy_tids])[::-1]
-            heavy_tids = np.sort(heavy_tids[order[:max_rows]])
+        if heavy_terms is None:
+            heavy_tids = pick_heavy_terms(lengths, heavy_min, dense_budget_bytes, self.n_pad)
+        else:
+            heavy_tids = np.asarray(heavy_terms, dtype=np.int64)
         # term id -> dense row, -1 = tail
         self.heavy_row_arr = np.full(len(lengths), -1, dtype=np.int32)
         self.heavy_row_arr[heavy_tids] = np.arange(len(heavy_tids), dtype=np.int32)
@@ -286,37 +357,25 @@ class HybridSearchEngine:
         return cls(index, config, heavy_min=heavy_min, dense_budget_bytes=dense_budget_bytes,
                    integer_scores=False, device=device, use_kernels=use_kernels)
 
-    def _tables(self, query_term_sets: Sequence[Set[str]]):
-        """Host-side prep: heavy (query, dense row) incidences + tail chunk
-        table.  The only Python-loop work is one dict lookup per query term;
-        the per-term chunk expansion is numpy (``expand_tail_chunks``).
-
-        Returns (heavy_q, heavy_rows, chunk_starts, chunk_lengths,
-        chunk_rows): each heavy pair's query and dense row, then the tail's
-        chunk table."""
-        qs: List[int] = []
-        tids: List[int] = []
-        get = self.vocab.get
-        for q, terms in enumerate(query_term_sets):
-            for term in terms:
-                tid = get(term)
-                if tid is not None:
-                    qs.append(q)
-                    tids.append(tid)
-        if not tids:
-            e = np.empty(0, np.int32)
-            return e, e.copy(), e.copy(), e.copy(), e.copy()
-        q_arr = np.asarray(qs, dtype=np.int64)
-        tid_arr = np.asarray(tids, dtype=np.int64)
-        hrow = self.heavy_row_arr[tid_arr]
-        heavy = hrow >= 0
-        t_q, t_tid = q_arr[~heavy], tid_arr[~heavy]
+    def tail_chunks(self, t_q: np.ndarray, t_tid: np.ndarray):
+        """The chunk table (starts, lengths, rows) of the tail terms
+        ``t_tid`` of query rows ``t_q``: TAIL_CHUNK windows into
+        ``doc_ids``/``impacts`` (``expand_tail_chunks``)."""
         starts = self.term_start[t_tid]
-        return (
-            q_arr[heavy].astype(np.int32),
-            hrow[heavy],
-            *expand_tail_chunks(starts, starts + self.term_len[t_tid], t_q, TAIL_CHUNK),
-        )
+        return expand_tail_chunks(starts, starts + self.term_len[t_tid], t_q, TAIL_CHUNK)
+
+    def tail_input(self, t_q: np.ndarray, t_tid: np.ndarray):
+        """``tail_chunks`` uploaded to the engine's device, or None when
+        there is no tail term."""
+        chunks = self.tail_chunks(t_q, t_tid)
+        return tuple(put_int32(a, self.device) for a in chunks) if len(chunks[0]) else None
+
+    def _tables(self, query_term_sets: Sequence[Set[str]]):
+        """Host-side prep: (heavy_q, heavy_rows, chunk_starts,
+        chunk_lengths, chunk_rows), each heavy pair's query and dense row,
+        then the tail's chunk table."""
+        heavy_q, heavy_rows, t_q, t_tid = split_terms(self.vocab, self.heavy_row_arr, query_term_sets)
+        return (heavy_q, heavy_rows, *self.tail_chunks(t_q, t_tid))
 
     def stage_inputs(self, query_term_sets: Sequence[Set[str]]):
         """One batch's inputs to the two scoring stages, on the engine's
@@ -325,18 +384,12 @@ class HybridSearchEngine:
         table (starts, lengths, rows) of TAIL_CHUNK windows into
         ``doc_ids``/``impacts`` for ``apply_tail_chunks``; each is None when
         no query term falls in that stage."""
-        heavy_q, heavy_rows, starts, lengths, rows = self._tables(query_term_sets)
-        dev = self.device
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
-
-        heavy = tail = None
+        heavy_q, heavy_rows, t_q, t_tid = split_terms(self.vocab, self.heavy_row_arr, query_term_sets)
+        heavy = None
         if len(heavy_q):
-            heavy = put(gather_rows.group_pairs(heavy_q, heavy_rows, len(query_term_sets)))
-        if len(starts):
-            tail = (put(starts), put(lengths), put(rows))
-        return heavy, tail
+            table = gather_rows.group_pairs(heavy_q, heavy_rows, len(query_term_sets))
+            heavy = put_int32(table, self.device)
+        return heavy, self.tail_input(t_q, t_tid)
 
     def warmup(self, max_batch: int = 64, top_k: Optional[int] = None) -> int:
         """Load the kernels and score one batch of ``max_batch`` queries,
@@ -363,6 +416,19 @@ class HybridSearchEngine:
         self.doc_ids = None
         self.impacts = None
 
+    def topk_from_stages(self, heavy, tail, nq: int, k: int):
+        """The batch's exact top-k (values, int32 doc ids), [nq, k], from
+        its staged inputs (``stage_inputs``; at least one not None): the
+        heavy stage, the tail stage, the top-k.  Call it under
+        ``device_scope(self.device)``."""
+        if heavy is not None:
+            scores = self._accumulate_grouped(self.dense, heavy, nq)
+        else:
+            scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=self.device)
+        if tail is not None:
+            scores = self._apply_tail_chunks(scores, self.doc_ids, self.impacts, *tail, TAIL_CHUNK)
+        return _finish_topk(scores, self.num_docs, k, self.use_kernels, self.integer_scores)
+
     def score_batch_async(
         self,
         query_term_sets: Sequence[Set[str]],
@@ -386,41 +452,10 @@ class HybridSearchEngine:
         heavy, tail = self.stage_inputs(query_term_sets)
         if heavy is None and tail is None:
             return lambda: [[] for _ in range(nq)]
-        dev = self.device
         # the engine's own device, not the calling thread's current one (a
-        # serving daemon's batch thread calls this): the kernels launch on
-        # the current device, and the event marks the engine's stream
-        with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
-            if heavy is not None:
-                scores = self._accumulate_grouped(self.dense, heavy, nq)
-            else:
-                scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=dev)
-            if tail is not None:
-                scores = self._apply_tail_chunks(scores, self.doc_ids, self.impacts, *tail, TAIL_CHUNK)
-            vals, idx = _finish_topk(scores, self.num_docs, k, self.use_kernels, self.integer_scores)
-            del scores
-            # one host copy per batch: [nq, 2, k] int32 (scores bit-cast)
-            packed = torch.stack([vals.view(torch.int32), idx], dim=1)
-            if dev.type == "cuda":
-                host = packed.to("cpu", non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(dev))
-            else:
-                host, done = packed, None
-
-        def finalize() -> List[List[Tuple[int, float]]]:
-            if done is not None:
-                done.synchronize()
-            h = host.numpy()
-            top_scores = h[:, 0].view(np.float32)
-            top_docs = h[:, 1]
-            n_pos = (top_scores > 0).sum(axis=1)  # scores descend: a prefix
-            return [
-                list(zip(top_docs[i, : n_pos[i]].tolist(), top_scores[i, : n_pos[i]].tolist()))
-                for i in range(nq)
-            ]
-
-        return finalize
+        # serving daemon's batch thread calls this)
+        with device_scope(self.device):
+            return topk_to_host(*self.topk_from_stages(heavy, tail, nq, k), self.device)
 
     def score_batch(
         self,

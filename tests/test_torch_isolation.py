@@ -8,7 +8,8 @@ metrics, BM25 and their CLIs), the rerankers (the pairwise and
 cross-encoder models, ``ReRanker``, ``CrossEncoderReRanker``, their CLIs and
 ``cli.train --pairwise/--cross_encoder``), and the index lifecycle (the
 binary impact store, merge/filter/split and their CLIs, the serving daemon,
-its shard router and ``cli.serve``)."""
+its shard router and ``cli.serve``), and the multi-device paths (the
+doc-sharded engine, the data-parallel encode and the dry run)."""
 
 import ast
 import os
@@ -55,7 +56,7 @@ def test_port_sources_import_no_jax():
                    "cli/common.py", "index/impact_store.py", "index/inverted.py", "cli/quantize.py",
                    "cli/invert.py", "cli/merge_indexes.py", "cli/filter_index.py",
                    "cli/split_index.py", "serve/__init__.py", "serve/server.py", "serve/router.py",
-                   "cli/serve.py"):
+                   "cli/serve.py", "search/sharded_engine.py", "parallel/multidevice.py"):
         assert module in names
     assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
@@ -432,3 +433,59 @@ print("ok")
         cwd=tmp_path, timeout=120,
     )
     assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-2000:]
+
+
+def test_cpu_multidevice_leaves_jax_unimported(tmp_path):
+    """A sharded query over ``["cpu"] * 4``, a data-parallel encode over
+    ``["cpu"] * 2`` (unpacked and packed) and the dry run, in a fresh
+    process: nothing of JAX loads."""
+    code = """
+import sys
+import numpy as np
+from improving_learned_index_tpu_torch.core.config import EncoderConfig
+from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
+from improving_learned_index_tpu_torch.models import DeepImpact
+from improving_learned_index_tpu_torch.parallel import dryrun_multidevice
+from improving_learned_index_tpu_torch.search import ShardedSearchEngine
+from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+idx = InvertedIndexData(["a", "b"], np.array([0, 2, 3]), np.array([0, 1, 1], np.uint32),
+                        np.array([5, 3, 7], np.uint8), num_docs=2)
+res = ShardedSearchEngine(idx, ["cpu"] * 4, heavy_min=2).score_batch([{"a", "b"}], 5)
+assert res == [[(1, 10.0), (0, 5.0)]], res
+docs = ["the quick brown fox", "a lazy dog sleeps", "fox and dog"]
+vocab = WordPieceVocab.build(docs, max_size=64)
+model = DeepImpact(EncoderConfig.tiny(vocab_size=len(vocab)), ImpactTokenizer(vocab, max_length=128),
+                   devices=["cpu", "cpu"])
+assert len(model.get_impact_scores_batch(docs)) == len(model.get_impact_scores_batch_packed(docs)) == 3
+dryrun_multidevice(["cpu", "cpu"])
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "improving_learned_index_tpu")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-2000:]
+
+
+def test_multidevice_entry_points_without_cuda_raise():
+    """``ShardedSearchEngine(index)`` (every visible card) and
+    ``DeepImpact(devices=None)`` default to cuda and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
+    from improving_learned_index_tpu_torch.models import DeepImpact
+    from improving_learned_index_tpu_torch.search import ShardedSearchEngine
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    idx = InvertedIndexData(["a"], np.array([0, 1]), np.array([0], np.uint32),
+                            np.array([5], np.uint8), num_docs=1)
+    vocab = WordPieceVocab.build(["a b c"], max_size=32)
+    tok = ImpactTokenizer(vocab, max_length=128)
+    for make in (lambda: ShardedSearchEngine(idx), lambda: ShardedSearchEngine(idx, ["cuda:0"] * 4),
+                 lambda: DeepImpact(EncoderConfig.tiny(vocab_size=len(vocab)), tok, devices=None),
+                 lambda: DeepImpact(EncoderConfig.tiny(vocab_size=len(vocab)), tok, devices=["cuda:0"] * 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -759,3 +759,143 @@ def test_retrieval_server_on_card_answers_as_cpu(cuda):
     finally:
         srv.stop()
     assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and COUNT_KERNEL.launches > c0
+
+
+def _zipf_index(num_docs, n_terms=200, seed=5):
+    """Zipf terms, 1-8 a doc (ROADMAP trap k: the commonest lists become
+    dense rows, the rest stay tail, so both scoring kernels launch)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_terms + 1)
+    docs = [(d, {f"t{t}": int(rng.integers(1, 256))
+                 for t in rng.choice(n_terms, rng.integers(1, min(9, n_terms + 1)), replace=False,
+                                     p=p / p.sum())})
+            for d in range(num_docs)]
+    return InvertedIndexData.build(iter(docs), num_docs=num_docs), rng
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_card_equals_hybrid(cuda):
+    """Four shards on one card: the single hybrid engine's ranked lists,
+    ``use_kernels=False``'s and the CPU shards'; each shard launches the
+    heavy and the tail kernel once a batch, and its top-k's counts."""
+    from improving_learned_index_tpu_torch.search import ShardedSearchEngine
+
+    idx, rng = _zipf_index(20_000)
+    batch = [{f"t{t}" for t in rng.choice(200, 4, replace=False)} for _ in range(60)]
+    batch += [set(), {"t0"}, {"t150"}, {"t1", "zz"}, {"zz"}]
+    want = HybridSearchEngine(idx, heavy_min=256, device="cuda").score_batch(batch, 100)
+    eng = ShardedSearchEngine(idx, ["cuda:0"] * 4, heavy_min=256)
+    assert eng.t_heavy > 0 and eng.use_kernels and all(s.doc_ids.numel() > 0 for s in eng.shards)
+    g0, s0, c0 = gr.KERNEL.launches, ss.KERNEL.launches, COUNT_KERNEL.launches
+    got = eng.score_batch(batch, 100)
+    assert gr.KERNEL.launches - g0 == 4 and ss.KERNEL.launches - s0 == 4
+    assert COUNT_KERNEL.launches - c0 >= 4
+    assert got == want
+    assert got == ShardedSearchEngine(idx, ["cuda:0"] * 4, heavy_min=256, use_kernels=False).score_batch(batch, 100)
+    assert got == ShardedSearchEngine(idx, ["cpu"] * 4, heavy_min=256).score_batch(batch, 100)
+    assert list(eng.score_stream([batch, batch[:7]], top_k=100)) == [got, got[:7]]
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_card_with_empty_shards(cuda):
+    """Ten docs over four shards: every doc in shard 0, three empty."""
+    from improving_learned_index_tpu_torch.search import ShardedSearchEngine
+
+    idx, _ = _zipf_index(10, n_terms=6, seed=2)
+    batch = [{"t0", "t1"}, {"t2", "t5"}, {"t4"}, {"zz"}]
+    for heavy_min in (3, 10**9):  # the empty shards: all-zero dense rows, then no inputs at all
+        eng = ShardedSearchEngine(idx, ["cuda:0"] * 4, heavy_min=heavy_min)
+        assert eng.shard_docs == 128 and [s.doc_ids.numel() for s in eng.shards[1:]] == [0] * 3
+        got = eng.score_batch(batch, 7)
+        assert any(got) and got == HybridSearchEngine(idx, heavy_min=3, device="cpu").score_batch(batch, 7)
+
+
+@pytest.mark.cuda
+def test_data_parallel_encode_on_card_equals_single(cuda):
+    """``DeepImpact(devices=["cuda:0"] * 2)`` against the single-device
+    route on the same weights (S=128, the kernel route): identical term
+    lists, impacts within the encode rule, ``short_attention`` launched
+    once a layer for each part."""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models import DeepImpact
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    rng = np.random.default_rng(7)
+    words = [f"w{i}" for i in range(300)]
+    docs = [" ".join(rng.choice(words, rng.integers(3, 60))) for _ in range(40)]
+    vocab = WordPieceVocab.build(docs, max_size=512)
+    tok = ImpactTokenizer(vocab, max_length=128)
+    cfg = EncoderConfig.tiny(vocab_size=len(vocab))
+    single = DeepImpact(cfg, tok, seed=0, device="cuda")
+    two = DeepImpact(cfg, tok, seed=0, devices=["cuda:0"] * 2)
+    encs = [tok.process_document(d) for d in docs]
+    a0 = sa.KERNEL.launches
+    got, terms = two.encode_term_scores(encs)
+    assert sa.KERNEL.launches - a0 == cfg.num_layers * 2
+    want, want_terms = single.encode_term_scores(encs)
+    assert terms == want_terms
+    valid = np.arange(got.shape[1])[None, :] < np.array([len(t) for t in terms])[:, None]
+    _impacts_close(got[valid], want[valid])
+    packed = two.get_impact_scores_batch_packed(docs, rows=8)
+    packed_one = single.get_impact_scores_batch_packed(docs, rows=8)
+    assert [[t for t, _ in d] for d in packed] == [[t for t, _ in d] for d in packed_one]
+    _impacts_close([v for d in packed for _, v in d], [v for d in packed_one for _, v in d])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("devices", [["cuda:0", "cpu"], ["cpu", "cuda:0"]])
+def test_data_parallel_encode_across_card_and_cpu_equals_single(cuda, devices):
+    """``DeepImpact`` over the card and the CPU (one fp32 model, 2 heads of
+    64, S=128): a real replica on the second device, each part launched
+    with its own device current (the card's part through the kernel, one
+    launch a layer), the parts gathered on ``devices[0]``; term lists
+    identical to the one-module routes, impacts within the encode rule of
+    the card's route and of the CPU's."""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models import DeepImpact
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    rng = np.random.default_rng(9)
+    words = [f"w{i}x" for i in range(80)]
+    docs = [" ".join(rng.choice(words, int(rng.integers(3, 60)))) for _ in range(24)]
+    tok = ImpactTokenizer(WordPieceVocab.build(docs, max_size=200), max_length=128)
+    config = EncoderConfig(vocab_size=len(tok.vocab), hidden_size=128, num_layers=2, num_heads=2,
+                           intermediate_size=256, max_position_embeddings=128, dtype="float32")
+    card = DeepImpact(config, tok, seed=0, device="cuda:0")
+    weights = {k: v.cpu() for k, v in card.module.state_dict().items()}
+    cpu = DeepImpact(config, tok, state_dict=weights, device="cpu")
+    mixed = DeepImpact(config, tok, state_dict=weights, devices=devices)
+    assert len(mixed._replicas) == 2 and mixed.device == torch.device(devices[0])
+    encs = [tok.process_document(d) for d in docs]
+    a0 = sa.KERNEL.launches
+    got, terms = mixed.encode_term_scores(encs)
+    assert sa.KERNEL.launches - a0 == config.num_layers
+    valid = np.arange(got.shape[1])[None, :] < np.array([len(t) for t in terms])[:, None]
+    for one in (card, cpu):
+        want, want_terms = one.encode_term_scores(encs)
+        assert terms == want_terms
+        _impacts_close(got[valid], want[valid])
+    packed = mixed.get_impact_scores_batch_packed(docs, rows=8)
+    for one in (card, cpu):
+        packed_one = one.get_impact_scores_batch_packed(docs, rows=8)
+        assert [[t for t, _ in d] for d in packed] == [[t for t, _ in d] for d in packed_one]
+        _impacts_close([v for d in packed for _, v in d], [v for d in packed_one for _, v in d])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("devices", [["cuda:0", "cpu"], ["cpu", "cuda:0"]])
+def test_sharded_engine_across_card_and_cpu_equals_hybrid(cuda, devices):
+    """Two shards, one on the card (its kernels) and one on the CPU (the
+    plain versions), merged on ``devices[0]``: the single hybrid engine's
+    ranked lists."""
+    from improving_learned_index_tpu_torch.search import ShardedSearchEngine
+
+    idx, rng = _zipf_index(20_000)
+    batch = [{f"t{t}" for t in rng.choice(200, 4, replace=False)} for _ in range(40)]
+    batch += [set(), {"t0"}, {"t150"}, {"zz"}]
+    eng = ShardedSearchEngine(idx, devices, heavy_min=256)
+    assert eng.t_heavy > 0 and [s.use_kernels for s in eng.shards] == [d == "cuda:0" for d in devices]
+    g0, s0 = gr.KERNEL.launches, ss.KERNEL.launches
+    got = eng.score_batch(batch, 100)
+    assert gr.KERNEL.launches - g0 == 1 and ss.KERNEL.launches - s0 == 1
+    assert got == HybridSearchEngine(idx, heavy_min=256, device="cuda").score_batch(batch, 100)
