@@ -4,8 +4,10 @@ scale, every query engine on the same index, the encode path, training,
 the in-memory eval and the rerankers at BERT-base width, then the index
 lifecycle: the binary impact store at BERT-base, the index algebra and the
 serving daemons (shard router, staged hot swap) on the MS MARCO-scale index,
-and last the multi-device paths (doc-sharded engine, data-parallel encode)
-with one card standing in for several.
+then the multi-device paths (doc-sharded engine, data-parallel encode)
+with one card standing in for several, and last the host-side remainder:
+data-prep scripts, async snapshots, a JAX-format checkpoint through the
+encode and query paths, term-pair attention and the gated tokenizer routes.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -206,6 +208,38 @@ Phases, in order; any failed check raises and the script exits non-zero:
    identical term lists, impacts within phase 7's rule, ``short_attention``
    12 launches a part; docs/s of both routes.  Last
    ``parallel.dryrun_multidevice(["cuda:0"] * 2)``.
+14. The host-side remainder and JAX checkpoints, in phase 6's work
+   directory (its 32,768 passages and vocabulary, phase 7's seeded trunk;
+   BERT-base, S=256, B=512).  (1) The port's data-prep scripts through
+   their ``main``s on seeded queries, qrels, mined negatives, duplicates
+   and expansions: ``prepare_dataset``, ``create_unique_passage_mapping``,
+   ``construct_hard_neg_dataset``, ``create_training_files``,
+   ``create_passages``, ``preprocess_passages``; each output equal to a
+   plain recount of its inputs (rows, dropped duplicates, the token budget,
+   windows, kept terms) and a second run's bytes.  (2) A ``Trainer`` at
+   phase 8's geometry on the prepared triples, 8 packed steps, with
+   ``AsyncCheckpointManager`` (a snapshot every 2 steps) in place of its
+   manager: ``short_attention`` 12 launches a step; every snapshot reloads
+   equal to the state at its ``on_step``; then the synchronous manager in
+   a second run, handed the first run's states and metrics at the same
+   calls, writes the same stems and ``.meta.json``; each step's seconds
+   under both.  (3) The final params written as a flax msgpack (the JAX
+   ``CheckpointManager``'s payload, through ``port_params_to_flax``) and
+   read back equal; ``cli.index --checkpoint`` on it (768 launches, text
+   and store outputs) and on the ``.pt``: byte-equal forward indexes, then
+   ``cli.quantize``, ``cli.invert`` and ``cli.rank`` (``gather_rows``,
+   ``scatter_scores`` and ``count_ge`` must launch) with byte-equal
+   indexes and runs; ``cli.convert_to_anserini`` on the text and the store
+   gives 32,768 equal JSONL lines.  (4) ``extract_term_pair_attention``
+   over 64 passages: every pair the max of both directions of the
+   ``output_attentions`` maps, in [0, 1], no ``short_attention`` launch.
+   (5) The optional tokenizer routes: ``cli.index --segmenter vncorenlp``
+   (and ``--hf_tokenizer`` where ``transformers`` is missing), in a
+   process of its own, exits non-zero with an ``ImportError`` naming the
+   package; where ``transformers`` is installed, ``cli.index
+   --hf_tokenizer`` (a BERT tokenizer directory of phase 6's vocabulary)
+   over 2,048 passages encodes each as the WordPiece route does and writes
+   the ``--vocab_path`` route's forward index byte for byte.
 
 The second-to-last line is the ``kernels`` JSON object (five rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
@@ -216,13 +250,15 @@ the pairwise routes (0), ``cli.index --store_path`` and its resume;
 in-process ``RetrievalServer``; ``scatter_scores`` and ``count_ge`` over
 their paths and that server too; the shard daemons' launches happen in
 processes of their own and are not counted; phase 13's sharded engine and
-data-parallel encode add a path each), the last line ``{"ok": true,
+data-parallel encode add a path each, phase 14 its trainer, its
+``cli.index`` routes, its term pairs (0) and its ``cli.rank``), the last line ``{"ok": true,
 "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 import queue
@@ -297,6 +333,16 @@ LIFECYCLE = SimpleNamespace(shards=4, delete_share=0.01, planted_deletes=64, cli
 # cards), phase 4's queries at k=1000; the data-parallel encode over 2
 # replicas for 4 of phase 6's batches.
 MULTI = SimpleNamespace(shards=4, replicas=2, encode_batches=4, k=1000, device="cuda:0")
+# The host-side remainder (phase 14) in phase 6's work directory: 256 seeded
+# queries of one relevant passage each and a first-stage run of 24 others,
+# 512 duplicated pids, expansions for 4,096 passages (a 128-token budget, 16
+# terms), MaxP windows of 64 words every 32, the 30 most frequent words as
+# stopwords; 8 packed steps at phase 8's geometry with snapshots every 2
+# steps (BERT-base: 1.3 GB each with AdamW's state); term pairs of 64
+# passages; the HF tokenizer route over 2,048 passages.
+REMAINDER = SimpleNamespace(queries=256, candidates=24, duplicates=512, expanded_docs=4096, token_budget=128,
+                            expansion_terms=16, window=64, stride=32, stopwords=30, steps=8, save_every=2,
+                            pair_docs=64, hf_docs=2048, seed=6, device="cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
@@ -3133,6 +3179,613 @@ def run_multidevice(cfg, workdir: Path, inputs, query_qps: float) -> dict:
     return out
 
 
+# -- the host-side remainder and JAX checkpoints ----------------------------------
+
+
+def port_params_to_flax(state_dict: dict, config) -> dict:
+    """The inverse of ``models.hf_import.flax_params_to_port``: a port
+    ``DeepImpact`` state dict as the JAX package's flax parameter tree (fp32
+    numpy, in the JAX init's key order), the tree its checkpoints hold."""
+    h, heads = config.hidden_size, config.num_heads
+
+    def g(key):
+        return np.ascontiguousarray(state_dict[key].detach().float().cpu().numpy())
+
+    def norm(key):
+        return {"scale": g(f"{key}.weight"), "bias": g(f"{key}.bias")}
+
+    def dense(key):
+        return {"kernel": np.ascontiguousarray(g(f"{key}.weight").T), "bias": g(f"{key}.bias")}
+
+    emb = "encoder.embeddings"
+    enc = {"embeddings": {
+        "word_embeddings": {"embedding": g(f"{emb}.word_embeddings.weight")},
+        "position_embeddings": {"embedding": g(f"{emb}.position_embeddings.weight")},
+        "token_type_embeddings": {"embedding": g(f"{emb}.token_type_embeddings.weight")},
+        "layer_norm": norm(f"{emb}.layer_norm"),
+    }}
+    for i in range(config.num_layers):
+        p = f"encoder.layers.{i}"
+        attention = {}
+        for name in ("query", "key", "value"):  # [H, heads, head_dim]
+            d = dense(f"{p}.attention.{name}")
+            attention[name] = {"kernel": d["kernel"].reshape(h, heads, h // heads),
+                               "bias": d["bias"].reshape(heads, h // heads)}
+        d = dense(f"{p}.attention.output_dense")  # [heads, head_dim, H]
+        attention["output_dense"] = {"kernel": d["kernel"].reshape(heads, h // heads, h), "bias": d["bias"]}
+        enc[f"layer_{i}"] = {"attention": attention, "attention_norm": norm(f"{p}.attention_norm"),
+                             "intermediate": dense(f"{p}.intermediate"), "output": dense(f"{p}.output"),
+                             "output_norm": norm(f"{p}.output_norm")}
+    return {"encoder": enc, "impact_head": {"dense": dense("impact_head.dense")}}
+
+
+def clone_state(params: dict, opt_state) -> tuple:
+    """A copy of a training state on its own device (the live state_dict
+    tensors change in place at the next optimizer step)."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone()
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(v) for v in x)
+        return x
+
+    return copy(params), copy(opt_state)
+
+
+def same_state(got, want, what: str) -> None:
+    """Exact equality of two state trees (tensors compared on the host)."""
+    if isinstance(want, torch.Tensor):
+        if not (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and torch.equal(got.cpu(), want.cpu())):
+            raise AssertionError(f"{what}: a tensor differs from the state at its on_step")
+    elif isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{what}: keys differ")
+        for k in want:
+            same_state(got[k], want[k], f"{what}/{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: lengths differ")
+        for i, (a, b) in enumerate(zip(got, want)):
+            same_state(a, b, f"{what}/{i}")
+    elif got != want:
+        raise AssertionError(f"{what}: {got!r} != {want!r}")
+
+
+def snapshot_files(d: Path) -> tuple:
+    """(stems of the payloads, {meta file: contents}) of a checkpoint directory."""
+    stems = sorted(p.name[: -len(".pt")] for p in d.glob("*.pt"))
+    metas = {p.name: json.loads(p.read_text()) for p in sorted(d.glob("*.meta.json"))}
+    return stems, metas
+
+
+def step_seconds(times: list, save_every: int) -> dict:
+    """Seconds of each step from the on_step return times (steps 2..N): the
+    saving steps and the plain ones after the first two."""
+    step_s = [b - a for a, b in zip(times, times[1:])]
+    return {"step_s": step_s,
+            "plain_step_s": [d for i, d in enumerate(step_s[1:], start=3) if i % save_every],
+            "saving_step_s": [d for i, d in enumerate(step_s, start=2) if not i % save_every]}
+
+
+def window_count(n_words: int, window: int, stride: int) -> int:
+    """Passages of a document of ``n_words`` words (search.maxp.make_passages)."""
+    return 1 if n_words <= window else 1 + -(-(n_words - window) // stride)
+
+
+def write_prep_inputs(d: Path, texts: list, cfg) -> dict:
+    """Seeded inputs of the data-prep scripts over the collection ``texts``
+    (pid = index): queries of 3-4 words of their one relevant passage, a
+    first-stage run of ``cfg.candidates`` others a query (mined negatives
+    from two systems that overlap), the collection with ``cfg.duplicates``
+    repeated pids appended, expansions for the first ``cfg.expanded_docs``
+    passages, and stopwords (the most frequent words and two negations)."""
+    from collections import Counter
+
+    rng = np.random.default_rng(cfg.seed)
+    n = len(texts)
+    pos = rng.choice(n, cfg.queries, replace=False)
+    queries, negs = [], []
+    for p in pos:
+        words = [w.rstrip(".") for w in texts[p].split()]
+        pick = rng.choice(len(words), size=min(len(words), int(rng.integers(3, 5))), replace=False)
+        queries.append(" ".join(words[j] for j in sorted(pick)))
+        cands = (p + 1 + rng.choice(n - 1, cfg.candidates, replace=False)) % n
+        negs.append([str(c) for c in cands])
+    (d / "queries.tsv").write_text("".join(f"q{i}\t{q}\n" for i, q in enumerate(queries)), encoding="utf-8")
+    (d / "qrels.tsv").write_text("".join(f"q{i}\t0\t{p}\t1\n" for i, p in enumerate(pos)), encoding="utf-8")
+    half = 2 * cfg.candidates // 3
+    with open(d / "negatives.jsonl", "w", encoding="utf-8") as f:
+        for i, (p, c) in enumerate(zip(pos, negs)):
+            f.write(json.dumps({"qid": f"q{i}", "pos": [str(p)],
+                                "neg": {"run": c[:half], "other": c[half // 2:]}}) + "\n")
+    dup = rng.choice(n, cfg.duplicates, replace=False)
+    with open(d / "collection_dups.tsv", "w", encoding="utf-8") as f:
+        f.write("".join(f"{i}\t{t}\n" for i, t in enumerate(texts)))
+        f.write("".join(f"{p}\tduplicate {j} of {p}\n" for j, p in enumerate(dup)))
+    vocab_words = np.array([w.rstrip(".") for t in texts[: 4 * cfg.expanded_docs] for w in t.split()])
+    with open(d / "expansions.jsonl", "w", encoding="utf-8") as f:
+        for i in range(cfg.expanded_docs):
+            qs = [" ".join(rng.choice(vocab_words, int(rng.integers(3, 6)))) for _ in range(3)]
+            f.write(json.dumps({"doc_id": str(i), "queries": qs}) + "\n")
+    counts = Counter(w for t in texts for w in t.lower().replace(".", " ").split())
+    stop = [w for w, _ in counts.most_common(cfg.stopwords)] + ["not", "no"]
+    (d / "stopwords.txt").write_text("".join(f"{w}\n" for w in stop), encoding="utf-8")
+    return {"pos": pos.tolist(), "queries": queries, "negs": negs, "stop": set(stop)}
+
+
+def run_data_prep(cfg, workdir: Path, texts: list) -> dict:
+    """Phase 14, part 1: the port's data-prep scripts on the card's machine,
+    each output checked against a plain recount of its inputs and each
+    script run twice into two directories with the same bytes out."""
+    import re
+
+    from improving_learned_index_tpu_torch.scripts import (
+        construct_hard_neg_dataset,
+        create_passages,
+        create_training_files,
+        create_unique_passage_mapping,
+        prepare_dataset,
+        preprocess_passages,
+    )
+
+    d = workdir / "prep"
+    d.mkdir()
+    t0 = time.perf_counter()
+    inp = write_prep_inputs(d, texts, cfg)
+    coll = workdir / "collection.tsv"
+    runs = {
+        "prepare_dataset": (prepare_dataset, lambda o: [
+            "--qrels_path", d / "qrels.tsv", "--queries_path", d / "queries.tsv",
+            "--collection_path", coll, "--output_path", o / "pairs.tsv"]),
+        "create_unique_passage_mapping": (create_unique_passage_mapping, lambda o: [
+            "--collection_path", d / "collection_dups.tsv", "--output_path", o / "unique.tsv"]),
+        "construct_hard_neg_dataset": (construct_hard_neg_dataset, lambda o: [
+            "--negatives_path", d / "negatives.jsonl", "--output_path", o / "triples.tsv",
+            "--seed", str(cfg.seed)]),
+        "create_training_files": (create_training_files, lambda o: [
+            "--doc_mapping", coll, "--expansions_path", d / "expansions.jsonl",
+            "--output_docs_tsv", o / "expanded.tsv", "--output_expansion_csv", o / "expansion_terms.csv",
+            "--max_length", str(cfg.token_budget), "--max_expansion_terms", str(cfg.expansion_terms)]),
+        "create_passages": (create_passages, lambda o: [
+            "--collection_path", coll, "--output_collection", o / "passages.tsv",
+            "--output_mapping", o / "pid_mapping.txt", "--expansions_path", d / "expansions.jsonl",
+            "--window", str(cfg.window), "--stride", str(cfg.stride)]),
+        "preprocess_passages": (preprocess_passages, lambda o: [
+            "--collection_path", coll, "--output_path", o / "preprocessed.tsv",
+            "--stopwords_path", d / "stopwords.txt"]),
+    }
+    seconds = {"inputs": time.perf_counter() - t0}
+    for name, (mod, argv) in runs.items():
+        t0 = time.perf_counter()
+        for run in ("a", "b"):
+            o = d / run
+            o.mkdir(exist_ok=True)
+            if mod.main([str(x) for x in argv(o)]) != 0:
+                raise AssertionError(f"scripts.{name} returned non-zero")
+        seconds[name] = (time.perf_counter() - t0) / 2
+    a, b = d / "a", d / "b"
+    names = sorted(p.name for p in a.iterdir())
+    for name in names:
+        if not files_equal(a / name, b / name):
+            raise AssertionError(f"data prep: a second run wrote other bytes to {name}")
+
+    # plain recounts of the same inputs
+    n = len(texts)
+    want = "".join(f"{texts[p]}\t{q}\n" for p, q in zip(inp["pos"], inp["queries"]))
+    if (a / "pairs.tsv").read_text(encoding="utf-8") != want:
+        raise AssertionError("prepare_dataset: pairs differ from the qrels' passage/query pairs")
+    if not files_equal(a / "unique.tsv", coll):
+        raise AssertionError(f"create_unique_passage_mapping: {cfg.duplicates} appended duplicates "
+                             "not dropped back to the collection")
+    triples = [tuple(line.split("\t")) for line in (a / "triples.tsv").read_text().splitlines()]
+    want_triples = {(f"q{i}", str(p), c) for i, (p, negs) in enumerate(zip(inp["pos"], inp["negs"]))
+                    for c in set(negs[: 2 * cfg.candidates // 3]) | set(negs[cfg.candidates // 3:])}
+    if len(triples) != len(want_triples) or set(triples) != want_triples:
+        raise AssertionError(f"construct_hard_neg_dataset: {len(triples)} triples, want {len(want_triples)}")
+    raw = {str(i): t.split() for i, t in enumerate(texts)}
+    csv_rows = (a / "expansion_terms.csv").read_text(encoding="utf-8").splitlines()[1:]
+    expanded = (a / "expanded.tsv").read_text(encoding="utf-8").splitlines()
+    if len(expanded) != cfg.expanded_docs or len(csv_rows) != cfg.expanded_docs:
+        raise AssertionError(f"create_training_files: {len(expanded)} rows, want {cfg.expanded_docs}")
+    for line, row in zip(expanded, csv_rows):
+        doc_id, text = line.split("\t")
+        exp = row.split(",", 1)[1].strip('"').split()
+        words = raw[doc_id]
+        budget = cfg.token_budget - len(exp)
+        if (row.split(",", 1)[0] != doc_id or len(exp) > cfg.expansion_terms or len(set(exp)) != len(exp)
+                or set(exp) & set(words) or text.split() != words[:budget] + exp):
+            raise AssertionError(f"create_training_files: document {doc_id} breaks the token budget "
+                                 "or the dedupe against its words")
+    n_passages = sum(window_count(len(t.split()), cfg.window, cfg.stride) for t in texts)
+    passages = (a / "passages.tsv").read_text(encoding="utf-8").splitlines()
+    mapping = (a / "pid_mapping.txt").read_text(encoding="utf-8").splitlines()
+    if len(passages) != n_passages or len(mapping) != n_passages or mapping[0] != "0#0":
+        raise AssertionError(f"create_passages: {len(passages)} passages, want {n_passages}")
+    pre = (a / "preprocessed.tsv").read_text(encoding="utf-8").splitlines()
+    keep = preprocess_passages.DEFAULT_NEGATION_WHITELIST
+    terms = [w for t in texts for w in re.findall(r"\w+|[^\w\s]", t.lower())]
+    kept = sum(1 for w in terms if w not in inp["stop"] or w in keep)
+    if len(pre) != n or sum(len(line.split("\t")[1].split()) for line in pre) != kept:
+        raise AssertionError(f"preprocess_passages: {len(pre)} lines / kept terms differ from the "
+                             f"recount ({kept} terms)")
+    out = {"seconds": seconds, "outputs": names, "triples": len(triples), "pairs": cfg.queries,
+           "dropped_duplicates": cfg.duplicates, "expanded_docs": cfg.expanded_docs,
+           "passages": n_passages, "terms": len(terms), "terms_kept": kept, "relevant": inp["pos"]}
+    log(f"data prep: 6 scripts, each output equal to its recount and a second run's bytes; "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'relevant'})}")
+    return out
+
+
+def gated_route_failures(workdir: Path, device: str) -> list:
+    """Start ``cli.index`` on each optional tokenizer route whose package is
+    not installed (``--hf_tokenizer`` needs ``transformers``, ``--segmenter
+    vncorenlp`` needs ``py_vncorenlp``), in processes of their own: each
+    must exit non-zero with an ImportError naming its package.  Returns
+    (package, process) pairs."""
+    small = workdir / "gated.tsv"
+    small.write_text("0\tquick brown fox\n1\tlazy dog\n", encoding="utf-8")
+    base = [sys.executable, "-m", "improving_learned_index_tpu_torch.cli.index", "--collection_path",
+            str(small), "--tiny", "--max_length", "128", "--device", device]
+    env = dict(os.environ, PYTHONPATH=str(REPO), HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
+    routes = [("transformers", ["--hf_tokenizer", str(workdir), "--output_file_path", str(workdir / "g1.txt")]),
+              ("py_vncorenlp", ["--vocab_path", str(workdir / "vocab.txt"), "--segmenter", "vncorenlp",
+                                "--output_file_path", str(workdir / "g2.txt")])]
+    return [(pkg, subprocess.Popen(base + extra, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True))
+            for pkg, extra in routes if importlib.util.find_spec(pkg) is None]
+
+
+def hf_tokenizer_route(cfg, workdir: Path, ckpt: Path) -> dict:
+    """``cli.index --hf_tokenizer``, where ``transformers`` is installed: a
+    BERT tokenizer directory of phase 6's vocabulary (``vocab.txt`` and a
+    ``tokenizer_config.json``; a local directory, the hub switched off)
+    against the built-in WordPiece route
+    over the first ``cfg.hf_docs`` passages with the same checkpoint: both
+    tokenizers must encode every passage alike (ids, mask, term map), and
+    each passage gets the same forward-index line byte for byte."""
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"  # local directories only
+    import huggingface_hub.constants
+    import transformers
+
+    from improving_learned_index_tpu_torch.cli.index import main as index_main
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.ops import short_attention as sa
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+    from improving_learned_index_tpu_torch.text.hf_adapter import load_hf_tokenizer
+
+    huggingface_hub.constants.HF_HUB_OFFLINE = True
+    vocab = workdir / "vocab.txt"
+    # a BERT tokenizer directory as the hub keeps one: vocab.txt and its config
+    hf_dir = workdir / "hf_tokenizer"
+    hf_dir.mkdir()
+    shutil.copy(vocab, hf_dir / "vocab.txt")
+    (hf_dir / "tokenizer_config.json").write_text(
+        json.dumps({"tokenizer_class": "BertTokenizer", "do_lower_case": True}), encoding="utf-8")
+    head = workdir / "hf_head.tsv"
+    with open(workdir / "collection.tsv", encoding="utf-8") as f:
+        lines = list(islice(f, cfg.hf_docs))
+    head.write_text("".join(lines), encoding="utf-8")
+    common = ["--collection_path", str(head), "--max_length", str(ENCODE.max_length), "--model_batch_size",
+              str(ENCODE.batch), "--checkpoint", str(ckpt), "--device", cfg.device]
+    hf = load_hf_tokenizer(str(hf_dir), ENCODE.max_length)
+    out = {"transformers": transformers.__version__, "tokenizer": type(hf.tokenizer).__name__,
+           "tokenizer_vocab": len(hf.tokenizer)}
+    for route, flags in (("hf_tokenizer", ["--hf_tokenizer", str(hf_dir)]), ("vocab_path", ["--vocab_path", str(vocab)])):
+        sa.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        index_main(common + flags + ["--output_file_path", str(workdir / f"forward.{route}.txt")])
+        torch.cuda.synchronize()
+        out[route] = {"seconds": time.perf_counter() - t0, "launches": sa.KERNEL.launches}
+    want = EncoderConfig.bert_base().num_layers * -(-cfg.hf_docs // ENCODE.batch)
+    if out["hf_tokenizer"]["launches"] != want:
+        raise AssertionError(f"cli.index --hf_tokenizer: {out['hf_tokenizer']['launches']} launches, want {want}")
+
+    wp = ImpactTokenizer(WordPieceVocab.load(vocab), max_length=ENCODE.max_length)
+    for i, line in enumerate(lines):  # tests/test_tokenizer_fidelity.py's contract, per passage
+        text = line.split("\t", 1)[1].rstrip("\n")
+        a, b = wp.process_document(text), hf.process_document(text)
+        if (a.ids, a.attention_mask, a.term_to_token_index) != (b.ids, b.attention_mask, b.term_to_token_index):
+            j = next((k for k, (x, y) in enumerate(zip(a.ids, b.ids)) if x != y), len(a.ids))
+            raise AssertionError(f"the HF tokenizer encodes passage {i} otherwise than the WordPiece route: "
+                                 f"ids {a.ids[:j + 4]} vs {b.ids[:j + 4]}; {json.dumps(out)}")
+    if not files_equal(workdir / "forward.hf_tokenizer.txt", workdir / "forward.vocab_path.txt"):
+        raise AssertionError("cli.index --hf_tokenizer wrote another forward index than --vocab_path")
+    log(f"cli.index --hf_tokenizer (transformers {transformers.__version__}): {cfg.hf_docs} passages "
+        f"encoded as by the WordPiece route, their lines byte-equal to --vocab_path's; {json.dumps(out)}")
+    return out
+
+
+def run_remainder(cfg, workdir: Path) -> dict:
+    """Phase 14: the host-side remainder and JAX checkpoints on the card, in
+    phase 6's work directory (its passages, vocabulary and phase 7's seeded
+    BERT-base trunk), at S=256, B=512."""
+    log("== phase 14: data prep, async snapshots, a JAX-format checkpoint through the encode and "
+        "query paths, term-pair attention, gated routes")
+    t_phase = time.perf_counter()
+    texts = [line.split("\t", 1)[1].rstrip("\n") for line in open(workdir / "collection.tsv", encoding="utf-8")]
+    if importlib.util.find_spec("py_vncorenlp") is not None:
+        raise AssertionError("py_vncorenlp is installed: its route needs a VnCoreNLP model directory "
+                             "that the repository does not hold")
+    gated = gated_route_failures(workdir, cfg.device)
+    try:
+        return remainder_checks(cfg, workdir, texts, gated, t_phase)
+    finally:
+        for _, proc in gated:
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+
+
+def remainder_checks(cfg, workdir: Path, texts: list, gated: list, t_phase: float) -> dict:
+    """Phase 14's parts 1-5 (``run_remainder`` starts the gated routes'
+    processes and stops them)."""
+    from improving_learned_index_tpu_torch.analysis import extract_term_pair_attention
+    from improving_learned_index_tpu_torch.cli.convert_to_anserini import main as anserini_main
+    from improving_learned_index_tpu_torch.cli.index import main as index_main
+    from improving_learned_index_tpu_torch.cli.invert import main as invert_main
+    from improving_learned_index_tpu_torch.cli.quantize import main as quantize_main
+    from improving_learned_index_tpu_torch.cli.rank import main as rank_main
+    from improving_learned_index_tpu_torch.core import flax_msgpack
+    from improving_learned_index_tpu_torch.core.async_checkpoint import AsyncCheckpointManager
+    from improving_learned_index_tpu_torch.core.checkpoint import load_params
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig, TrainConfig
+    from improving_learned_index_tpu_torch.data.datasets import MSMarcoTriples
+    from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
+    from improving_learned_index_tpu_torch.ops import short_attention as sa
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+    from improving_learned_index_tpu_torch.train import COLLATES, Trainer
+    from improving_learned_index_tpu_torch.train.packed import pack_collated
+
+    kernels = all_kernels()
+    config = EncoderConfig.bert_base()
+    coll, vocab_path, bert = workdir / "collection.tsv", workdir / "vocab.txt", workdir / "bert"
+    out = {"prep": run_data_prep(cfg, workdir, texts)}
+    seconds, launches = {}, {}
+
+    # 2. async snapshots: a Trainer at phase 8's geometry on the prepared
+    # triples, AsyncCheckpointManager in place of its manager (run B), then
+    # the synchronous manager (run A) handed run B's states and metrics at
+    # the same on_step calls: the same files must come out
+    max_length = ENCODE.max_length
+    tok = ImpactTokenizer(WordPieceVocab.load(vocab_path), max_length=max_length)
+    dataset = MSMarcoTriples(workdir / "prep" / "a" / "triples.tsv", workdir / "prep" / "queries.tsv", coll)
+    groups = TRAIN.groups
+    t0 = time.perf_counter()
+    batches = [pack_collated(COLLATES["pairwise_ce"]([dataset[i] for i in range(j, j + groups)], tok, max_length))
+               for j in range(0, cfg.steps * groups, groups)]
+    seconds["collate"] = time.perf_counter() - t0
+    # no best snapshot: every other step writes, the rest are plain steps
+    tcfg = TrainConfig(batch_size=groups, save_every=cfg.save_every, save_best=False, eval_every=10**9)
+    weights = load_hf_checkpoint(bert, config)
+    calls, finals, times = [], {}, {"async": [], "sync": []}
+
+    trainer = Trainer(DeepImpact(config, tok, state_dict=weights, device=cfg.device), tcfg,
+                      workdir / "ckpt_async")
+    sync_mgr = trainer.manager
+    mgr = AsyncCheckpointManager(sync_mgr.checkpoint_dir, name=sync_mgr.name, save_every=sync_mgr.save_every,
+                                 save_best=sync_mgr.save_best, batch_size=sync_mgr.batch_size)
+    trainer.manager = mgr
+    inner_step, inner_save = mgr.on_step, mgr.save
+
+    def on_step_b(params, opt_state=None, metric=None):
+        # the state at a call that saves, kept on the card (a clone takes ~1 ms)
+        saves = [str(mgr.step + 1), "latest"] if (mgr.step + 1) % mgr.save_every == 0 else []
+        if mgr.save_best and metric is not None and metric < mgr.best_metric:
+            saves.append("best")
+        state = clone_state(params, opt_state) if saves else None
+        inner_step(params, opt_state, metric)
+        times["async"].append(time.perf_counter())
+        calls.append({"saves": saves, "metric": metric, "state": state})
+
+    def save_b(suffix, params, opt_state=None, metric=None):
+        finals[suffix] = clone_state(params, opt_state)
+        inner_save(suffix, params, opt_state, metric)
+
+    mgr.on_step, mgr.save = on_step_b, save_b
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    trainer.train(batches)
+    seconds["train_async"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.wait()
+    seconds["final_wait"] = time.perf_counter() - t0
+    launches["Trainer (async snapshots)"] = sa.KERNEL.launches
+    if sa.KERNEL.launches != config.num_layers * cfg.steps:
+        raise AssertionError(f"async run: short_attention launched {sa.KERNEL.launches} times, "
+                             f"want {config.num_layers * cfg.steps}")
+    del trainer, mgr
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(DeepImpact(config, tok, state_dict=weights, device=cfg.device), tcfg,
+                      workdir / "ckpt_sync")
+    sync_mgr = trainer.manager
+    inner_step_a, inner_save_a = sync_mgr.on_step, sync_mgr.save
+    replay = iter(calls)
+
+    def on_step_a(params, opt_state=None, metric=None):
+        rec = next(replay)
+        if rec["state"] is not None:
+            params, opt_state = rec["state"]
+        inner_step_a(params, opt_state, rec["metric"])
+        times["sync"].append(time.perf_counter())
+
+    def save_a(suffix, params, opt_state=None, metric=None):
+        if suffix in finals:  # Trainer.train's final save
+            params, opt_state = finals[suffix]
+        inner_save_a(suffix, params, opt_state, metric)
+
+    sync_mgr.on_step, sync_mgr.save = on_step_a, save_a
+    sa.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    trainer.train(batches)
+    seconds["train_sync"] = time.perf_counter() - t0
+    launches["Trainer (sync snapshots)"] = sa.KERNEL.launches
+    del trainer, weights, batches
+    torch.cuda.empty_cache()
+
+    got, want = snapshot_files(workdir / "ckpt_async"), snapshot_files(workdir / "ckpt_sync")
+    if got != want:
+        raise AssertionError(f"async snapshots {got} differ from the synchronous manager's {want}")
+    by_suffix = {s: c["state"] for c in calls for s in c["saves"]}
+    by_suffix.update(finals)
+    if sorted(by_suffix) != sorted(s.split("_", 1)[1] for s in got[0]):
+        raise AssertionError(f"snapshots {got[0]}, want those of {sorted(by_suffix)}")
+    t0 = time.perf_counter()
+    for suffix, (params, opt_state) in by_suffix.items():
+        payload = torch.load(workdir / "ckpt_async" / f"DeepImpact_{suffix}.pt", map_location="cpu",
+                             weights_only=True)
+        same_state(payload["params"], params, f"snapshot {suffix} params")
+        same_state(payload["opt_state"], opt_state, f"snapshot {suffix} optimizer state")
+    seconds["reload_check"] = time.perf_counter() - t0
+    snaps = {"stems": got[0], "metas": got[1],
+             "async": step_seconds(times["async"], cfg.save_every),
+             "sync": step_seconds(times["sync"], cfg.save_every)}
+    log(f"async snapshots: {len(got[0])} files, stems and .meta.json equal to the synchronous manager's, "
+        f"every snapshot equal to the state at its on_step; {json.dumps(snaps)}")
+    out["snapshots"] = snaps
+    final_params = finals["final"][0]
+    del calls, finals, by_suffix
+    torch.cuda.empty_cache()
+
+    # 3. the final params as a JAX-format checkpoint (the manager's payload)
+    pt = workdir / "ckpt_async" / "DeepImpact_final.pt"
+    mp = workdir / "DeepImpact_final.msgpack"
+    t0 = time.perf_counter()
+    flax_msgpack.write(mp, {"params": port_params_to_flax(final_params, config)})
+    seconds["msgpack_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_mp = load_params(mp, config)
+    seconds["msgpack_load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_pt = load_params(pt, config)
+    seconds["pt_load"] = time.perf_counter() - t0
+    same_state(dict(from_mp), {k: v.cpu() for k, v in final_params.items()}, "msgpack params")
+    same_state(dict(from_mp), dict(from_pt), "msgpack vs .pt params")
+    del from_mp, from_pt, final_params
+    log(f"{mp.name}: {mp.stat().st_size / 1e6:.1f} MB written in {seconds['msgpack_write']:.2f} s, loaded in "
+        f"{seconds['msgpack_load']:.2f} s (.pt {seconds['pt_load']:.2f} s), equal to the trained params")
+
+    common = ["--collection_path", str(coll), "--vocab_path", str(vocab_path), "--max_length", str(max_length),
+              "--model_batch_size", str(ENCODE.batch), "--device", cfg.device]
+    routes = {}
+    for route, ckpt in (("msgpack", mp), ("pt", pt)):
+        r = workdir / f"route_{route}"
+        r.mkdir()
+        extra = ["--store_path", str(r / "forward.store")] if route == "msgpack" else []
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        index_main(common + ["--checkpoint", str(ckpt), "--output_file_path", str(r / "forward.txt")] + extra)
+        torch.cuda.synchronize()
+        seconds[f"cli_index_{route}"] = time.perf_counter() - t0
+        n_attn = sa.KERNEL.launches
+        want_attn = config.num_layers * -(-len(texts) // ENCODE.batch)
+        if n_attn != want_attn:
+            raise AssertionError(f"cli.index --checkpoint {ckpt.name}: short_attention launched {n_attn} "
+                                 f"times, want {want_attn}")
+        quantize_main(["-i", str(r / "forward.txt"), "-o", str(r / "forward.q.txt")])
+        invert_main(["-i", str(r / "forward.q.txt"), "-o", str(r / "index")])
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        rank_main(["--index_path", str(r / "index"), "--queries_path", str(workdir / "prep" / "queries.tsv"),
+                   "--output_path", str(r / "run.tsv"), "--vocab_path", str(vocab_path), "--top_k", "1000",
+                   "--device", cfg.device])
+        torch.cuda.synchronize()
+        seconds[f"cli_rank_{route}"] = time.perf_counter() - t0
+        routes[route] = {"short_attention": n_attn, **{k.name: k.launches for k in kernels
+                                                        if k.name != "short_attention"}}
+    r_mp, r_pt = workdir / "route_msgpack", workdir / "route_pt"
+    if not files_equal(r_mp / "forward.txt", r_pt / "forward.txt"):
+        raise AssertionError("cli.index from the .msgpack wrote another forward index than from the .pt")
+    same_index_files(r_mp / "index", r_pt / "index", "msgpack route vs .pt route")
+    if not files_equal(r_mp / "run.tsv", r_pt / "run.tsv"):
+        raise AssertionError("cli.rank over the msgpack-built index wrote another run than the .pt route's")
+    for name in ("gather_rows", "scatter_scores", "count_ge"):
+        if routes["msgpack"][name] == 0:
+            raise AssertionError(f"cli.rank (msgpack route): {name} never launched")
+    ranked = {}
+    for line in (r_mp / "run.tsv").read_text().splitlines():
+        qid, pid = line.split("\t")[:2]
+        ranked.setdefault(qid, []).append(pid)
+    top10 = [ranked.get(f"q{i}", [])[:10] for i in range(cfg.queries)]
+    mrr = float(np.mean([1.0 / (t.index(str(p)) + 1) if str(p) in t else 0.0
+                         for t, p in zip(top10, out["prep"]["relevant"])]))
+    launches["cli.index (msgpack)"] = routes["msgpack"]["short_attention"]
+    launches["cli.index (.pt, phase 14)"] = routes["pt"]["short_attention"]
+    log(f"cli.index --checkpoint {mp.name} and {pt.name}: byte-equal forward indexes, indexes and runs "
+        f"({len(texts)} passages, {cfg.queries} queries, MRR@10 {mrr:.4f}); launches {json.dumps(routes)}")
+
+    for src, name in ((r_mp / "forward.txt", "text"), (r_mp / "forward.store", "store")):
+        t0 = time.perf_counter()
+        anserini_main(["-i", str(src), "-o", str(workdir / f"anserini.{name}.jsonl")])
+        seconds[f"anserini_{name}"] = time.perf_counter() - t0
+    a_text, a_store = workdir / "anserini.text.jsonl", workdir / "anserini.store.jsonl"
+    n_lines = sum(1 for _ in open(a_text, encoding="utf-8"))
+    if n_lines != len(texts) or not files_equal(a_text, a_store):
+        raise AssertionError(f"cli.convert_to_anserini: {n_lines} lines, or the store's JSONL differs")
+    first = json.loads(open(a_text, encoding="utf-8").readline())
+    if first["id"] != 0 or first["contents"] != "" or not first["vector"]:
+        raise AssertionError(f"cli.convert_to_anserini: first line {first}")
+    log(f"cli.convert_to_anserini: {n_lines} equal JSONL lines from the forward index and the store")
+
+    # 4. term-pair attention with the trained model (plain attention: maps)
+    model = DeepImpact(config, tok, state_dict=load_params(pt, config), device=cfg.device)
+    docs = texts[: cfg.pair_docs]
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    pairs = extract_term_pair_attention(model, docs)
+    torch.cuda.synchronize()
+    seconds["term_pairs"] = time.perf_counter() - t0
+    launches["extract_term_pair_attention"] = sa.KERNEL.launches
+    if sa.KERNEL.launches:
+        raise AssertionError("extract_term_pair_attention launched short_attention (it needs the maps)")
+    encs = [model.process_document(doc) for doc in docs]
+    with torch.inference_mode():
+        ids, mask, types = (torch.from_numpy(np.asarray([getattr(e, k) for e in encs], np.int32)).to(cfg.device)
+                            for k in ("ids", "attention_mask", "type_ids"))
+        _, maps = model.module.encoder(ids, mask, types, use_kernels=model.use_kernels, output_attentions=True)
+        maps = torch.stack(maps).cpu().numpy()
+    n_pairs = 0
+    for b, (enc, doc_pairs) in enumerate(zip(encs, pairs)):
+        slot = enc.term_to_token_index
+        for (t1, t2), series in doc_pairs.items():
+            i, j = slot[t1], slot[t2]
+            if not (np.array_equal(series, np.maximum(maps[:, b, i, j], maps[:, b, j, i]))
+                    and series.min() >= 0 and series.max() <= 1):
+                raise AssertionError(f"term pair ({t1}, {t2}) of document {b}: {series}")
+            n_pairs += 1
+    out["term_pairs"] = {"docs": len(docs), "pairs": n_pairs, "seconds": seconds["term_pairs"],
+                         "max": float(max(s.max() for p in pairs for s in p.values()))}
+    log(f"term-pair attention: {json.dumps(out['term_pairs'])}, each the max of both directions of "
+        "the output_attentions maps, in [0, 1]; 0 short_attention launches")
+    del model, maps, pairs
+
+    # 5. the optional tokenizer routes: a missing package fails loudly; an
+    # installed transformers runs the HF tokenizer route
+    if importlib.util.find_spec("transformers") is not None:
+        out["hf_tokenizer"] = hf_tokenizer_route(cfg, workdir, pt)
+        launches["cli.index --hf_tokenizer"] = out["hf_tokenizer"]["hf_tokenizer"]["launches"]
+        launches["cli.index (its --vocab_path twin)"] = out["hf_tokenizer"]["vocab_path"]["launches"]
+    failures = {}
+    for pkg, proc in gated:
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode == 0 or "Error" not in err or pkg not in err:
+            raise AssertionError(f"the {pkg} route exited {proc.returncode} without an ImportError naming "
+                                 f"it: {err[-800:]}")
+        failures[pkg] = {"rc": proc.returncode, "error": err.strip().splitlines()[-1]}
+    log(f"gated routes: {json.dumps(failures)}")
+    out.update(seconds=seconds, launches=launches, routes=routes, mrr_at_10=mrr, gated=failures,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"phase 14 in {out['phase_s']:.1f} s; seconds {json.dumps(seconds)}")
+    return out
+
+
 def main() -> int:
     log("== phase 1: environment")
     if shutil.which("nvidia-smi"):
@@ -3169,12 +3822,18 @@ def main() -> int:
         rerank = run_rerank(RERANK, workdir, workdir / "ckpt" / "DeepImpact_final.pt")
         torch.cuda.empty_cache()
         store = run_store(STORE, workdir, encode["errors"]["tolerance"])
-        shutil.rmtree(workdir, ignore_errors=True)
+        # phase 14 reads phase 6's passages and vocabulary and phase 7's trunk
+        for p in workdir.iterdir():
+            if p.name not in ("collection.tsv", "vocab.txt", "bert"):
+                shutil.rmtree(p) if p.is_dir() else p.unlink()
         torch.cuda.empty_cache()
         inputs = query.pop("inputs")
         lifecycle = run_lifecycle(LIFECYCLE, qdir, inputs)
         torch.cuda.empty_cache()
         multi = run_multidevice(MULTI, qdir, inputs, query["qps"])
+        shutil.rmtree(qdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        remainder = run_remainder(REMAINDER, workdir)
     finally:
         for d in (qdir, workdir):
             shutil.rmtree(d, ignore_errors=True)
@@ -3187,19 +3846,23 @@ def main() -> int:
                                  **rerank.pop("launches"), **store["launches"]}
     a_row["launches_by_path"]["DeepImpact (2 replicas)"] = sum(
         e["launches"] for e in multi["encode"].values())
-    served, sharded = lifecycle["launches"], multi["launches"]
+    a_row["launches_by_path"].update(remainder["launches"])
+    served, sharded, rem = lifecycle["launches"], multi["launches"], remainder["routes"]["msgpack"]
     s_row["launches_by_path"] = {"cli.rank": s_row["launches"], "cli.nano_beir": nano_beir["scatter_scores"],
                                  "cli.train with eval": train_eval["scatter_scores"],
                                  "RetrievalServer (in-process)": served["scatter_scores"],
-                                 "ShardedSearchEngine (4 shards)": sharded["scatter_scores"]}
+                                 "ShardedSearchEngine (4 shards)": sharded["scatter_scores"],
+                                 "cli.rank (msgpack-built index)": rem["scatter_scores"]}
     # phase 9's gather launches are all the fp32 instance (float rows)
     g_row["launches_by_path"] = {"cli.rank": g_row["launches"],
                                  "cli.nano_beir (fp32 rows)": nano_beir["gather_rows"],
                                  "RetrievalServer (in-process)": served["gather_rows"],
-                                 "ShardedSearchEngine (4 shards)": sharded["gather_rows"]}
+                                 "ShardedSearchEngine (4 shards)": sharded["gather_rows"],
+                                 "cli.rank (msgpack-built index)": rem["gather_rows"]}
     c_row["launches_by_path"] = {"cli.rank": c_row["launches"],
                                  "RetrievalServer (in-process)": served["count_ge"],
-                                 "ShardedSearchEngine (4 shards)": sharded["count_ge"]}
+                                 "ShardedSearchEngine (4 shards)": sharded["count_ge"],
+                                 "cli.rank (msgpack-built index)": rem["count_ge"]}
     for row in (a_row, s_row, g_row, c_row):
         row["launches"] = sum(row["launches_by_path"].values())
     log(json.dumps({"query": {k: v for k, v in query.items() if k != "kernels"}}))
@@ -3210,6 +3873,7 @@ def main() -> int:
     log(json.dumps({"store": store}))
     log(json.dumps({"lifecycle": lifecycle}))
     log(json.dumps({"multidevice": multi}))
+    log(json.dumps({"remainder": remainder}))
     print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

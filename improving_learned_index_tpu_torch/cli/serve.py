@@ -11,8 +11,10 @@ reference only ships the batch rank CLI).
 
     echo '{"id": 1, "query": "quick brown foxes"}' | nc localhost 7700
 
-The card engines (auto, device, hybrid) run on ``cuda`` unless ``--device
-cpu``, and raise without a card; host and native run on the host.  Router
+Queries are tokenized by ``--vocab_path``'s WordPiece tokenizer or a local
+HuggingFace tokenizer directory (``--hf_tokenizer``), as the JAX daemon
+builds its tokenizer from either flag.  The card engines (auto, device,
+hybrid) run on ``cuda`` unless ``--device cpu``, and raise without a card; host and native run on the host.  Router
 mode (``--shards``: doc-sharded daemons, offsets from ``cli.split_index``'s
 ``shards.json``) scores nothing itself and takes no device.  A card engine
 prints its ``card memory`` after the warmup; every daemon prints
@@ -39,7 +41,7 @@ from .common import add_tokenizer_args, build_tokenizer
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    add_tokenizer_args(parser, required=False)
+    add_tokenizer_args(parser)
     parser.add_argument("--index_path", type=Path, default=None)
     parser.add_argument("--shards", type=str, default=None,
                         help="router mode: comma-separated "
@@ -98,7 +100,7 @@ def main(argv=None) -> int:
             num_docs=args.num_docs,
             device=args.device,
         )
-    tokenizer = build_tokenizer(args) if args.vocab_path else None
+    tokenizer = build_tokenizer(args) if args.vocab_path or args.hf_tokenizer else None
     if not args.no_warmup:
         if hasattr(engine, "warmup"):
             # load the kernels and grow the allocator before taking traffic

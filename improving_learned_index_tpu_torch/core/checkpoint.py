@@ -10,8 +10,14 @@ same names and metadata: snapshots ``<name>_latest``, ``<name>_<step>``,
 The payload is one ``torch.save`` file (``.pt``): ``{"params": the
 module's state_dict, "opt_state": the optimizer's state_dict}``, written to
 a temporary name and renamed into place, and read back with
-``weights_only=True``.  The JAX package's flax msgpack files are not read:
-that would need a msgpack package, which the port does not use.
+``weights_only=True``.
+
+``load_params`` also reads the JAX package's flax msgpack files (its
+``save_params`` and ``CheckpointManager`` snapshots, ``.msgpack``) through
+``core.flax_msgpack``, and maps their parameter tree onto the port's state
+dict with ``models.hf_import.flax_params_to_port`` (which needs the model's
+``EncoderConfig``).  A training resume from such a snapshot raises: optax's
+AdamW state does not map onto ``torch.optim.AdamW``'s.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from .logging import get_logger
 logger = get_logger("checkpoint", stream=False)
 
 EXTENSION = "pt"
+JAX_EXTENSION = "msgpack"
 LATEST_SNAPSHOT_SUFFIX = "latest"
 
 
@@ -37,13 +44,19 @@ def _write(path: Path, payload: Any) -> None:
     os.replace(tmp, path)
 
 
+def _write_meta(path: Path, meta: Dict[str, Any]) -> None:
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, path)
+
+
 def _read(path: Union[str, Path]) -> Any:
     path = Path(path)
-    if path.suffix == ".msgpack":
-        raise NotImplementedError(
-            f"{path}: flax msgpack checkpoints are the JAX package's; the port reads its own "
-            "torch.save (.pt) checkpoints"
-        )
+    if path.suffix == f".{JAX_EXTENSION}":
+        from .flax_msgpack import read
+
+        return read(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -68,10 +81,18 @@ def _unwrap_payload(restored: Any) -> Any:
     return restored
 
 
-def load_params(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+def load_params(path: Union[str, Path], config=None) -> Dict[str, torch.Tensor]:
     """The state dict of a ``save_params`` file or a manager snapshot (CPU
-    tensors)."""
-    return _unwrap_payload(_read(path))
+    tensors).  A JAX ``.msgpack`` file's flax parameter tree is mapped onto
+    the port's state dict for ``config`` (the model's ``EncoderConfig``)."""
+    params = _unwrap_payload(_read(path))
+    if Path(path).suffix != f".{JAX_EXTENSION}":
+        return params
+    if config is None:
+        raise ValueError(f"{path}: a flax parameter tree needs the model's EncoderConfig to map it")
+    from ..models.hf_import import flax_params_to_port
+
+    return flax_params_to_port(params, config)
 
 
 class CheckpointManager:
@@ -106,12 +127,16 @@ class CheckpointManager:
     def _meta_path(self, suffix: str) -> Path:
         return self.checkpoint_dir / f"{self.name}_{suffix}.meta.json"
 
+    def _jax_path(self, suffix: str) -> Path:
+        """The JAX package's snapshot of the same name (resume refuses it)."""
+        return self.checkpoint_dir / f"{self.name}_{suffix}.{JAX_EXTENSION}"
+
     @property
     def latest_path(self) -> Path:
         return self._path(LATEST_SNAPSHOT_SUFFIX)
 
     def exists(self) -> bool:
-        return self.latest_path.exists()
+        return self.latest_path.exists() or self._jax_path(LATEST_SNAPSHOT_SUFFIX).exists()
 
     # -- save ------------------------------------------------------------------
     def save(
@@ -127,16 +152,15 @@ class CheckpointManager:
         if opt_state is not None:
             payload["opt_state"] = opt_state
         _write(self._path(suffix), payload)
-        meta = {
-            "step": self.step,
-            "batch_size": self.batch_size,
-            "has_opt_state": opt_state is not None,
-        }
+        _write_meta(self._meta_path(suffix), self._meta(opt_state is not None, metric))
+        logger.info(f"saved checkpoint {self._path(suffix).name}")
+
+    def _meta(self, has_opt_state: bool, metric: Optional[float]) -> Dict[str, Any]:
+        """The ``.meta.json`` of a snapshot taken now."""
+        meta = {"step": self.step, "batch_size": self.batch_size, "has_opt_state": has_opt_state}
         if metric is not None:
             meta["metric"] = metric
-        with open(self._meta_path(suffix), "w") as f:
-            json.dump(meta, f)
-        logger.info(f"saved checkpoint {self._path(suffix).name}")
+        return meta
 
     def on_step(
         self,
@@ -155,6 +179,12 @@ class CheckpointManager:
 
     # -- load ------------------------------------------------------------------
     def load(self, suffix: str = LATEST_SNAPSHOT_SUFFIX) -> Dict[str, Any]:
+        if not self._path(suffix).exists() and self._jax_path(suffix).exists():
+            raise ValueError(
+                f"{self._jax_path(suffix)} is a JAX package snapshot: training cannot resume from "
+                "it, because its optax AdamW state does not map onto torch.optim.AdamW's; start "
+                "from its params instead (--checkpoint)"
+            )
         restored = _read(self._path(suffix))
         meta = {}
         mp = self._meta_path(suffix)

@@ -295,12 +295,12 @@ class DeepImpact:
 
     @classmethod
     def load(cls, config: EncoderConfig, tokenizer, checkpoint_path=None, **kwargs) -> "DeepImpact":
-        """A model from a ``save`` file or a ``Trainer`` snapshot (its params
-        unwrapped); a flax msgpack file raises ``NotImplementedError``."""
+        """A model from a ``save`` file, a ``Trainer`` snapshot (its params
+        unwrapped) or a JAX package ``.msgpack`` checkpoint."""
         if checkpoint_path is not None:
             from ..core.checkpoint import load_params
 
-            kwargs["state_dict"] = load_params(checkpoint_path)
+            kwargs["state_dict"] = load_params(checkpoint_path, config)
         return cls(config, tokenizer, **kwargs)
 
 

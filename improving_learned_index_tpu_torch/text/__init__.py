@@ -7,6 +7,7 @@ from .processor import (
     batch_term_slots,
     default_segmenter,
 )
+from .segmenters import VnCoreNLPSegmenter, make_segmenter, whitespace_segmenter
 from .wordpiece import WordPieceTokenizer, WordPieceVocab
 
 __all__ = [
@@ -23,4 +24,7 @@ __all__ = [
     "default_segmenter",
     "WordPieceTokenizer",
     "WordPieceVocab",
+    "VnCoreNLPSegmenter",
+    "make_segmenter",
+    "whitespace_segmenter",
 ]

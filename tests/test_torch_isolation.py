@@ -8,8 +8,13 @@ metrics, BM25 and their CLIs), the rerankers (the pairwise and
 cross-encoder models, ``ReRanker``, ``CrossEncoderReRanker``, their CLIs and
 ``cli.train --pairwise/--cross_encoder``), and the index lifecycle (the
 binary impact store, merge/filter/split and their CLIs, the serving daemon,
-its shard router and ``cli.serve``), and the multi-device paths (the
-doc-sharded engine, the data-parallel encode and the dry run)."""
+its shard router and ``cli.serve``), the multi-device paths (the
+doc-sharded engine, the data-parallel encode and the dry run), and the
+host-side remainder (the data-prep scripts, the segmenters and the HF
+tokenizer adapter, the Anserini export, term-pair attention, the flax
+msgpack reader and the async checkpoint manager).  No port file imports
+``msgpack``; ``transformers``, ``matplotlib``, ``py_vncorenlp`` and
+``underthesea`` are imported only inside the functions that need them."""
 
 import ast
 import os
@@ -24,6 +29,16 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "improving_learned_index_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "improving_learned_index_tpu")
+GATED = ("transformers", "matplotlib", "py_vncorenlp", "underthesea")
+REMAINDER_MODULES = (
+    "text/segmenters.py", "text/hf_adapter.py", "index/anserini.py", "cli/convert_to_anserini.py",
+    "analysis/__init__.py", "analysis/attention.py", "analysis/visualize.py", "core/flax_msgpack.py",
+    "core/async_checkpoint.py", "scripts/__init__.py", "scripts/construct_distil_hard_neg_dataset.py",
+    "scripts/construct_hard_neg_dataset.py", "scripts/create_passages.py", "scripts/create_test_files.py",
+    "scripts/create_training_files.py", "scripts/create_training_files_maxp.py",
+    "scripts/create_unique_passage_mapping.py", "scripts/prepare_dataset.py",
+    "scripts/preprocess_passages.py", "scripts/trim_scores.py",
+)
 
 
 def _forbidden(name):
@@ -56,11 +71,40 @@ def test_port_sources_import_no_jax():
                    "cli/common.py", "index/impact_store.py", "index/inverted.py", "cli/quantize.py",
                    "cli/invert.py", "cli/merge_indexes.py", "cli/filter_index.py",
                    "cli/split_index.py", "serve/__init__.py", "serve/server.py", "serve/router.py",
-                   "cli/serve.py", "search/sharded_engine.py", "parallel/multidevice.py"):
+                   "cli/serve.py", "search/sharded_engine.py", "parallel/multidevice.py",
+                   *REMAINDER_MODULES):
         assert module in names
     assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert not bad
+
+
+def _module_level_imports(path):
+    """Imports outside every function body (module level, class bodies and
+    top-level ``if``/``try`` blocks included)."""
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module
+            yield from walk(child)
+
+    yield from walk(ast.parse(path.read_text(encoding="utf-8"), str(path)))
+
+
+def test_port_imports_no_msgpack_and_gates_optional_packages():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    msgpack = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
+               if m == "msgpack" or m.startswith("msgpack.")]
+    assert not msgpack
+    top = [(str(f.relative_to(REPO)), m) for f in files for m in _module_level_imports(f)
+           if m.split(".")[0] in GATED]
+    assert not top
+    inside = {m.split(".")[0] for f in files for m in _imports(f)} & set(GATED)
+    assert inside == set(GATED)  # each is imported somewhere, inside a function
 
 
 def test_cpu_query_leaves_jax_unimported(tmp_path):
@@ -489,3 +533,89 @@ def test_multidevice_entry_points_without_cuda_raise():
                  lambda: DeepImpact(EncoderConfig.tiny(vocab_size=len(vocab)), tok, devices=["cuda:0"] * 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+def test_cpu_remainder_leaves_jax_unimported(tmp_path):
+    """The scripts, the Anserini export, a JAX-format checkpoint written and
+    read by ``core.flax_msgpack`` into ``DeepImpact.load`` and ``cli.index``,
+    term-pair attention and the async manager, on the CPU, import no JAX,
+    no msgpack and none of the gated packages."""
+    code = """
+import sys
+from pathlib import Path
+import torch
+sys.path.insert(0, sys.argv[2])
+from chip_smoke import port_params_to_flax
+from improving_learned_index_tpu_torch.analysis import extract_term_pair_attention
+from improving_learned_index_tpu_torch.cli.convert_to_anserini import main as anserini_main
+from improving_learned_index_tpu_torch.cli.index import main as index_main
+from improving_learned_index_tpu_torch.core import flax_msgpack
+from improving_learned_index_tpu_torch.core.async_checkpoint import AsyncCheckpointManager
+from improving_learned_index_tpu_torch.core.config import EncoderConfig
+from improving_learned_index_tpu_torch.models import DeepImpact
+from improving_learned_index_tpu_torch.scripts.create_passages import main as passages_main
+from improving_learned_index_tpu_torch.scripts.preprocess_passages import main as preprocess_main
+from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+d = Path(sys.argv[1])
+docs = ["the quick brown fox", "a lazy dog sleeps", "fox and dog"] * 3
+(d / "c.tsv").write_text("".join(f"{i}\\t{t}\\n" for i, t in enumerate(docs)))
+assert passages_main(["--collection_path", str(d / "c.tsv"), "--output_collection", str(d / "p.tsv"),
+                      "--output_mapping", str(d / "m.txt"), "--window", "2", "--stride", "1"]) == 0
+assert preprocess_main(["--collection_path", str(d / "c.tsv"), "--output_path", str(d / "pre.tsv")]) == 0
+vocab = WordPieceVocab.build(docs, max_size=64)
+vocab.save(d / "vocab.txt")
+cfg = EncoderConfig.tiny(vocab_size=len(vocab))
+tok = ImpactTokenizer(vocab, max_length=64)
+sd = DeepImpact(cfg, tok, device="cpu").module.state_dict()
+flax_msgpack.write(d / "m.msgpack", {"params": port_params_to_flax(sd, cfg)})
+model = DeepImpact.load(cfg, tok, d / "m.msgpack", device="cpu")
+assert all(torch.equal(v, model.module.state_dict()[k]) for k, v in sd.items())
+assert index_main(["--collection_path", str(d / "c.tsv"), "--output_file_path", str(d / "fwd.txt"),
+                   "--vocab_path", str(d / "vocab.txt"), "--tiny", "--max_length", "64",
+                   "--checkpoint", str(d / "m.msgpack"), "--device", "cpu"]) == 0
+assert anserini_main(["-i", str(d / "fwd.txt"), "-o", str(d / "a.jsonl")]) == 0
+assert extract_term_pair_attention(model, docs[:2])[0]
+mgr = AsyncCheckpointManager(d / "ck", save_every=1)
+mgr.on_step(sd)
+mgr.wait()
+assert mgr.exists()
+gone = ("jax", "jaxlib", "flax", "improving_learned_index_tpu", "msgpack", "transformers", "matplotlib")
+leaked = [m for m in sys.modules if m.split(".")[0] in gone]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path), str(REPO)], capture_output=True, text=True, env=env,
+        cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-2000:]
+
+
+def test_remainder_entry_points_without_cuda_raise(tmp_path):
+    """A JAX-format checkpoint through ``DeepImpact.load`` and ``cli.index
+    --checkpoint`` defaults to cuda and raises without one, before any
+    output is written."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from chip_smoke import port_params_to_flax
+    from improving_learned_index_tpu_torch.cli.index import main as index_main
+    from improving_learned_index_tpu_torch.core import flax_msgpack
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models import DeepImpact
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    vocab = WordPieceVocab.build(["a b c"], max_size=32)
+    vocab.save(tmp_path / "vocab.txt")
+    cfg = EncoderConfig.tiny(vocab_size=len(vocab))
+    tok = ImpactTokenizer(vocab, max_length=128)
+    sd = DeepImpact(cfg, tok, device="cpu").module.state_dict()
+    flax_msgpack.write(tmp_path / "m.msgpack", {"params": port_params_to_flax(sd, cfg)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeepImpact.load(cfg, tok, tmp_path / "m.msgpack")
+    (tmp_path / "c.tsv").write_text("0\ta b c\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        index_main(["--collection_path", str(tmp_path / "c.tsv"), "--output_file_path",
+                    str(tmp_path / "fwd.txt"), "--vocab_path", str(tmp_path / "vocab.txt"), "--tiny",
+                    "--checkpoint", str(tmp_path / "m.msgpack")])
+    assert not (tmp_path / "fwd.txt").exists()

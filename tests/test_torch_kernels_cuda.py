@@ -899,3 +899,55 @@ def test_sharded_engine_across_card_and_cpu_equals_hybrid(cuda, devices):
     got = eng.score_batch(batch, 100)
     assert gr.KERNEL.launches - g0 == 1 and ss.KERNEL.launches - s0 == 1
     assert got == HybridSearchEngine(idx, heavy_min=256, device="cuda").score_batch(batch, 100)
+
+
+@pytest.mark.cuda
+def test_msgpack_model_on_card_equals_pt_route(cuda, tmp_path):
+    """A JAX-format checkpoint (the flax tree of a seeded BERT-width
+    2-layer model, written as the JAX ``CheckpointManager``'s payload)
+    loads on the card to the same model as its ``.pt``: equal impacts at
+    S=256 through the ``short_attention`` kernel."""
+    from chip_smoke import port_params_to_flax
+    from improving_learned_index_tpu_torch.core import flax_msgpack
+    from improving_learned_index_tpu_torch.core.checkpoint import save_params
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models import DeepImpact
+
+    tok, _ = _train_batch(5, 8, 256)
+    config = EncoderConfig(vocab_size=len(tok.vocab), num_layers=2, impact_activation="softplus")
+    seeded = DeepImpact(config, tok, seed=3, device="cpu").module.state_dict()
+    save_params(tmp_path / "m.pt", seeded)
+    flax_msgpack.write(tmp_path / "m.msgpack", {"params": port_params_to_flax(seeded, config)})
+    docs = [" ".join(f"w{(7 * i + j) % 400}x" for j in range(20 + 9 * i)) for i in range(24)]
+    out = {}
+    for name in ("m.pt", "m.msgpack"):
+        model = DeepImpact.load(config, tok, tmp_path / name, device="cuda")
+        before = sa.KERNEL.launches
+        out[name] = model.get_impact_scores_batch(docs)
+        torch.cuda.synchronize()
+        assert sa.KERNEL.launches - before == config.num_layers
+    assert out["m.pt"] == out["m.msgpack"]
+    assert sum(len(d) for d in out["m.pt"]) > 0
+
+
+@pytest.mark.cuda
+def test_async_snapshot_of_card_state(cuda, tmp_path):
+    """The snapshot holds the card state at ``on_step``: an in-place update
+    queued right after it (as the next optimizer step is) does not reach
+    the file."""
+    from improving_learned_index_tpu_torch.core.async_checkpoint import AsyncCheckpointManager
+
+    mgr = AsyncCheckpointManager(tmp_path, name="M", save_every=1)
+    w = torch.randn(4096, 1024, device="cuda", generator=cuda)
+    want = w.cpu().clone()
+    opt = {"state": {0: {"step": torch.tensor(1.0), "exp_avg": w * 2}}, "param_groups": [{"lr": 0.1}]}
+    for _ in range(2):
+        mgr.on_step({"w": w}, opt)
+        w.mul_(3.0).add_(1.0)
+        opt["state"][0]["exp_avg"].zero_()
+    mgr.wait()
+    first = torch.load(tmp_path / "M_1.pt", weights_only=True)
+    assert torch.equal(first["params"]["w"], want)
+    assert torch.equal(first["opt_state"]["state"][0]["exp_avg"], want * 2)
+    second = torch.load(tmp_path / "M_2.pt", weights_only=True)
+    assert torch.equal(second["params"]["w"], (want.cuda() * 3.0 + 1.0).cpu())

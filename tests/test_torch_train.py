@@ -440,7 +440,13 @@ def test_checkpoint_names_and_meta_match_jax(port_tokenizer, tmp_path):
         assert torch.equal(a, b)
     save_params(tmp_path / "bare.pt", {"x": torch.ones(2)})
     assert torch.equal(load_params(tmp_path / "bare.pt")["x"], torch.ones(2))
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    # a JAX snapshot reads back through core.flax_msgpack; mapping its tree
+    # onto the port's state dict needs the model's config
+    from improving_learned_index_tpu_torch.core import flax_msgpack
+
+    jax_final = flax_msgpack.read(tmp_path / "jax" / "DeepImpact_final.msgpack")
+    assert list(jax_final) == ["params"] and np.array_equal(jax_final["params"]["w"], np.ones(3))
+    with pytest.raises(ValueError, match="EncoderConfig"):
         load_params(tmp_path / "jax" / "DeepImpact_final.msgpack")
 
 

@@ -132,8 +132,8 @@ def test_cli_refusals(data):
         assert train_cli.main(_train_args(data, f"c_{name}", flag, "--max_length", "32",
                                           "--total_steps", "1")) == 0
         assert (data / f"c_{name}" / f"{name}_final.pt").exists()
-    (data / "p.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    (data / "p.msgpack").write_bytes(b"")  # an empty (truncated) JAX checkpoint
+    with pytest.raises(ValueError, match="truncated msgpack"):
         index_main(["--collection_path", str(data / "c.tsv"), "--output_file_path", str(data / "f.txt"),
                     "--vocab_path", str(data / "vocab.txt"), "--tiny", "--device", "cpu",
                     "--checkpoint", str(data / "p.msgpack")])
