@@ -5,9 +5,11 @@ the in-memory eval and the rerankers at BERT-base width, then the index
 lifecycle: the binary impact store at BERT-base, the index algebra and the
 serving daemons (shard router, staged hot swap) on the MS MARCO-scale index,
 then the multi-device paths (doc-sharded engine, data-parallel encode)
-with one card standing in for several, and last the host-side remainder:
-data-prep scripts, async snapshots, a JAX-format checkpoint through the
-encode and query paths, term-pair attention and the gated tokenizer routes.
+with one card standing in for several, the host-side remainder: data-prep
+scripts, async snapshots, a JAX-format checkpoint through the encode and
+query paths, term-pair attention and the gated tokenizer routes, and last
+expansion at Llama-2-7B width: the flash-attention kernels, generation,
+the QLoRA fine-tune and the expansion CLIs.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -15,8 +17,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.
-2. Build: the five CUDA kernels (``gather_rows``, ``scatter_scores``,
-   ``short_attention``, ``count_ge``, ``blocked_scoring``) from ``csrc/``,
+2. Build: the six CUDA kernels (``gather_rows``, ``scatter_scores``,
+   ``short_attention``, ``count_ge``, ``blocked_scoring``,
+   ``flash_attention``) from ``csrc/``,
    one ``nvcc`` per source, started together, and the native C++ engine
    (``g++``).
 3. Query set-up, then the query kernels against their plain versions: a
@@ -240,8 +243,43 @@ Phases, in order; any failed check raises and the script exits non-zero:
    --hf_tokenizer`` (a BERT tokenizer directory of phase 6's vocabulary)
    over 2,048 passages encodes each as the WordPiece route does and writes
    the ``--vocab_path`` route's forward index byte for byte.
+15. Expansion, in phase 6's work directory.  (1) ``flash_attention``'s
+   forward and its dk/dv and dq kernels against the twin (each output
+   within 1% of its largest entry, the log-sum-exp within 1e-4) at the 7B
+   fine-tune's [1, 32, 2048, 128] causal with a padded tail and the
+   encoder's [64, 12, 512, 64] with packed segments; kernel, twin and SDPA
+   (timed only) milliseconds beside the bound.  (2) BERT-base with
+   ``use_flash_attention`` at S=512 (phase 7's trunk) through
+   ``DeepImpact.get_impact_scores_batch`` over 64 passages: 12 forward
+   launches, impacts within phase 7's rule of ``use_kernels=False``.  (3)
+   Llama-2-7B (``LlamaConfig.llama2_7b``, seeded bf16 weights made on the
+   card) with a word tokenizer of phase 6's 31,996 most frequent words:
+   ``QueryGenerator`` at the JAX CLI's defaults (80 sequences, 50 new
+   tokens, top-k 50, top-p 0.95, prompts within 350 tokens) for 2 passages
+   with bf16, int8 and int4 weights and an int8 cache: tokens in range,
+   sequences/s, tokens/s, peak memory; greedy decoding in fp32 at full
+   depth, each token of the cache route the argmax of one cache-less
+   forward over the prompts and the chosen tokens (a near-tie within 1e-3);
+   a decode step's parts (a layer, a layer's int8/int4 dequantization, the
+   head).  (4) The 7B QLoRA fine-tune
+   (``FINETUNE_7B.json``'s int8 recipe: int8 base, r=16, S=2048, B=1,
+   layerwise, flash attention, batches padded to 2048 as the JAX bench
+   pads): the kernel route's loss within 0.5% and adapter gradients'
+   cosine >= 0.99 of the twin route's; 3 steps with the counts set to 0
+   before each and read after it (>= 32 forward, 32 dk/dv and 32 dq
+   launches a step; checkpointing recomputes each forward once); step s,
+   tokens/s, peak memory, the step split (forward, backward, the rest), a
+   profiled step; one ``trl_4bit`` step.  (5) The
+   CLIs at 7B width, depth 2: a seeded local HF Llama directory (word-level
+   tokenizer) -> ``cli.finetune --llama_path --quantize_base int8`` (4
+   steps; the plain attention, as the JAX CLI's HF route) ->
+   ``--output_adapter`` and ``--output_merged`` -> ``cli.expand
+   --local_path`` (the same weights as a local generator) ``--peft_path``
+   over 256 passages (10 sequences each) -> ``cli.merge`` (each passage
+   keeps its text) -> ``cli.index`` (phase 7's trunk) -> ``cli.quantize``
+   -> ``cli.invert`` -> ``cli.rank`` (64 queries of 4 words of a passage).
 
-The second-to-last line is the ``kernels`` JSON object (five rows; each
+The second-to-last line is the ``kernels`` JSON object (six rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
 ``cli.index``, ``cli.train``, ``cli.nano_beir``, ``cli.train`` with eval,
 ``cli.rerank``, ``cli.train --cross_encoder``, ``cli.cross_encoder_rerank``,
@@ -251,7 +289,10 @@ in-process ``RetrievalServer``; ``scatter_scores`` and ``count_ge`` over
 their paths and that server too; the shard daemons' launches happen in
 processes of their own and are not counted; phase 13's sharded engine and
 data-parallel encode add a path each, phase 14 its trainer, its
-``cli.index`` routes, its term pairs (0) and its ``cli.rank``), the last line ``{"ok": true,
+``cli.index`` routes, its term pairs (0) and its ``cli.rank``; row 6,
+``flash_attention``, counts forward and backward launches over phase 15's
+7B fine-tune steps and the S=512 encode, and the 7B
+generation, which runs the cache route and launches none), the last line ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -343,6 +384,18 @@ MULTI = SimpleNamespace(shards=4, replicas=2, encode_batches=4, k=1000, device="
 REMAINDER = SimpleNamespace(queries=256, candidates=24, duplicates=512, expanded_docs=4096, token_budget=128,
                             expansion_terms=16, window=64, stride=32, stopwords=30, steps=8, save_every=2,
                             pair_docs=64, hf_docs=2048, seed=6, device="cuda")
+# Expansion (phase 15): Llama-2-7B (LlamaConfig.llama2_7b, the published
+# meta-llama/Llama-2-7b-hf config; seeded weights) with a word tokenizer of
+# phase 6's 31,996 most frequent words (vocabulary 32,000); generation at the
+# JAX CLI's defaults (80 return sequences, 50 new tokens, top-k 50, top-p
+# 0.95, prompts within 350 tokens) for 2 passages a mode; the QLoRA
+# fine-tune at FINETUNE_7B.json's int8 recipe (S=2048, B=1, r=16) for 3
+# steps and one trl_4bit step; the CLI chain at 7B width and depth 2 over
+# 256 passages, 10 queries a passage; BERT-base's flash route at S=512 over
+# 64 passages (one batch).
+EXPAND = SimpleNamespace(seq=2048, gen_passages=2, returns=80, new_tokens=50, top_k=50, top_p=0.95,
+                         max_tokens=350, ft_steps=3, cli_depth=2, cli_passages=256, cli_pairs=64, cli_steps=4,
+                         cli_returns=10, cli_batch=16, enc_docs=64, seed=7, device="cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
@@ -820,8 +873,10 @@ def build_kernels() -> None:
     from improving_learned_index_tpu_torch.ops import _kernels
     from improving_learned_index_tpu_torch.search import native
 
+    from improving_learned_index_tpu_torch.ops import flash_attention
+
     log("== phase 2: build kernels and the native engine")
-    kernels = all_kernels()
+    kernels = all_kernels() + [flash_attention.KERNEL]
     t0 = time.perf_counter()
     _kernels.build(kernels)
     for k in kernels:
@@ -896,7 +951,7 @@ def run_query(cfg, workdir: Path) -> dict:
     log("== phase 4: query main path (cli.rank on the card)")
     run_file = workdir / "run.tsv"
     for k in kernels:
-        k.launches = 0
+        k.calls.clear()
     t0 = time.perf_counter()
     rank_main([
         "--index_path", str(index_dir), "--queries_path", str(qpath),
@@ -999,7 +1054,7 @@ def run_other_engines(cfg, workdir, index_dir, vocab, qtext, batches, ranked, bl
         out["device_rank_s"] = time.perf_counter() - t0
 
         for k in kernels:
-            k.launches = 0
+            k.calls.clear()
         t0 = time.perf_counter()
         rows = [r for bt in batches[:2] for r in blocked.score_batch(bt, 1000)]
         torch.cuda.synchronize()
@@ -1272,7 +1327,7 @@ def run_encode(cfg, workdir: Path) -> dict:
               "--max_length", str(cfg.max_length), "--model_batch_size", str(cfg.batch),
               "--hf_name", str(bert), "--device", cfg.device]
     for kern in kernels:
-        kern.launches = 0
+        kern.calls.clear()
     timed("cli_index_s", lambda: index_main(common + ["--output_file_path", str(fwd)]))
     launches = {kern.name: kern.launches for kern in kernels}
     log(f"cli.index: {len(passages)} passages in {timings['cli_index_s']:.1f} s; launches {launches}")
@@ -1364,7 +1419,7 @@ def run_encode(cfg, workdir: Path) -> dict:
 
     fwd_p = workdir / "forward.packed.txt"
     for kern in kernels:
-        kern.launches = 0
+        kern.calls.clear()
     timed("cli_index_packed_s", lambda: index_main(common + ["--output_file_path", str(fwd_p), "--pack"]))
     packed_launches = sa.KERNEL.launches
     if packed_launches != config.num_layers * corpus["packed_batches"]:
@@ -1544,7 +1599,7 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     ck = workdir / "ckpt"
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
-        kern.launches = 0
+        kern.calls.clear()
     t0 = time.perf_counter()
     train_main(common + ["--checkpoint_dir", str(ck), "--total_steps", str(cfg.steps),
                          "--save_every", str(cfg.save_every)])
@@ -1797,7 +1852,7 @@ def run_eval(cfg, workdir: Path, ckpt: Path, train_args: list) -> dict:
     metrics_path = workdir / "nano_beir.json"
     try:
         for k in kernels:
-            k.launches = 0
+            k.calls.clear()
         t0 = time.perf_counter()
         with open(workdir / "nano_beir.stdout", "w") as sink:
             stdout, sys.stdout = sys.stdout, sink
@@ -1967,7 +2022,7 @@ def run_eval(cfg, workdir: Path, ckpt: Path, train_args: list) -> dict:
     spies.wrap(DeepImpact, "encode_packed")
     try:
         for kern in kernels:
-            kern.launches = 0
+            kern.calls.clear()
         t0 = time.perf_counter()
         train_main([a for a in train_args if a != "--no_beir_eval"] + [
             "--checkpoint_dir", str(ck), "--total_steps", str(cfg.train_steps),
@@ -2078,7 +2133,7 @@ def run_rerank(cfg, workdir: Path, ckpt: Path) -> dict:
 
     def zero_counts():
         for k in kernels:
-            k.launches = 0
+            k.calls.clear()
 
     # data: phase 9's nano dataset as TSV files, and a first-stage run of
     # each query's qrel passage and 99 seeded others, in seeded order
@@ -2443,7 +2498,7 @@ def run_store(cfg, workdir: Path, tol: tuple) -> dict:
         seconds[name] = time.perf_counter() - t0
 
     # 1. both outputs in one encode
-    sa.KERNEL.launches = 0
+    sa.KERNEL.calls.clear()
     timed("cli_index", lambda: index_main(common + ["--output_file_path", str(fwd), "--store_path", str(store)]))
     launches["cli.index --store_path"] = sa.KERNEL.launches
     want = layers * -(-n_docs // ENCODE.batch)
@@ -2494,7 +2549,7 @@ def run_store(cfg, workdir: Path, tol: tuple) -> dict:
         line_end = sum(len(next(f)) for _ in range(cut_text))
     os.truncate(f2, line_end + 7)
     resume_at = min(cut_store, cut_text)
-    sa.KERNEL.launches = 0
+    sa.KERNEL.calls.clear()
     timed("cli_index_resume", lambda: index_main(
         common + ["--output_file_path", str(f2), "--store_path", str(s2), "--resume"]))
     launches["cli.index --store_path --resume"] = sa.KERNEL.launches
@@ -2915,7 +2970,7 @@ def run_lifecycle(cfg, workdir: Path, inputs) -> dict:
     srv.start()
     try:
         for kern in kernels:
-            kern.launches = 0
+            kern.calls.clear()
         torch.cuda.reset_peak_memory_stats()
         answered = threading.Semaphore(0)
         swap = {}
@@ -3049,7 +3104,7 @@ def run_multidevice(cfg, workdir: Path, inputs, query_qps: float) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
-        kern.launches = 0
+        kern.calls.clear()
     t0 = time.perf_counter()
     outs = list(engine.score_stream(batches, top_k=cfg.k, depth=2))
     torch.cuda.synchronize()
@@ -3141,7 +3196,7 @@ def run_multidevice(cfg, workdir: Path, inputs, query_qps: float) -> dict:
     for route, icfg, parts in (("unpacked", unpacked, [cfg.replicas] * cfg.encode_batches),
                                ("packed", packed, [min(r, cfg.replicas) for r in packed_rows])):
         for kern in kernels:
-            kern.launches = 0
+            kern.calls.clear()
         got = encode(parallel, icfg)
         torch.cuda.synchronize()
         n_attn = sa.KERNEL.launches
@@ -3163,7 +3218,7 @@ def run_multidevice(cfg, workdir: Path, inputs, query_qps: float) -> dict:
 
     # 7. the dry run
     for kern in kernels:
-        kern.launches = 0
+        kern.calls.clear()
     t0 = time.perf_counter()
     dry = dryrun_multidevice([dev] * cfg.replicas)
     torch.cuda.synchronize()
@@ -3474,7 +3529,7 @@ def hf_tokenizer_route(cfg, workdir: Path, ckpt: Path) -> dict:
     out = {"transformers": transformers.__version__, "tokenizer": type(hf.tokenizer).__name__,
            "tokenizer_vocab": len(hf.tokenizer)}
     for route, flags in (("hf_tokenizer", ["--hf_tokenizer", str(hf_dir)]), ("vocab_path", ["--vocab_path", str(vocab)])):
-        sa.KERNEL.launches = 0
+        sa.KERNEL.calls.clear()
         t0 = time.perf_counter()
         index_main(common + flags + ["--output_file_path", str(workdir / f"forward.{route}.txt")])
         torch.cuda.synchronize()
@@ -3586,7 +3641,7 @@ def remainder_checks(cfg, workdir: Path, texts: list, gated: list, t_phase: floa
 
     mgr.on_step, mgr.save = on_step_b, save_b
     for kern in kernels:
-        kern.launches = 0
+        kern.calls.clear()
     t0 = time.perf_counter()
     trainer.train(batches)
     seconds["train_async"] = time.perf_counter() - t0
@@ -3619,7 +3674,7 @@ def remainder_checks(cfg, workdir: Path, texts: list, gated: list, t_phase: floa
         inner_save_a(suffix, params, opt_state, metric)
 
     sync_mgr.on_step, sync_mgr.save = on_step_a, save_a
-    sa.KERNEL.launches = 0
+    sa.KERNEL.calls.clear()
     t0 = time.perf_counter()
     trainer.train(batches)
     seconds["train_sync"] = time.perf_counter() - t0
@@ -3677,7 +3732,7 @@ def remainder_checks(cfg, workdir: Path, texts: list, gated: list, t_phase: floa
         r.mkdir()
         extra = ["--store_path", str(r / "forward.store")] if route == "msgpack" else []
         for kern in kernels:
-            kern.launches = 0
+            kern.calls.clear()
         t0 = time.perf_counter()
         index_main(common + ["--checkpoint", str(ckpt), "--output_file_path", str(r / "forward.txt")] + extra)
         torch.cuda.synchronize()
@@ -3690,7 +3745,7 @@ def remainder_checks(cfg, workdir: Path, texts: list, gated: list, t_phase: floa
         quantize_main(["-i", str(r / "forward.txt"), "-o", str(r / "forward.q.txt")])
         invert_main(["-i", str(r / "forward.q.txt"), "-o", str(r / "index")])
         for kern in kernels:
-            kern.launches = 0
+            kern.calls.clear()
         t0 = time.perf_counter()
         rank_main(["--index_path", str(r / "index"), "--queries_path", str(workdir / "prep" / "queries.tsv"),
                    "--output_path", str(r / "run.tsv"), "--vocab_path", str(vocab_path), "--top_k", "1000",
@@ -3737,7 +3792,7 @@ def remainder_checks(cfg, workdir: Path, texts: list, gated: list, t_phase: floa
     model = DeepImpact(config, tok, state_dict=load_params(pt, config), device=cfg.device)
     docs = texts[: cfg.pair_docs]
     for kern in kernels:
-        kern.launches = 0
+        kern.calls.clear()
     t0 = time.perf_counter()
     pairs = extract_term_pair_attention(model, docs)
     torch.cuda.synchronize()
@@ -3784,6 +3839,565 @@ def remainder_checks(cfg, workdir: Path, texts: list, gated: list, t_phase: floa
                phase_s=time.perf_counter() - t_phase)
     log(f"phase 14 in {out['phase_s']:.1f} s; seconds {json.dumps(seconds)}")
     return out
+
+
+
+# -- phase 15: expansion (the Llama route) ---------------------------------------------
+
+
+def flash_shape_check(b, h, s, d, causal, seg, seed) -> dict:
+    """``flash_attention``'s forward and backward kernels against the twin
+    at one shape, with times: kernel, twin, SDPA (forward and backward,
+    timed only), and the bound of the function on this run's inputs.  Its
+    operations: the (query, key) pairs this run's mask allows (equal segment
+    ids and, causal, key <= query), 4 d of them a pair forward (q k^T, p v)
+    and 10 d backward (q k^T again, dv, dp, dq, dk).  Its bytes: forward,
+    q, k, v and the segment ids read, o and the fp32 log-sum-exp written;
+    backward, q, k, v, o, do, the log-sum-exp and the segment ids read, dq,
+    dk and dv written in the inputs' dtype."""
+    import torch.nn.functional as F
+
+    from improving_learned_index_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_forward(q, k, v, seg, seg, causal, scale)
+    o2, lse2 = fa.flash_attention_plain(q, k, v, seg, seg, causal, scale)
+    grads = fa.flash_attention_backward(q, k, v, seg, seg, o2, lse2, do, causal, scale)
+    want = fa.flash_attention_plain_bwd(q, k, v, seg, seg, o2, lse2, do, causal, scale)
+    torch.cuda.synchronize()
+    errs, rel = {"o": float((o.float() - o2.float()).abs().max())}, {}
+    rel["o"] = errs["o"] / float(o2.float().abs().max())
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+        errs[name] = float((a.float() - w.float()).abs().max())
+        rel[name] = errs[name] / float(w.float().abs().max())
+    errs["lse"] = float((lse - lse2).abs().max())
+    # p is rounded to bf16 against a running max in the kernel, the final one
+    # in the twin: each output within 1% of its largest entry
+    bad = {n: r for n, r in rel.items() if not r <= 1e-2}
+    if bad or not errs["lse"] <= 1e-4 or not all(torch.isfinite(t).all() for t in (o, *grads)):
+        raise AssertionError(f"flash_attention kernels != twin at {[b, h, s, d]}: {errs}, {rel}")
+    del o2, lse2, grads, want
+    allowed = seg[:, :, None] == seg[:, None, :]
+    pairs = h * int((allowed.tril() if causal else allowed).sum())
+    del allowed
+    io, lse_bytes, seg_bytes = q.element_size() * b * h * s * d, 4 * b * h * s, 2 * seg.element_size() * b * s
+    fwd_bound = bound_ms(4 * io + lse_bytes + seg_bytes, 4 * d * pairs, BF16_OPS_PER_S)
+    bwd_bound = bound_ms(8 * io + lse_bytes + seg_bytes, 10 * d * pairs, BF16_OPS_PER_S)
+    t = {
+        "fwd_ms": cuda_ms(lambda: fa.flash_attention_forward(q, k, v, seg, seg, causal, scale)),
+        "bwd_ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, seg, seg, o, lse, do, causal, scale)),
+        "plain_fwd_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, seg, seg, causal, scale), iters=3),
+    }
+    o2, lse2 = fa.flash_attention_plain(q, k, v, seg, seg, causal, scale)
+    t["plain_bwd_ms"] = cuda_ms(lambda: fa.flash_attention_plain_bwd(q, k, v, seg, seg, o2, lse2, do, causal,
+                                                                      scale), iters=3)
+    del o2, lse2
+    # SDPA: causal for the decoder's shape, the segments' equality mask for
+    # the packed encoder shape; its backward through autograd
+    mask = None if causal else (seg[:, None, :, None] == seg[:, None, None, :])
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=causal, scale=scale)
+
+    out = sdpa()
+    t["library_fwd_ms"] = cuda_ms(sdpa)
+    t["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    del out, leaves
+    return {"shape": [b, h, s, d], "causal": causal, "mask": "padded tail" if causal else "packed segments",
+            "allowed_pairs": pairs, "max_abs_err": errs, "rel_err": rel, **t,
+            "fwd_bound_ms": fwd_bound[0], "fwd_bound_by": fwd_bound[1],
+            "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1]}
+
+
+def flash_row() -> dict:
+    """Row 6: the decoder's shape [1, 32, 2048, 128] causal with a padded
+    tail (the 7B fine-tune's) and the encoder's [64, 12, 512, 64] packed."""
+    s = EXPAND.seq
+    pad = torch.ones(1, s, dtype=torch.int32, device="cuda")
+    pad[0, s - s // 8:] = 0
+    packed = (torch.arange(512, device="cuda")[None].expand(64, 512) // 100 + 1).int().contiguous()
+    packed[:, -40:] = 0
+    dec = flash_shape_check(1, 32, s, 128, True, pad, EXPAND.seed)
+    enc = flash_shape_check(64, 12, 512, 64, False, packed, EXPAND.seed + 1)
+    log(f"flash_attention at {dec['shape']} causal: forward {dec['fwd_ms']:.4f} ms (bound "
+        f"{dec['fwd_bound_ms']:.4f}, twin {dec['plain_fwd_ms']:.3f}, SDPA {dec['library_fwd_ms']:.4f}), "
+        f"backward {dec['bwd_ms']:.4f} ms (bound {dec['bwd_bound_ms']:.4f}, twin {dec['plain_bwd_ms']:.3f}, "
+        f"SDPA {dec['library_bwd_ms']:.4f}); at {enc['shape']} packed: forward {enc['fwd_ms']:.4f}, "
+        f"backward {enc['bwd_ms']:.4f} ms; relative errors {dec['rel_err']}, {enc['rel_err']}")
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "improving_learned_index_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758 (forward), :1121 (dk/dv), "
+                    ":1456 (dq)",
+        "max_abs_err": max(max(dec["max_abs_err"].values()), max(enc["max_abs_err"].values())),
+        "ms": dec["fwd_ms"] + dec["bwd_ms"],
+        "plain_ms": dec["plain_fwd_ms"] + dec["plain_bwd_ms"],
+        "bound_ms": dec["fwd_bound_ms"] + dec["bwd_bound_ms"],
+        "bound_by": dec["fwd_bound_by"] if dec["fwd_bound_by"] == dec["bwd_bound_by"] else "operations",
+        "library_ms": dec["library_fwd_ms"] + dec["library_bwd_ms"],
+        "note": "ms, plain_ms, bound_ms and library_ms: forward + backward at the 7B fine-tune's shape",
+        "shapes": {"decoder": dec, "encoder": enc},
+    }
+
+
+def word_tokenizer(workdir: Path, size: int):
+    """The generator's tokenizer: phase 6's ``size - 4`` most frequent words."""
+    from collections import Counter
+
+    from improving_learned_index_tpu_torch.expand import WordTokenizer
+
+    counts = Counter(w for line in open(workdir / "collection.tsv", encoding="utf-8")
+                     for w in line.split("\t", 1)[1].split())
+    return WordTokenizer(sorted(w for w, _ in counts.most_common(size - 4)))
+
+
+
+def generation_runs(cfg, params, config, tok, passages) -> dict:
+    """7B generation through ``QueryGenerator`` in the four weight/cache
+    modes at the JAX CLI's defaults; sequences/s, tokens/s, peak memory."""
+    from improving_learned_index_tpu_torch.core.config import GenerationConfig
+    from improving_learned_index_tpu_torch.expand import QueryGenerator
+    from improving_learned_index_tpu_torch.models.quantization import quantize_params_int4, quantize_params_int8
+
+    gen = GenerationConfig(num_return_sequences=cfg.returns, max_new_tokens=cfg.new_tokens, top_k=cfg.top_k,
+                           top_p=cfg.top_p, max_tokens=cfg.max_tokens)
+    out = {}
+    for mode in ("bf16", "int8", "int4", "kv_int8"):
+        t0 = time.perf_counter()
+        mp = {"int8": quantize_params_int8, "int4": quantize_params_int4}.get(mode, lambda p: p)(params)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        mc = dataclasses.replace(config, kv_quant="int8" if mode == "kv_int8" else "none")
+        generator = QueryGenerator(mp, mc, tok, gen, device=cfg.device)
+        ids, mask = generator.prompt_and_tokenize(passages)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        raw = generator.sampler.generate(generator.params, ids, mask, num_return_sequences=cfg.returns,
+                                         seed=cfg.seed)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if raw.shape != (len(passages) * cfg.returns, cfg.new_tokens) or raw.min() < 0 \
+                or raw.max() >= config.vocab_size:
+            raise AssertionError(f"{mode}: tokens of shape {raw.shape} in [{raw.min()}, {raw.max()}]")
+        # a sequence's tokens: up to and with its EOS
+        ended = (raw == generator.eos_token_id)
+        lengths = np.where(ended.any(1), ended.argmax(1) + 1, raw.shape[1])
+        out[mode] = {"quantize_s": quant_s, "seconds": seconds, "sequences": int(raw.shape[0]),
+                     "prompt_tokens": int(ids.shape[1]), "new_tokens": int(lengths.sum()),
+                     "sequences_per_s": raw.shape[0] / seconds, "tokens_per_s": float(lengths.sum()) / seconds,
+                     "peak_gb": peak, "distinct_tokens": int(len(np.unique(raw)))}
+        log(f"7B generation {mode}: {raw.shape[0]} sequences x {cfg.new_tokens} tokens from "
+            f"{len(passages)} prompts of {ids.shape[1]} in {seconds:.2f} s: "
+            f"{out[mode]['sequences_per_s']:.1f} sequences/s, {out[mode]['tokens_per_s']:.1f} tokens/s, "
+            f"peak {peak:.2f} GB")
+        del mp, generator
+        torch.cuda.empty_cache()
+    return out
+
+
+def greedy_check(cfg, config, tok, passages, steps: int = 8) -> dict:
+    """Greedy decoding at Llama-2-7B width and depth in fp32: the sampler's
+    cache route (the prefill into the caches, then a token a step) against
+    one cache-less forward of the prompts and the tokens it chose (the plain
+    attention, the causal and padding mask): each chosen token is the
+    cache-less route's argmax, or within 1e-3 of its row's largest logit
+    (a near-tie), up to and with the sequence's EOS."""
+    from improving_learned_index_tpu_torch.core.config import GenerationConfig
+    from improving_learned_index_tpu_torch.expand import QueryGenerator
+    from improving_learned_index_tpu_torch.models.llama import LlamaModel, init_llama_params
+
+    fcfg = dataclasses.replace(config, dtype="float32")
+    gen = GenerationConfig(num_return_sequences=1, max_new_tokens=steps, do_sample=False, max_tokens=cfg.max_tokens)
+    generator = QueryGenerator(init_llama_params(fcfg, seed=cfg.seed, device=cfg.device), fcfg, tok, gen,
+                               device=cfg.device)
+    ids, mask = generator.prompt_and_tokenize(passages)
+    got = generator.sampler.generate(generator.params, ids, mask)
+    eos, prompt = generator.eos_token_id, ids.shape[1]
+    ended = got == eos
+    lengths = np.where(ended.any(1), ended.argmax(1) + 1, steps)
+    x = torch.as_tensor(np.concatenate([ids, got], 1).astype(np.int64), device=cfg.device)
+    m = torch.as_tensor(np.concatenate([mask, np.ones_like(got)], 1).astype(np.int64), device=cfg.device)
+    with torch.no_grad():
+        logits, _ = LlamaModel(fcfg, device="meta")(x, m, torch.clamp(torch.cumsum(m, 1) - 1, min=0),
+                                                    params=generator.params, use_kernels=False)
+    logits = logits[:, prompt - 1: prompt - 1 + steps].double().cpu().numpy()
+    del generator, x
+    torch.cuda.empty_cache()
+    exact, worst = 0, 0.0
+    for i, n in enumerate(lengths):
+        row = logits[i, :n]
+        chosen = np.take_along_axis(row, got[i, :n, None].astype(np.int64), 1)[:, 0]
+        gap = row.max(1) - chosen
+        exact += int((row.argmax(1) == got[i, :n]).sum())
+        worst = max(worst, float((gap / (1.0 + np.abs(row).max(1))).max()))
+    out = {"prompts": len(passages), "prompt_tokens": prompt, "tokens": int(lengths.sum()), "argmax_equal": exact,
+           "worst_relative_gap": worst}
+    if worst > 1e-3:
+        raise AssertionError(f"7B greedy: the cache route's tokens are not the cache-less route's argmax: {out}")
+    log(f"7B greedy (fp32): {exact} of {out['tokens']} cached-route tokens are the cache-less forward's argmax, "
+        f"the largest relative gap {worst:.3g}")
+    return out
+
+
+def decode_breakdown(cfg, params, config, batch: int, prompt: int) -> dict:
+    """One decode step at the generation's shape, by part (CUDA events): a
+    layer's forward (bf16 weights, bf16 cache), the dequantization of one
+    layer's int8 and int4 weights (plain torch, at each use), the head."""
+    from improving_learned_index_tpu_torch.models import llama as tl
+    from improving_learned_index_tpu_torch.models.quantization import (
+        dequantize_params, quantize_params_int4, quantize_params_int8,
+    )
+
+    model = tl.LlamaModel(config, device="meta")
+    dev = cfg.device
+    caches = tl.make_kv_caches(config, batch, prompt + cfg.new_tokens, device=dev)
+    mask = torch.ones(batch, prompt + cfg.new_tokens, dtype=torch.long, device=dev)
+    tok = torch.randint(4, 1000, (batch, 1), device=dev)
+    pos = torch.full((batch, 1), prompt, device=dev)
+    step = lambda: model(tok, mask, pos, caches, prompt, params=params)  # noqa: E731
+    x = torch.randn(batch, 1, config.hidden_size, device=dev).to(torch.bfloat16)
+    bias = tl.attention_bias(mask, 1, caches, prompt)
+    layer = model.layer_0
+    layer_ms = cuda_ms(lambda: tl._call(layer, params["layer_0"], torch.bfloat16, x, pos, bias, caches[0], prompt))
+    q8, q4 = quantize_params_int8(params["layer_0"]), quantize_params_int4(params["layer_0"])
+    xh = torch.randn(batch, 1, config.hidden_size, device=dev)
+    out = {
+        "batch": batch, "cache_slots": prompt + cfg.new_tokens,
+        "step_ms": cuda_ms(step, iters=5),
+        "layer_ms": layer_ms,
+        "dequant_int8_layer_ms": cuda_ms(lambda: dequantize_params(q8, torch.bfloat16)),
+        "dequant_int4_layer_ms": cuda_ms(lambda: dequantize_params(q4, torch.bfloat16)),
+        "head_ms": cuda_ms(lambda: tl._call(model.lm_head, params["lm_head"], torch.bfloat16, xh, torch.float32)),
+    }
+    log(f"decode step at {batch} sequences, {out['cache_slots']} cache slots: {out['step_ms']:.2f} ms; a layer "
+        f"{layer_ms:.3f} ms, its int8 dequantization {out['dequant_int8_layer_ms']:.3f} ms, int4 "
+        f"{out['dequant_int4_layer_ms']:.3f} ms; the head {out['head_ms']:.3f} ms")
+    del caches
+    return out
+
+
+def finetune_runs(cfg, params, config, tok, passages) -> dict:
+    """The 7B QLoRA fine-tune: int8 base, r=16 a=32, S=2048, B=1, layerwise,
+    flash attention; the kernel route's loss and adapter gradients against
+    the twin route's; steps timed with the flash launches counted; one
+    ``trl_4bit`` step."""
+    from improving_learned_index_tpu_torch.expand.finetune import Doc2QueryFineTuner
+    from improving_learned_index_tpu_torch.expand.lora import lora_leaves
+    from improving_learned_index_tpu_torch.ops import flash_attention as fa
+
+    fcfg = dataclasses.replace(config, use_flash_attention=True, max_position_embeddings=cfg.seq)
+    doc = " ".join(passages)
+    pairs = [(" ".join(doc.split()[i * 50:][: cfg.seq - 40]), " ".join(passages[i].split()[:6]))
+             for i in range(cfg.ft_steps + 2)]
+    out = {}
+    t0 = time.perf_counter()
+    # layerwise, as the JAX bench asks (the auto choice at 32 layers anyway)
+    ft = Doc2QueryFineTuner(params, fcfg, tok, max_length=cfg.seq, quantize_base="int8", layerwise=True,
+                            device=cfg.device)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+
+    def full_batch(pair, tuner=None):
+        batch = (tuner or ft).make_batch([pair])
+        pad = cfg.seq - batch["input_ids"].shape[1]  # every step the worst case, as the JAX bench pads
+        fill = {"input_ids": 0, "labels": -100, "attention_mask": 0}
+        return {k: np.pad(v, ((0, 0), (0, pad)), constant_values=fill[k]) for k, v in batch.items()}
+
+    batch = full_batch(pairs[0])
+    if batch["input_ids"].shape != (1, cfg.seq) or (batch["labels"] != -100).sum() < 4:
+        raise AssertionError(f"fine-tune batch {batch['input_ids'].shape}, "
+                             f"{(batch['labels'] != -100).sum()} labels")
+    check = {}
+    for use in (True, False):
+        ft.use_kernels = use
+        loss = ft.loss(ft._to_device(batch))
+        grads = torch.autograd.grad(loss, lora_leaves(ft.lora))
+        check[use] = (float(loss.detach()), torch.cat([g_.flatten() for g_ in grads]))
+    ft.use_kernels = True
+    cos = float(torch.nn.functional.cosine_similarity(check[True][1], check[False][1], dim=0))
+    rel = abs(check[True][0] - check[False][0]) / abs(check[False][0])
+    out["loss_kernel"], out["loss_twin"], out["loss_rel_diff"], out["grad_cosine"] = \
+        check[True][0], check[False][0], rel, cos
+    del check
+    if not (rel <= 5e-3 and cos >= 0.99 and np.isfinite(out["loss_kernel"])):
+        raise AssertionError(f"7B fine-tune, kernel vs twin: loss {out['loss_kernel']} vs {out['loss_twin']}, "
+                             f"gradient cosine {cos}")
+    times, launches = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(cfg.ft_steps):
+        b = full_batch(pairs[i + 1])
+        fa.KERNEL.calls.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(ft.train_step(b))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(dict(fa.KERNEL.calls))
+        if not np.isfinite(loss):
+            raise AssertionError(f"fine-tune step {i}: loss {loss}")
+    per_step = launches[-1]
+    if not (per_step.get("ili_flash_fwd", 0) >= config.num_layers
+            and per_step.get("ili_flash_bwd_dkv", 0) >= config.num_layers
+            and per_step.get("ili_flash_bwd_dq", 0) >= config.num_layers):
+        raise AssertionError(f"a fine-tune step launched the flash kernels {per_step}")
+    # the step split: forward (the loss through the checkpointed layers),
+    # backward (each layer's forward recomputed, then its backward), the rest
+    # (AdamW on the adapters)
+    b = ft._to_device(full_batch(pairs[1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_t = ft.loss(b)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.autograd.grad(loss_t, lora_leaves(ft.lora))
+    torch.cuda.synchronize()
+    split = {"forward_s": t1 - t0, "backward_s": time.perf_counter() - t1}
+    del loss_t, b
+    step_s = float(np.median(times[1:] if len(times) > 1 else times))
+    split["optimizer_and_host_s"] = step_s - split["forward_s"] - split["backward_s"]
+    out.update(step_s=times, steady_step_s=step_s, tokens_per_s=cfg.seq / step_s, split=split,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches_per_step=per_step,
+               launches=sum(sum(x.values()) for x in launches), last_loss=loss)
+    log(f"7B QLoRA (int8 base, r=16, S={cfg.seq}, B=1, layerwise, flash): loss {out['loss_kernel']:.4f} vs "
+        f"twin {out['loss_twin']:.4f}, gradient cosine {cos:.6f}; steps {[round(x, 3) for x in times]} s, "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {out['peak_gb']:.2f} GB; launches a step {per_step}; "
+        f"split {json.dumps(split)}")
+    profile = profile_window(lambda: ft.train_step(full_batch(pairs[1])), top=40,
+                             annotations=("flash_attention.backward",))
+    out["profile"] = {k: profile[k] for k in ("wall_ms", "device_ms", "device_busy_share", "top_kernels")}
+    kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    for kern in profile["top_kernels"]:
+        if "fwd_kernel" in kern["kernel"]:
+            kinds["flash_fwd"] += kern["ms"]
+        elif "bwd_dq_kernel" in kern["kernel"] or "bwd_dkv_kernel" in kern["kernel"]:
+            kinds["flash_bwd"] += kern["ms"]
+    out["profile"]["flash_ms"] = kinds
+    del ft
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ft4 = Doc2QueryFineTuner.trl_4bit(params, fcfg, tok, max_length=cfg.seq, layerwise=True, device=cfg.device)
+    setup4 = time.perf_counter() - t0
+    fa.KERNEL.calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss4 = float(ft4.train_step(full_batch(pairs[0], ft4)))
+    torch.cuda.synchronize()
+    out["trl_4bit"] = {"setup_s": setup4, "step_s": time.perf_counter() - t0, "loss": loss4,
+                       "launches": dict(fa.KERNEL.calls)}
+    out["launches"] += sum(fa.KERNEL.calls.values())
+    if not np.isfinite(loss4) or fa.KERNEL.calls.get("ili_flash_bwd_dq", 0) < config.num_layers:
+        raise AssertionError(f"trl_4bit step: loss {loss4}, launches {fa.KERNEL.calls}")
+    log(f"trl_4bit (int4 base, r=64, clip 0.3): one step {out['trl_4bit']['step_s']:.3f} s, loss {loss4:.4f}")
+    del ft4
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_hf_llama(path: Path, config, tok, seed: int, device: str) -> None:
+    """A local HF Llama directory of ``config``'s shape: a seeded
+    ``LlamaForCausalLM`` built on ``device``, and a word-level fast tokenizer
+    with ``tok``'s ids (pad, bos, eos, unk, then its words)."""
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"  # local directories only
+    import huggingface_hub.constants
+    import transformers
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    huggingface_hub.constants.HF_HUB_OFFLINE = True
+    vocab = {"<pad>": 0, "<s>": 1, "</s>": 2, "<unk>": 3, **{w: i + 4 for i, w in enumerate(tok.words)}}
+    tk = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    transformers.PreTrainedTokenizerFast(tokenizer_object=tk, bos_token="<s>", eos_token="</s>", unk_token="<unk>",
+                                         pad_token="<pad>").save_pretrained(path)
+    hf = transformers.LlamaConfig(
+        vocab_size=config.vocab_size, hidden_size=config.hidden_size, intermediate_size=config.intermediate_size,
+        num_hidden_layers=config.num_layers, num_attention_heads=config.num_heads,
+        num_key_value_heads=config.num_kv_heads, max_position_embeddings=config.max_position_embeddings,
+        rms_norm_eps=config.rms_norm_eps)  # RoPE theta 1e4 and untied embeddings: the defaults
+    torch.manual_seed(seed)
+    with torch.device(device):
+        model = transformers.LlamaForCausalLM(hf)
+    model.save_pretrained(path)
+    del model
+    torch.cuda.empty_cache()
+
+
+def cli_chain(cfg, workdir: Path, tok, passages) -> dict:
+    """The CLIs at full width, depth 2: a seeded local HF Llama directory
+    -> ``cli.finetune --llama_path`` (int8 base; ``--output_adapter``,
+    ``--output_merged``) -> ``cli.expand --local_path`` (the same weights
+    as a local generator) ``--peft_path`` -> ``cli.merge`` -> ``cli.index``
+    -> ``cli.quantize`` -> ``cli.invert`` -> ``cli.rank``."""
+    from improving_learned_index_tpu_torch.cli.expand import main as expand_main
+    from improving_learned_index_tpu_torch.cli.finetune import main as finetune_main
+    from improving_learned_index_tpu_torch.cli.index import main as index_main
+    from improving_learned_index_tpu_torch.cli.invert import main as invert_main
+    from improving_learned_index_tpu_torch.cli.merge import main as merge_main
+    from improving_learned_index_tpu_torch.cli.quantize import main as quantize_main
+    from improving_learned_index_tpu_torch.cli.rank import main as rank_main
+    from improving_learned_index_tpu_torch.core.flax_msgpack import read
+    from improving_learned_index_tpu_torch.expand import save_local_generator
+    from improving_learned_index_tpu_torch.models.llama import LlamaConfig, llama_flax_params_to_port, load_hf_llama
+    from improving_learned_index_tpu_torch.ops import short_attention as sa
+
+    d = workdir / "expand"
+    d.mkdir(exist_ok=True)
+    seconds, launches = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        rc = fn()
+        seconds[name] = time.perf_counter() - t0
+        if rc not in (0, None):
+            raise AssertionError(f"{name} exited {rc}")
+
+    config = dataclasses.replace(LlamaConfig.llama2_7b(), num_layers=cfg.cli_depth, vocab_size=tok.vocab_size)
+    timed("write_hf_model", lambda: write_hf_llama(d / "hf", config, tok, cfg.seed, cfg.device))
+    t0 = time.perf_counter()
+    params, hf_config, _, eos = load_hf_llama(str(d / "hf"))
+    if hf_config != config or eos != tok.EOS:
+        raise AssertionError(f"the HF directory reads back as {hf_config}, eos {eos}")
+    save_local_generator(d / "gen0", params, hf_config, tok)
+    seconds["write_generator"] = time.perf_counter() - t0
+    del params
+    coll = d / "collection.tsv"
+    coll.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages[: cfg.cli_passages])))
+    rng = np.random.default_rng(cfg.seed)
+    queries = []
+    for p in passages[: cfg.cli_pairs]:
+        w = p.split()
+        at = int(rng.integers(0, max(1, len(w) - 4)))
+        queries.append(" ".join(w[at: at + 4]))
+    (d / "pairs.tsv").write_text("".join(f"{p}\t{q}\n" for p, q in zip(passages, queries)))
+    timed("cli.finetune", lambda: finetune_main([
+        "--dataset_path", str(d / "pairs.tsv"), "--output_adapter", str(d / "adapter.msgpack"),
+        "--llama_path", str(d / "hf"), "--output_merged", str(d / "merged.msgpack"), "--quantize_base", "int8",
+        "--batch_size", "4", "--max_length", "512", "--total_steps", str(cfg.cli_steps), "--device", cfg.device]))
+    # the merged tree has the base's names and shapes (checked in the conversion)
+    llama_flax_params_to_port(read(d / "merged.msgpack"), config)
+    out = d / "expansions.jsonl"
+    timed("cli.expand", lambda: expand_main([
+        "--collection_path", str(coll), "--output_path", str(out), "--local_path", str(d / "gen0"),
+        "--peft_path", str(d / "adapter.msgpack"), "--num_return_sequences", str(cfg.cli_returns),
+        "--batch_size", str(cfg.cli_batch), "--seed", str(cfg.seed), "--device", cfg.device]))
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    if [r["doc_id"] for r in rows] != [str(i) for i in range(cfg.cli_passages)] \
+            or any(len(r["queries"]) != cfg.cli_returns for r in rows):
+        raise AssertionError("cli.expand wrote the wrong rows")
+    merged = d / "merged.tsv"
+    timed("cli.merge", lambda: merge_main([
+        "--collection_path", str(coll), "--queries_path", str(out), "--output_path", str(merged),
+        "--vocab_path", str(workdir / "vocab.txt")]))
+    lines = merged.read_text().splitlines()
+    grown = sum(len(line) > len(p) + len(str(i)) + 1 for i, (line, p) in enumerate(zip(lines, passages)))
+    if len(lines) != cfg.cli_passages or not all(
+            line.split("\t", 1)[1].startswith(p) for line, p in zip(lines, passages)):
+        raise AssertionError("cli.merge: each merged passage must start with its original text")
+    sa.KERNEL.calls.clear()
+    fwd = d / "forward.txt"
+    timed("cli.index", lambda: index_main([
+        "--collection_path", str(merged), "--output_file_path", str(fwd), "--vocab_path",
+        str(workdir / "vocab.txt"), "--hf_name", str(workdir / "bert"), "--max_length", "256",
+        "--model_batch_size", "128", "--device", cfg.device]))
+    launches["cli.index (expanded)"] = sa.KERNEL.launches
+    timed("cli.quantize", lambda: quantize_main(["-i", str(fwd), "-o", str(d / "quantized.txt")]))
+    timed("cli.invert", lambda: invert_main(["-i", str(d / "quantized.txt"), "-o", str(d / "index")]))
+    (d / "queries.tsv").write_text("".join(f"{i}\t{q}\n" for i, q in enumerate(queries)))
+    timed("cli.rank", lambda: rank_main([
+        "--index_path", str(d / "index"), "--queries_path", str(d / "queries.tsv"), "--output_path",
+        str(d / "run.tsv"), "--vocab_path", str(workdir / "vocab.txt"), "--top_k", "10",
+        "--device", cfg.device]))
+    ranked = {}
+    for line in (d / "run.tsv").read_text().splitlines():
+        qid, pid = line.split("\t")[:2]
+        ranked.setdefault(qid, []).append(pid)
+    hits = sum(str(i) in ranked.get(str(i), []) for i in range(len(queries)))
+    if len(ranked) < len(queries) // 2 or any(pid not in {str(i) for i in range(cfg.cli_passages)}
+                                              for pids in ranked.values() for pid in pids):
+        raise AssertionError(f"cli.rank over the expanded index: {len(ranked)} of {len(queries)} queries ranked")
+    result = {"seconds": seconds, "launches": launches, "expanded_passages": len(rows), "grown": grown,
+              "rank_hits_at_10": hits, "queries": len(queries)}
+    log(f"CLI chain (7B width, depth {cfg.cli_depth}): {json.dumps(seconds)}; {grown} of {len(lines)} passages "
+        f"grew; {hits} of {len(queries)} queries find their passage in the top 10")
+    shutil.rmtree(d)
+    return result
+
+
+def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
+    """The encoder's flash route: BERT-base (phase 7's seeded trunk) with
+    ``use_flash_attention`` at S=512, where short attention does not apply,
+    through ``DeepImpact.get_impact_scores_batch`` ([64, 12, 512, 64] a
+    layer): 12 forward launches a batch, impacts within phase 7's rule of
+    the ``use_kernels=False`` route."""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
+    from improving_learned_index_tpu_torch.ops import flash_attention as fa
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    config = EncoderConfig.bert_base(use_flash_attention=True)
+    tok = ImpactTokenizer(WordPieceVocab.load(workdir / "vocab.txt"), 512)
+    sd = load_hf_checkpoint(workdir / "bert", config)
+    docs = passages[: cfg.enc_docs]
+    fa.KERNEL.calls.clear()
+    model = DeepImpact(config, tok, state_dict=sd, device=cfg.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [dict(x) for x in model.get_impact_scores_batch(docs)]
+    seconds = time.perf_counter() - t0
+    launches = dict(fa.KERNEL.calls)
+    if launches != {"ili_flash_fwd": config.num_layers}:
+        raise AssertionError(f"the S=512 encode launched {launches}")
+    plain = DeepImpact(config, tok, state_dict=sd, device=cfg.device, use_kernels=False)
+    ref = [dict(x) for x in plain.get_impact_scores_batch(docs)]
+    peak = max(max(d.values(), default=0.0) for d in ref)
+    err = impacts_close(got, ref, 0.05 * peak, 0.002 * peak, "encoder flash route vs plain")
+    log(f"BERT-base at S=512 through flash_attention: {len(docs)} passages in {seconds:.2f} s, "
+        f"{launches['ili_flash_fwd']} launches, impacts against the plain route {err}")
+    del model, plain
+    torch.cuda.empty_cache()
+    return {"docs": len(docs), "seconds": seconds, "launches": launches["ili_flash_fwd"], "errors": err}
+
+
+def run_expansion(cfg, workdir: Path) -> dict:
+    """Phase 15: the Llama route of expansion at Llama-2-7B width."""
+    from improving_learned_index_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from improving_learned_index_tpu_torch.ops import flash_attention as fa
+
+    log("== phase 15: expansion: flash attention, 7B generation, the 7B QLoRA fine-tune, the CLI chain")
+    t_phase = time.perf_counter()
+    row = flash_row()
+    tok = word_tokenizer(workdir, LlamaConfig.llama2_7b().vocab_size)
+    with open(workdir / "collection.tsv", encoding="utf-8") as f:
+        passages = [line.split("\t", 1)[1].rstrip("\n") for line in islice(f, 4096)]
+    encoder = encoder_flash_route(cfg, workdir, passages)
+    config = dataclasses.replace(LlamaConfig.llama2_7b(), vocab_size=tok.vocab_size)
+    t0 = time.perf_counter()
+    params = init_llama_params(config, seed=cfg.seed, device=cfg.device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"7B parameters (bf16, seeded) built on the card in {build_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    fa.KERNEL.calls.clear()
+    generation = generation_runs(cfg, params, config, tok, passages[: cfg.gen_passages])
+    generation["flash_launches"] = fa.KERNEL.launches  # generation runs the cache route: none
+    generation["greedy"] = greedy_check(cfg, config, tok, passages[: cfg.gen_passages])
+    breakdown = decode_breakdown(cfg, params, config, cfg.gen_passages * cfg.returns, 128)
+    finetune = finetune_runs(cfg, params, config, tok, passages[: 512])
+    del params
+    torch.cuda.empty_cache()
+    chain = cli_chain(cfg, workdir, tok, passages)
+    row["launches_by_path"] = {"7B QLoRA fine-tune (int8 + trl_4bit steps)": finetune.pop("launches"),
+                               "DeepImpact S=512 encode (use_flash_attention)": encoder["launches"],
+                               "7B generation (cache route)": generation["flash_launches"]}
+    row["launches"] = sum(row["launches_by_path"].values())
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 15 in {seconds:.1f} s")
+    return {"row": row, "encoder_s512": encoder, "build_s": build_s, "generation": generation, "decode_breakdown": breakdown,
+            "finetune": finetune, "cli_chain": chain, "seconds": seconds}
 
 
 def main() -> int:
@@ -3834,6 +4448,8 @@ def main() -> int:
         shutil.rmtree(qdir, ignore_errors=True)
         torch.cuda.empty_cache()
         remainder = run_remainder(REMAINDER, workdir)
+        torch.cuda.empty_cache()
+        expansion = run_expansion(EXPAND, workdir)
     finally:
         for d in (qdir, workdir):
             shutil.rmtree(d, ignore_errors=True)
@@ -3874,7 +4490,9 @@ def main() -> int:
     log(json.dumps({"lifecycle": lifecycle}))
     log(json.dumps({"multidevice": multi}))
     log(json.dumps({"remainder": remainder}))
-    print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row]}))
+    f_row = expansion.pop("row")
+    log(json.dumps({"expansion": expansion}))
+    print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row, f_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -83,8 +83,9 @@ class EncoderConfig:
     # [S, S] logits out of device memory; otherwise plain torch attention.
     # The backward recomputes through the JAX package's XLA-route math.
     use_short_attention: bool = True
-    # The JAX package's library flash-attention route (TPU only, off by
-    # default).  Not ported: the port's encoder ignores it.
+    # The JAX package's library flash-attention route (off by default): where
+    # short attention does not apply and S % 128 == 0, ops.flash_attention
+    # (csrc/flash_attention.cu on the card, head dim 64 or 128).
     use_flash_attention: bool = False
 
     @staticmethod

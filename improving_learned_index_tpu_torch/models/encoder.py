@@ -17,12 +17,19 @@ Precision is the JAX package's, written as explicit casts (no autocast):
 - the last hidden state is cast to fp32 and the impact head is an fp32
   Linear.
 
-Attention takes one of two routes, as in the JAX package.  With a mask,
+Attention takes one of three routes, as in the JAX package.  With a mask,
 ``use_short_attention``, S <= 256, S % 128 == 0 and head dim % 8 == 0 it
 calls ``ops.short_attention`` (the hand-written kernel on the card, its
 plain version on the CPU or with ``use_kernels=False``, with -1e9 masking
 and ``* sm_scale``; both forwards share the JAX ``custom_vjp``'s backward,
-a recompute through the XLA route's bf16 math).  Otherwise
+a recompute through the XLA route's bf16 math).  Where that route does not
+apply, ``use_flash_attention`` is set and S % 128 == 0 (the JAX package's
+library flash route, ``models/encoder.py:112-125``), it calls
+``ops.flash_attention`` non-causal with the mask (padding mask, or packed
+segment ids) as segment ids: the hand-written kernel on the card (head dim
+64 or 128), the twin on the CPU or with ``use_kernels=False``, its backward
+the library's; padding queries attend the padding keys there, so only the
+real tokens' outputs equal the other routes'.  Otherwise
 it runs the JAX package's XLA-path math in plain torch ops: logits in the
 compute dtype cast to fp32, ``/ sqrt(hd)``, ``finfo(fp32).min`` masking, an
 fp32 softmax cast back.  That route is not a Pallas kernel in the JAX
@@ -38,8 +45,7 @@ Parameter layout is torch's: ``Linear`` weights are [out, in]
 (``models.hf_import`` carries the flax [in, out] / [H, heads, hd] /
 [heads, hd, H] kernels across).  The same modules encode and train
 (``train/trainer.py`` differentiates them as the JAX loss differentiates
-the flax module with ``deterministic=True``): no dropout, no library flash
-path (the JAX package's flash route is off by default).
+the flax module with ``deterministic=True``): no dropout.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import EncoderConfig
+from ..ops.flash_attention import flash_attention
 from ..ops.short_attention import can_use_short_attention, short_attention
 
 
@@ -124,12 +131,13 @@ class SelfAttention(nn.Module):
         self.value = nn.Linear(h, h)
         self.output_dense = nn.Linear(h, h)
 
-    def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True):
-        """``attention_bias`` None selects the short-attention route (mask
-        as int32 padding mask or segment ids), else the additive fp32 bias
-        of the plain route.  Returns (output, probabilities), the
-        probabilities [B, heads, S, S] in the compute dtype on the plain
-        route and None on the kernel's."""
+    def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True, flash=False):
+        """``attention_bias`` None selects a kernel route (mask as int32
+        padding mask or segment ids): ``flash_attention`` with ``flash``,
+        else ``short_attention``; otherwise the additive fp32 bias of the
+        plain route.  Returns (output, probabilities), the probabilities
+        [B, heads, S, S] in the compute dtype on the plain route and None on
+        the kernels'."""
         c = self.config
         b, s, hid = x.shape
         heads = c.num_heads
@@ -141,7 +149,10 @@ class SelfAttention(nn.Module):
             for lin in (self.query, self.key, self.value)
         )
         probs = None
-        if attention_bias is None:  # the short-attention route
+        if attention_bias is None and flash:
+            ctx = flash_attention(q, k, v, attention_mask, attention_mask, causal=False,
+                                  sm_scale=1.0 / math.sqrt(hd), use_kernel=use_kernels)
+        elif attention_bias is None:  # the short-attention route
             ctx = short_attention(q, k, v, attention_mask, 1.0 / math.sqrt(hd), packed,
                                   use_kernel=use_kernels)
         else:
@@ -164,10 +175,10 @@ class EncoderLayer(nn.Module):
         self.output = nn.Linear(c.intermediate_size, c.hidden_size)
         self.output_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
-    def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True):
+    def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True, flash=False):
         """Returns (hidden, the attention's probabilities or None)."""
         dt = compute_dtype(self.config)
-        attn, probs = self.attention(x, attention_bias, attention_mask, packed, use_kernels)
+        attn, probs = self.attention(x, attention_bias, attention_mask, packed, use_kernels, flash)
         x = self.attention_norm((x + attn).float()).to(dt)
         h = F.gelu(_linear(x, self.intermediate, dt), approximate="none")
         h = _linear(h, self.output, dt)
@@ -203,9 +214,10 @@ class TransformerEncoder(nn.Module):
             x = self.embeddings(input_ids, type_ids)
             kernel_mask = attention_mask
         bias = None
-        if output_attentions or not (c.use_short_attention and can_use_short_attention(
-            input_ids.shape[1], c.hidden_size // c.num_heads
-        )):
+        seq = input_ids.shape[1]
+        short = c.use_short_attention and can_use_short_attention(seq, c.hidden_size // c.num_heads)
+        flash = not short and c.use_flash_attention and seq % 128 == 0
+        if output_attentions or not (short or flash):
             if packed:
                 allowed = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
             else:
@@ -214,7 +226,7 @@ class TransformerEncoder(nn.Module):
         kernel_mask = kernel_mask.to(torch.int32)
         maps = []
         for layer in self.layers:
-            x, probs = layer(x, bias, kernel_mask, packed, use_kernels)
+            x, probs = layer(x, bias, kernel_mask, packed, use_kernels, flash and bias is None)
             if output_attentions:
                 maps.append(probs.float().mean(dim=1))
         if output_attentions:

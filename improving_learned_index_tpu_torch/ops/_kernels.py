@@ -46,16 +46,21 @@ class CudaKernel:
 
     ``functions`` maps each exported C function to its ``argtypes``; every C
     function returns the ``cudaError_t`` of its launch as an int.
-    ``launches`` is a plain counter: each wrapper adds one where it launches
-    the kernel, so a run can show that its path went through the kernel.
+    ``calls`` counts launches by C function: each wrapper adds one where it
+    launches the kernel, so a run can show that its path went through the
+    kernel (``calls.clear()`` resets it); ``launches`` is their sum.
     """
 
     def __init__(self, name: str, functions: Dict[str, Sequence]):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.functions = dict(functions)
-        self.launches = 0
+        self.calls: Dict[str, int] = {}
         self._lib = None
+
+    @property
+    def launches(self) -> int:
+        return sum(self.calls.values())
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(
@@ -86,7 +91,7 @@ class CudaKernel:
             err = getattr(self.lib(), fn)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: {fn} launch failed with cudaError {err}")
-        self.launches += 1
+        self.calls[fn] = self.calls.get(fn, 0) + 1
 
 
 def build(kernels: Iterable[CudaKernel]) -> None:

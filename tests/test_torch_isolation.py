@@ -12,7 +12,9 @@ its shard router and ``cli.serve``), the multi-device paths (the
 doc-sharded engine, the data-parallel encode and the dry run), and the
 host-side remainder (the data-prep scripts, the segmenters and the HF
 tokenizer adapter, the Anserini export, term-pair attention, the flax
-msgpack reader and the async checkpoint manager).  No port file imports
+msgpack reader and the async checkpoint manager), and expansion (the
+Llama decoder, quantization, LoRA, sampling, generation, fine-tuning,
+merge, flash attention and their CLIs).  No port file imports
 ``msgpack``; ``transformers``, ``matplotlib``, ``py_vncorenlp`` and
 ``underthesea`` are imported only inside the functions that need them."""
 
@@ -38,6 +40,11 @@ REMAINDER_MODULES = (
     "scripts/create_training_files.py", "scripts/create_training_files_maxp.py",
     "scripts/create_unique_passage_mapping.py", "scripts/prepare_dataset.py",
     "scripts/preprocess_passages.py", "scripts/trim_scores.py",
+)
+EXPANSION_MODULES = (
+    "ops/flash_attention.py", "models/llama.py", "models/quantization.py", "expand/__init__.py",
+    "expand/lora.py", "expand/sampling.py", "expand/generate.py", "expand/merge.py", "expand/finetune.py",
+    "cli/expand.py", "cli/finetune.py", "cli/merge.py", "utils/text_utils.py",
 )
 
 
@@ -72,7 +79,7 @@ def test_port_sources_import_no_jax():
                    "cli/invert.py", "cli/merge_indexes.py", "cli/filter_index.py",
                    "cli/split_index.py", "serve/__init__.py", "serve/server.py", "serve/router.py",
                    "cli/serve.py", "search/sharded_engine.py", "parallel/multidevice.py",
-                   *REMAINDER_MODULES):
+                   *REMAINDER_MODULES, *EXPANSION_MODULES):
         assert module in names
     assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
@@ -619,3 +626,64 @@ def test_remainder_entry_points_without_cuda_raise(tmp_path):
                     str(tmp_path / "fwd.txt"), "--vocab_path", str(tmp_path / "vocab.txt"), "--tiny",
                     "--checkpoint", str(tmp_path / "m.msgpack")])
     assert not (tmp_path / "fwd.txt").exists()
+
+
+def test_cpu_expansion_leaves_jax_unimported(tmp_path):
+    """Generation (int4 weights, int8 cache), a fine-tune step through the
+    flash twin, a local generator round trip and the merge CLI, on the CPU,
+    in a fresh process: nothing of JAX loads."""
+    code = """
+import dataclasses, sys
+from pathlib import Path
+from improving_learned_index_tpu_torch.core.config import GenerationConfig
+from improving_learned_index_tpu_torch.expand import QueryGenerator, WordTokenizer, load_local_generator, save_local_generator
+from improving_learned_index_tpu_torch.expand.finetune import Doc2QueryFineTuner
+from improving_learned_index_tpu_torch.models.llama import LlamaConfig, init_llama_params
+from improving_learned_index_tpu_torch.models.quantization import quantize_params_int4
+d = Path(sys.argv[1])
+tok = WordTokenizer.build(["a b c d e f", "g h i"])
+cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=tok.vocab_size), kv_quant="int8", use_flash_attention=True)
+params = init_llama_params(cfg, seed=0)
+gen = QueryGenerator(quantize_params_int4(params), cfg, tok, GenerationConfig(num_return_sequences=2, max_new_tokens=3),
+                     device="cpu")
+assert len(gen.generate(["a b c", "g h"])[1]) == 2
+ft = Doc2QueryFineTuner(params, cfg, tok, quantize_base="int8", layerwise=True, device="cpu")
+assert ft.train([("a b c d", "e f"), ("g h", "i")], batch_size=2) > 0
+save_local_generator(d / "gen", ft.merged_params(), cfg, tok)
+assert load_local_generator(d / "gen")[1] == cfg
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "improving_learned_index_tpu")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], capture_output=True, text=True, env=env, cwd=tmp_path,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-2000:]
+
+
+def test_expansion_entry_points_without_cuda_raise(tmp_path):
+    """``QueryGenerator``, ``Doc2QueryFineTuner`` and ``cli.expand`` /
+    ``cli.finetune`` default to cuda and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from improving_learned_index_tpu_torch.cli.expand import main as expand_main
+    from improving_learned_index_tpu_torch.cli.finetune import main as finetune_main
+    from improving_learned_index_tpu_torch.expand import QueryGenerator, WordTokenizer
+    from improving_learned_index_tpu_torch.expand.finetune import Doc2QueryFineTuner
+    from improving_learned_index_tpu_torch.models.llama import LlamaConfig, init_llama_params
+
+    tok = WordTokenizer(["a", "b"])
+    cfg = LlamaConfig.tiny(vocab_size=tok.vocab_size)
+    params = init_llama_params(cfg)
+    (tmp_path / "c.tsv").write_text("0\ta b\n")
+    (tmp_path / "p.tsv").write_text("a b\ta\n")
+    for make in (lambda: QueryGenerator(params, cfg, tok), lambda: Doc2QueryFineTuner(params, cfg, tok),
+                 lambda: expand_main(["--collection_path", str(tmp_path / "c.tsv"), "--output_path",
+                                      str(tmp_path / "o.jsonl"), "--tiny"]),
+                 lambda: finetune_main(["--dataset_path", str(tmp_path / "p.tsv"), "--output_adapter",
+                                        str(tmp_path / "a.msgpack"), "--tiny"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert not (tmp_path / "o.jsonl").exists() and not (tmp_path / "a.msgpack").exists()

@@ -19,6 +19,11 @@ bf16 ulps of the largest output: both round the same fp32 context to bf16
 once, and only the fp32 summation order differs.  Its backward is one
 recompute for both routes (equal gradients); a training step's loss and
 gradients on the kernel route are held to the plain route's.
+``flash_attention``'s forward and its two backward kernels are held to the
+twin within 1e-2 of the largest |output| or |gradient| (p is rounded to
+bf16 against a running maximum in the kernel, against the final one in the
+twin) and the log-sum-exp within 1e-4; the Llama forward and a fine-tune
+step through them to the twin route within stated tolerances.
 """
 
 import numpy as np
@@ -29,6 +34,7 @@ from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
 from improving_learned_index_tpu_torch.ops import gather_rows as gr
 from improving_learned_index_tpu_torch.ops import scatter_scores as ss
 from improving_learned_index_tpu_torch.ops import pallas_scoring as ps
+from improving_learned_index_tpu_torch.ops import flash_attention as fa
 from improving_learned_index_tpu_torch.ops import short_attention as sa
 from improving_learned_index_tpu_torch.ops.count_ge import KERNEL as COUNT_KERNEL
 from improving_learned_index_tpu_torch.ops.count_ge import count_ge, count_ge_plain
@@ -951,3 +957,114 @@ def test_async_snapshot_of_card_state(cuda, tmp_path):
     assert torch.equal(first["opt_state"]["state"][0]["exp_avg"], want * 2)
     second = torch.load(tmp_path / "M_2.pt", weights_only=True)
     assert torch.equal(second["params"]["w"], (want.cuda() * 3.0 + 1.0).cpu())
+
+
+FLASH_CASES = [
+    # B, H, Hkv, S, D, causal, segments, dtype
+    (2, 4, 4, 256, 64, False, "padded", torch.bfloat16),
+    (2, 4, 2, 256, 128, True, "padded", torch.bfloat16),
+    (1, 4, 4, 384, 128, True, "packed", torch.float32),
+    (2, 2, 1, 128, 64, False, None, torch.bfloat16),
+    (3, 12, 12, 512, 64, False, "packed", torch.bfloat16),
+    (1, 8, 8, 1024, 128, True, "padded", torch.bfloat16),
+]
+
+
+def _flash_inputs(g, b, h, hkv, s, d, segments, dtype):
+    q, do = (torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+    seg = None
+    if segments == "padded":
+        seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+        seg[0, s - s // 5:] = 0
+    elif segments == "packed":
+        seg = (torch.arange(s, device="cuda")[None].expand(b, s) // 100 + 1).int().contiguous()
+        seg[:, -30:] = 0
+    return q, k, v, do, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_equal_twin(cuda, case):
+    b, h, hkv, s, d, causal, segments, dtype = case
+    q, k, v, do, seg = _flash_inputs(cuda, b, h, hkv, s, d, segments, dtype)
+    scale = d ** -0.5
+    before = dict(fa.KERNEL.calls)
+    o, lse = fa.flash_attention_forward(q, k, v, seg, seg, causal, scale)
+    o2, lse2 = fa.flash_attention_plain(q, k, v, seg, seg, causal, scale)
+    assert o.dtype == dtype and o.shape == (b, h, s, d)
+    assert (o.float() - o2.float()).abs().max() <= 1e-2 * o2.float().abs().max()
+    assert (lse - lse2).abs().max() <= 1e-4
+    got = fa.flash_attention_backward(q, k, v, seg, seg, o2, lse2, do, causal, scale)
+    want = fa.flash_attention_plain_bwd(q, k, v, seg, seg, o2, lse2, do, causal, scale)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.isfinite(a).all()
+        assert (a.float() - w.float()).abs().max() <= 1e-2 * w.float().abs().max()
+    for fn in ("ili_flash_fwd", "ili_flash_bwd_dkv", "ili_flash_bwd_dq"):
+        assert fa.KERNEL.calls[fn] == before.get(fn, 0) + 1
+
+
+@pytest.mark.cuda
+def test_flash_autograd_launches_kernels_and_refuses_other_shapes(cuda):
+    q, k, v, do, seg = _flash_inputs(cuda, 1, 2, 2, 256, 64, "padded", torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = fa.KERNEL.launches
+    out = fa.flash_attention(*leaves, seg, seg, causal=True, sm_scale=0.125)
+    out.backward(do)
+    assert fa.KERNEL.launches == before + 3
+    ref = [t.detach().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*ref, seg, seg, causal=True, sm_scale=0.125, use_kernel=False).backward(do)
+    assert fa.KERNEL.launches == before + 3
+    for a, w in zip(leaves, ref):
+        assert (a.grad.float() - w.grad.float()).abs().max() <= 1e-2 * w.grad.float().abs().max()
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fa.flash_attention(q[:, :, :200], k[:, :, :200], v[:, :, :200], causal=True)
+    with pytest.raises(ValueError, match="D in"):
+        fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+
+
+@pytest.mark.cuda
+def test_llama_flash_forward_and_finetune_step_equal_twin_route(cuda):
+    """A 2-layer Llama at head dim 128 (rep 2), bf16: the cache-less forward
+    through the kernels against ``use_kernels=False`` (logits within 0.1,
+    bf16 rounding of the attention output moved by the kernel's order), and
+    one layerwise int8-base fine-tune step's loss within 1% and adapter
+    gradients' cosine >= 0.99."""
+    import dataclasses
+
+    from improving_learned_index_tpu_torch.expand.finetune import Doc2QueryFineTuner
+    from improving_learned_index_tpu_torch.expand.lora import lora_leaves
+    from improving_learned_index_tpu_torch.models import llama as tl
+
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(vocab_size=300), hidden_size=512, num_heads=4,
+                              num_kv_heads=2, intermediate_size=1024, use_flash_attention=True)
+    params = tl.init_llama_params(cfg, seed=0, device="cuda")
+    ids = torch.randint(4, 300, (2, 256), generator=cuda, device="cuda")
+    mask = torch.ones_like(ids)
+    mask[0, 200:] = 0
+    model = tl.LlamaModel(cfg, device="meta")
+    before = fa.KERNEL.calls.get("ili_flash_fwd", 0)
+    a, _ = model(ids, mask, params=params)
+    assert fa.KERNEL.calls["ili_flash_fwd"] == before + cfg.num_layers
+    b, _ = model(ids, mask, params=params, use_kernels=False)
+    assert (a[0, :200] - b[0, :200]).abs().max() <= 0.1 and (a[1] - b[1]).abs().max() <= 0.1
+
+    class Tok:
+        def encode(self, t):
+            return [1] + [4 + (ord(ch) % 290) for ch in t]
+
+    pairs = [("a passage about flash attention kernels " * 5, "flash kernels"),
+             ("another passage on the decoder " * 4, "decoder")]
+    grads, losses = [], []
+    for use in (True, False):
+        ft = Doc2QueryFineTuner(params, cfg, Tok(), quantize_base="int8", layerwise=True, device="cuda",
+                                use_kernels=use)
+        batch = ft._to_device(ft.make_batch(pairs))
+        loss = ft.loss(batch)
+        g = torch.autograd.grad(loss, lora_leaves(ft.lora))
+        grads.append(torch.cat([x.flatten() for x in g]))
+        losses.append(float(loss.detach()))
+    assert abs(losses[0] - losses[1]) <= 0.01 * abs(losses[1])
+    cos = torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0)
+    assert cos >= 0.99, float(cos)
