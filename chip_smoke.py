@@ -244,12 +244,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    over 2,048 passages encodes each as the WordPiece route does and writes
    the ``--vocab_path`` route's forward index byte for byte.
 15. Expansion, in phase 6's work directory.  (1) ``flash_attention``'s
-   forward and its dk/dv and dq kernels against the twin (each output
-   within 1% of its largest entry, the log-sum-exp within 1e-4) at the 7B
-   fine-tune's [1, 32, 2048, 128] causal with a padded tail and the
-   encoder's [64, 12, 512, 64] with packed segments; kernel, twin and SDPA
-   (timed only) milliseconds beside the bound.  (2) BERT-base with
-   ``use_flash_attention`` at S=512 (phase 7's trunk) through
+   forward and its backward (the di pre-pass and the dk/dv/dq kernel)
+   against the twin (each output within 1% of its largest entry, the
+   log-sum-exp within 1e-4) at the 7B fine-tune's [1, 32, 2048, 128]
+   causal with a padded tail and the encoder's [64, 12, 512, 64] with
+   packed segments; kernel, twin and SDPA (timed only) milliseconds beside
+   the bound; the tile pairs the kernels computed, by their own count, equal
+   to the tile rule's, and their share.  (2)
+   BERT-base with ``use_flash_attention`` at S=512 (phase 7's trunk) through
    ``DeepImpact.get_impact_scores_batch`` over 64 passages: 12 forward
    launches, impacts within phase 7's rule of ``use_kernels=False``.  (3)
    Llama-2-7B (``LlamaConfig.llama2_7b``, seeded bf16 weights made on the
@@ -266,9 +268,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    layerwise, flash attention, batches padded to 2048 as the JAX bench
    pads): the kernel route's loss within 0.5% and adapter gradients'
    cosine >= 0.99 of the twin route's; 3 steps with the counts set to 0
-   before each and read after it (>= 32 forward, 32 dk/dv and 32 dq
-   launches a step; checkpointing recomputes each forward once); step s,
-   tokens/s, peak memory, the step split (forward, backward, the rest), a
+   before each and read after it (>= 32 forward, 32 backward pre-pass and
+   32 backward launches a step; checkpointing recomputes each forward
+   once); step s, tokens/s, peak memory, the step split (forward, backward, the rest), a
    profiled step; one ``trl_4bit`` step.  (5) The
    CLIs at 7B width, depth 2: a seeded local HF Llama directory (word-level
    tokenizer) -> ``cli.finetune --llama_path --quantize_base int8`` (4
@@ -3883,6 +3885,14 @@ def flash_shape_check(b, h, s, d, causal, seg, seed) -> dict:
     allowed = seg[:, :, None] == seg[:, None, :]
     pairs = h * int((allowed.tril() if causal else allowed).sum())
     del allowed
+    # the (64-row, 128-key) tile pairs the kernels computed, by their own
+    # count, against the tile rule's
+    fwd_tiles, bwd_tiles = fa.computed_tile_pairs(q, k, v, seg, seg, causal, scale)
+    rule_tiles = h * int(fa.tile_pairs(seg, seg, causal, s)[0].sum())
+    if not fwd_tiles == bwd_tiles == rule_tiles:
+        raise AssertionError(f"flash_attention at {[b, h, s, d]} computed {fwd_tiles} forward and {bwd_tiles} "
+                             f"backward tile pairs, the tile rule {rule_tiles}")
+    tiles = fwd_tiles / (b * h * (s // fa.TILE_Q) * (s // fa.TILE_K))
     io, lse_bytes, seg_bytes = q.element_size() * b * h * s * d, 4 * b * h * s, 2 * seg.element_size() * b * s
     fwd_bound = bound_ms(4 * io + lse_bytes + seg_bytes, 4 * d * pairs, BF16_OPS_PER_S)
     bwd_bound = bound_ms(8 * io + lse_bytes + seg_bytes, 10 * d * pairs, BF16_OPS_PER_S)
@@ -3908,26 +3918,38 @@ def flash_shape_check(b, h, s, d, causal, seg, seed) -> dict:
     t["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
     del out, leaves
     return {"shape": [b, h, s, d], "causal": causal, "mask": "padded tail" if causal else "packed segments",
-            "allowed_pairs": pairs, "max_abs_err": errs, "rel_err": rel, **t,
+            "allowed_pairs": pairs, "tile_pairs_computed": tiles, "max_abs_err": errs, "rel_err": rel, **t,
             "fwd_bound_ms": fwd_bound[0], "fwd_bound_by": fwd_bound[1],
             "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1]}
 
 
-def flash_row() -> dict:
-    """Row 6: the decoder's shape [1, 32, 2048, 128] causal with a padded
-    tail (the 7B fine-tune's) and the encoder's [64, 12, 512, 64] packed."""
+def flash_shapes() -> dict:
+    """Row 6's two shapes as (b, h, s, d, causal, segment ids, seed): the
+    decoder's [1, 32, 2048, 128] causal with a padded tail (the 7B
+    fine-tune's) and the encoder's [64, 12, 512, 64] with packed segments
+    of 100 and 72 tokens and 40 of padding."""
     s = EXPAND.seq
     pad = torch.ones(1, s, dtype=torch.int32, device="cuda")
     pad[0, s - s // 8:] = 0
     packed = (torch.arange(512, device="cuda")[None].expand(64, 512) // 100 + 1).int().contiguous()
     packed[:, -40:] = 0
-    dec = flash_shape_check(1, 32, s, 128, True, pad, EXPAND.seed)
-    enc = flash_shape_check(64, 12, 512, 64, False, packed, EXPAND.seed + 1)
+    return {"decoder": (1, 32, s, 128, True, pad, EXPAND.seed),
+            "encoder": (64, 12, 512, 64, False, packed, EXPAND.seed + 1)}
+
+
+def flash_row() -> dict:
+    """Row 6 at ``flash_shapes``' two shapes."""
+    shapes = flash_shapes()
+    dec = flash_shape_check(*shapes["decoder"])
+    enc = flash_shape_check(*shapes["encoder"])
     log(f"flash_attention at {dec['shape']} causal: forward {dec['fwd_ms']:.4f} ms (bound "
         f"{dec['fwd_bound_ms']:.4f}, twin {dec['plain_fwd_ms']:.3f}, SDPA {dec['library_fwd_ms']:.4f}), "
         f"backward {dec['bwd_ms']:.4f} ms (bound {dec['bwd_bound_ms']:.4f}, twin {dec['plain_bwd_ms']:.3f}, "
         f"SDPA {dec['library_bwd_ms']:.4f}); at {enc['shape']} packed: forward {enc['fwd_ms']:.4f}, "
-        f"backward {enc['bwd_ms']:.4f} ms; relative errors {dec['rel_err']}, {enc['rel_err']}")
+        f"backward {enc['bwd_ms']:.4f} ms (bound {enc['fwd_bound_ms']:.4f} + {enc['bwd_bound_ms']:.4f}, SDPA "
+        f"{enc['library_fwd_ms']:.4f} + {enc['library_bwd_ms']:.4f}); tile pairs computed (the kernels' count) "
+        f"{dec['tile_pairs_computed']:.4f}, {enc['tile_pairs_computed']:.4f}; relative errors {dec['rel_err']}, "
+        f"{enc['rel_err']}")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -4142,8 +4164,8 @@ def finetune_runs(cfg, params, config, tok, passages) -> dict:
             raise AssertionError(f"fine-tune step {i}: loss {loss}")
     per_step = launches[-1]
     if not (per_step.get("ili_flash_fwd", 0) >= config.num_layers
-            and per_step.get("ili_flash_bwd_dkv", 0) >= config.num_layers
-            and per_step.get("ili_flash_bwd_dq", 0) >= config.num_layers):
+            and per_step.get("ili_flash_bwd_prep", 0) >= config.num_layers
+            and per_step.get("ili_flash_bwd", 0) >= config.num_layers):
         raise AssertionError(f"a fine-tune step launched the flash kernels {per_step}")
     # the step split: forward (the loss through the checkpointed layers),
     # backward (each layer's forward recomputed, then its backward), the rest
@@ -4172,9 +4194,9 @@ def finetune_runs(cfg, params, config, tok, passages) -> dict:
     out["profile"] = {k: profile[k] for k in ("wall_ms", "device_ms", "device_busy_share", "top_kernels")}
     kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0}
     for kern in profile["top_kernels"]:
-        if "fwd_kernel" in kern["kernel"]:
+        if "flash_fwd_kernel" in kern["kernel"]:
             kinds["flash_fwd"] += kern["ms"]
-        elif "bwd_dq_kernel" in kern["kernel"] or "bwd_dkv_kernel" in kern["kernel"]:
+        elif "flash_bwd" in kern["kernel"]:
             kinds["flash_bwd"] += kern["ms"]
     out["profile"]["flash_ms"] = kinds
     del ft
@@ -4190,7 +4212,7 @@ def finetune_runs(cfg, params, config, tok, passages) -> dict:
     out["trl_4bit"] = {"setup_s": setup4, "step_s": time.perf_counter() - t0, "loss": loss4,
                        "launches": dict(fa.KERNEL.calls)}
     out["launches"] += sum(fa.KERNEL.calls.values())
-    if not np.isfinite(loss4) or fa.KERNEL.calls.get("ili_flash_bwd_dq", 0) < config.num_layers:
+    if not np.isfinite(loss4) or fa.KERNEL.calls.get("ili_flash_bwd", 0) < config.num_layers:
         raise AssertionError(f"trl_4bit step: loss {loss4}, launches {fa.KERNEL.calls}")
     log(f"trl_4bit (int4 base, r=64, clip 0.3): one step {out['trl_4bit']['step_s']:.3f} s, loss {loss4:.4f}")
     del ft4

@@ -22,10 +22,18 @@ rounds p and ds to bf16 for dv = p^T do, dk = ds^T q and dq = ds k.
 ``flash_attention`` dispatches on the tensors' device: on the CPU its
 forward and backward run the plain PyTorch versions ``flash_attention_plain``
 and ``flash_attention_plain_bwd`` (the twin); on CUDA they launch the
-hand-written kernels of ``csrc/flash_attention.cu`` (``ili_flash_fwd``, then
-``ili_flash_bwd_dkv`` and ``ili_flash_bwd_dq``) or raise.  There is no
-fallback from one to the other; ``use_kernel=False`` runs the twin on any
-device.  The kernels take S a multiple of 128 and D in {64, 128}.
+hand-written kernels of ``csrc/flash_attention.cu`` (``ili_flash_fwd``; the
+backward ``ili_flash_bwd_prep``, di = rowsum(o * do) and the fp32 dq
+accumulator zeroed, then ``ili_flash_bwd``, dk and dv written once and dq
+added in fp32 by atomic adds) or raise.  There is no fallback from one to
+the other; ``use_kernel=False`` runs the twin on any device.  The kernels
+take S a multiple of 128 and D in {64, 128}.
+
+The kernels compute only the tiles that may hold an allowed (query, key)
+pair: ``tile_pairs`` is their rule in plain PyTorch, and
+``computed_tile_pairs`` reads the kernels' own count of the tiles they
+computed, so the card tests and ``chip_smoke.py`` hold the two to each
+other.
 
 Layouts: q, k, v are read through their strides (head dim contiguous), so
 the callers pass ``[B, S, H, D]`` projections as ``[B, H, S, D]`` views; the
@@ -47,13 +55,17 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 KERNEL = CudaKernel(
     "flash_attention",
     {
-        "ili_flash_fwd": [_PTR] * 7 + [_STRIDES] + [_INT] * 5 + [ctypes.c_float] + [_INT] * 3 + [_PTR],
-        "ili_flash_bwd_dq": [_PTR] * 9 + [_STRIDES] + [_INT] * 5 + [ctypes.c_float] + [_INT] * 2 + [_PTR],
-        "ili_flash_bwd_dkv": [_PTR] * 10 + [_STRIDES] + [_INT] * 5 + [ctypes.c_float] + [_INT] * 2 + [_PTR],
+        "ili_flash_fwd": [_PTR] * 7 + [_STRIDES] + [_INT] * 5 + [ctypes.c_float] + [_INT] * 4 + [_PTR] * 2,
+        "ili_flash_bwd_prep": [_PTR] * 4 + [_STRIDES] + [_INT] * 6 + [_PTR],
+        "ili_flash_bwd": [_PTR] * 11 + [_STRIDES] + [_INT] * 5 + [ctypes.c_float] + [_INT] * 4 + [_PTR] * 2,
     },
 )
 KERNEL_DIMS = (64, 128)
 BLOCK = 128
+# The tile rule's grain: 64 query rows (a consumer warpgroup's rows) by a
+# 128-key tile; each 64-row tile's ids are summarised as a mask of the ids
+# modulo 64, and only the first SUMMARISED tiles of 64 rows are.
+TILE_Q, TILE_K, SUMMARISED = 64, 128, 256
 
 
 def _check(q, k, v, seg_q, seg_kv):
@@ -150,44 +162,108 @@ def _segs(seg_q, seg_kv, q):
     return seg_q.to(torch.int32).contiguous(), seg_kv.to(torch.int32).contiguous(), 1
 
 
+def _skip(seg_q, seg_kv) -> int:
+    """1 where dropping tiles with no allowed pair is exact: no segment ids,
+    or one tensor for both sides, so every row's own key is allowed.  Two
+    tensors (which may differ) make the kernels compute every tile."""
+    if seg_q is None or seg_q is seg_kv:
+        return 1
+    same = (seg_q.data_ptr(), seg_q.dtype, seg_q.shape, seg_q.stride()) == \
+        (seg_kv.data_ptr(), seg_kv.dtype, seg_kv.shape, seg_kv.stride())
+    return int(same)
+
+
+def _tile_ids(seg, s: int):
+    """Per 64-row tile of each row: which ids occur, modulo 64 ([B, S/64, 64]
+    bool, the kernels' 64-bit mask), the least and the largest id."""
+    t = seg.reshape(seg.shape[0], s // TILE_Q, TILE_Q).long()
+    present = torch.zeros(*t.shape[:2], 64, dtype=torch.bool, device=seg.device)
+    present.scatter_(2, t % 64, True)
+    return present, t.amin(-1), t.amax(-1)
+
+
+def tile_pairs(seg_q, seg_kv, causal: bool, s: int, batch: int = 1):
+    """The kernels' tile rule over pairs of a 64-row query tile and a 128-key
+    tile, as bool [B, S/64, S/128] tensors ``(may, full)``.
+
+    ``may``: the pair may hold an allowed (query, key) pair and is computed;
+    the kernels drop every other pair, which holds none.  Per 64-key half:
+    causal, the half does not start past the query tile's last row; and the
+    two tiles' id masks meet (or a tile lies past the first ``SUMMARISED``).
+    ``full``: every pair of the two tiles is allowed (below the diagonal, one
+    id on both sides), so the per-element mask is skipped.  Without segment
+    ids (``seg_q`` None) every id is 0 and ``batch`` gives B."""
+    if s % BLOCK:
+        raise ValueError(f"S must be a multiple of {BLOCK}, got {s}")
+    if seg_q is None:
+        seg_q = seg_kv = torch.zeros(batch, s, dtype=torch.int32)
+    pq, loq, hiq = _tile_ids(seg_q, s)
+    pk, lok, hik = _tile_ids(seg_kv, s)
+    n = s // TILE_Q
+    qa = torch.arange(n, device=pq.device)[:, None]
+    ka = torch.arange(n, device=pq.device)[None, :]
+    meet = torch.matmul(pq.float(), pk.float().transpose(1, 2)) > 0
+    may = meet | (qa >= SUMMARISED) | (ka >= SUMMARISED)
+    uniform = (loq == hiq)[:, :, None] & (lok == hik)[:, None, :] & (loq[:, :, None] == lok[:, None, :])
+    full = uniform & (qa < SUMMARISED) & (ka < SUMMARISED)
+    if causal:
+        may = may & (ka <= qa)
+        full = full & (ka < qa)
+    halves = (pq.shape[0], n, s // TILE_K, TILE_K // TILE_Q)
+    return may.view(halves).any(-1), full.view(halves).all(-1)
+
+
 def _strides(*ts):
     return (ctypes.c_longlong * (3 * len(ts)))(*(st for t in ts for st in t.stride()[:3]))
 
 
-def _launch_fwd(q, k, v, seg_q, seg_kv, causal: bool, sm_scale: float):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(q, k, v, seg_q, seg_kv, causal: bool, sm_scale: float, tiles=None):
     b, h, hkv, s, d = _shape(q, k)
     out_dtype = q.dtype
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q must be bf16 or fp32, got {q.dtype}")
     qb, kb, vb = _aligned(q), _aligned(k), _aligned(v)
+    skip = _skip(seg_q, seg_kv)
     sq, skv, has_seg = _segs(seg_q, seg_kv, q)
     o = torch.empty(b, s, h, d, dtype=out_dtype, device=q.device).permute(0, 2, 1, 3)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     KERNEL.call(
         "ili_flash_fwd", qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), sq.data_ptr(), skv.data_ptr(),
         o.data_ptr(), lse.data_ptr(), _strides(qb, kb, vb, o), b, h, hkv, s, d, float(sm_scale),
-        int(bool(causal)), has_seg, int(out_dtype == torch.float32),
+        int(bool(causal)), has_seg, skip, int(out_dtype == torch.float32), _ptr(tiles),
         torch.cuda.current_stream(q.device).cuda_stream, device=q.device,
     )
     return o, lse
 
 
-def _launch_bwd(q, k, v, seg_q, seg_kv, o, lse, do, causal: bool, sm_scale: float):
+def _launch_bwd(q, k, v, seg_q, seg_kv, o, lse, do, causal: bool, sm_scale: float, tiles=None):
     b, h, hkv, s, d = _shape(q, k)
+    if o.dtype not in (torch.bfloat16, torch.float32) or do.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"o and do must be bf16 or fp32, got {o.dtype}, {do.dtype}")
+    o, do = (t if t.stride(3) == 1 else t.contiguous() for t in (o, do))
     qb, kb, vb, dob = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
+    skip = _skip(seg_q, seg_kv)
     sq, skv, has_seg = _segs(seg_q, seg_kv, q)
-    di = (o.float() * do.float()).sum(dim=-1).contiguous()
     lse = lse.contiguous()
-    dq = torch.empty(b, h, s, d, dtype=torch.float32, device=q.device)
-    dk = torch.empty(b, hkv, s, d, dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
-    strides = _strides(qb, kb, vb, dob)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (b, h, hkv, s, d, float(sm_scale), int(bool(causal)), has_seg, stream)
-    ptrs = (qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), sq.data_ptr(), skv.data_ptr(), dob.data_ptr(),
-            lse.data_ptr(), di.data_ptr())
-    KERNEL.call("ili_flash_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), strides, *common, device=q.device)
-    KERNEL.call("ili_flash_bwd_dq", *ptrs, dq.data_ptr(), strides, *common, device=q.device)
+    di = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    dq = torch.empty(b, h, s, d, dtype=torch.float32, device=q.device)
+    KERNEL.call("ili_flash_bwd_prep", o.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(), _strides(o, do),
+                b, h, s, d, int(o.dtype == torch.float32), int(do.dtype == torch.float32), stream,
+                device=q.device)
+    kv_dtype = torch.float32 if k.dtype == torch.float32 else torch.bfloat16
+    dk = torch.empty(b, hkv, s, d, dtype=kv_dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    KERNEL.call("ili_flash_bwd", qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), sq.data_ptr(), skv.data_ptr(),
+                dob.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _strides(qb, kb, vb, dob), b, h, hkv, s, d, float(sm_scale), int(bool(causal)), has_seg, skip,
+                int(kv_dtype == torch.float32), _ptr(tiles), stream, device=q.device)
+    # dq is summed in fp32 across key tiles and converted once; dk and dv
+    # come out in k's dtype (bf16 for any other)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -210,10 +286,26 @@ def flash_attention_forward(q, k, v, seg_q=None, seg_kv=None, causal: bool = Fal
 
 def flash_attention_backward(q, k, v, seg_q, seg_kv, o, lse, do, causal: bool = False, sm_scale: float = 1.0,
                              use_kernel: bool = True):
-    """(dq, dk, dv): the two backward kernels on CUDA, the twin on the CPU."""
+    """(dq, dk, dv): the backward kernels on CUDA, the twin on the CPU."""
     if _route(q, use_kernel):
         return _launch_bwd(q, k, v, seg_q, seg_kv, o, lse, do, causal, sm_scale)
     return flash_attention_plain_bwd(q, k, v, seg_q, seg_kv, o, lse, do, causal, sm_scale)
+
+
+def computed_tile_pairs(q, k, v, seg_q=None, seg_kv=None, causal: bool = False, sm_scale: float = 1.0):
+    """(forward, backward): the (64-row query, 128-key) tile pairs that one
+    launch of the forward kernel and one of the backward kernel computed at
+    these inputs, over every query head and batch row, as the kernels count
+    them on the card.  Where tiles are dropped, ``tile_pairs``' rule gives
+    H times the sum of its ``may``; otherwise every tile is computed."""
+    _check(q, k, v, seg_q, seg_kv)
+    if not _route(q, True):
+        raise ValueError(f"the kernels count tiles on a CUDA tensor, got {q.device}")
+    counts = torch.zeros(2, dtype=torch.int64, device=q.device)
+    o, lse = _launch_fwd(q, k, v, seg_q, seg_kv, causal, sm_scale, tiles=counts[0:1])
+    _launch_bwd(q, k, v, seg_q, seg_kv, o, lse, o, causal, sm_scale, tiles=counts[1:2])
+    fwd, bwd = counts.tolist()
+    return fwd, bwd
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -13,12 +13,19 @@ each gradient within 1e-2 of its largest entry.
 GQA (kv heads shared by 2 query heads) equals the twin on repeated kv
 heads with the shared heads' gradients summed, to fp32 rounding (1e-6).
 
+The kernels' tile rule (``tile_pairs``) never drops a tile pair that holds
+an allowed (query, key) pair, over seeded segment ids, causal and not; at
+``chip_smoke.py``'s two masks the twin with the dropped tiles' keys
+excluded equals the full twin within 1e-6 relative.
+
 The encoder's flash route (``use_flash_attention``, where short attention
 does not apply) gives the plain route's outputs on the real tokens within
 2e-3 (fp32 model; the twin rounds q, k, v, p to bf16) and stays finite on
 padding; the JAX encoder takes its XLA route on the CPU, so the same holds
 against it.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -131,6 +138,120 @@ def test_kernel_shapes_checked():
     with pytest.raises(ValueError, match="both segment ids"):
         fa.flash_attention_forward(torch.empty(1, 2, 128, 64), torch.empty(1, 2, 128, 64),
                                    torch.empty(1, 2, 128, 64), torch.ones(1, 128))
+
+
+def _segment_ids(rng, kind, b, s):
+    """Seeded segment ids: runs of random lengths and ids (negative ones and
+    ones equal modulo 64 among them), per-position noise over 4 ids, one id
+    with a few others sprinkled, or none."""
+    if kind == "none":
+        return None
+    if kind == "noise":
+        return torch.from_numpy(rng.integers(0, 4, (b, s)).astype(np.int32))
+    if kind == "sparse":
+        seg = np.full((b, s), 5, np.int32)
+        seg[rng.random((b, s)) < 0.01] = 69
+        return torch.from_numpy(seg)
+    rows = []
+    for _ in range(b):
+        row = []
+        while len(row) < s:
+            row += [int(rng.integers(-3, 200))] * int(rng.integers(1, 200))
+        rows.append(row[:s])
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def _tile_blocks(seg, causal, b, s):
+    """The allowed pairs, [B, S/64, 64, S/128, 128]."""
+    if seg is None:
+        seg = torch.zeros(b, s, dtype=torch.int32)
+    allowed = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        allowed = allowed.tril()
+    return allowed.view(b, s // 64, 64, s // 128, 128)
+
+
+@pytest.mark.parametrize("s", [128, 384, 1024])
+@pytest.mark.parametrize("kind", ["runs", "noise", "sparse", "none"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tile_rule_never_drops_an_allowed_pair(causal, kind, s):
+    """Over seeded segment ids, every (64-row, 128-key) tile pair holding an
+    allowed pair is kept, and every pair called full holds only allowed
+    pairs: the kernels drop a tile, or skip its per-element mask, by this
+    rule."""
+    rng = np.random.default_rng([s, len(kind), causal])
+    for _ in range(4):
+        seg = _segment_ids(rng, kind, 3, s)
+        may, full = fa.tile_pairs(seg, seg, causal, s, batch=3)
+        blocks = _tile_blocks(seg, causal, 3, s)
+        assert may.shape == full.shape == (3, s // 64, s // 128)
+        assert not (blocks.any(4).any(2) & ~may).any()
+        assert not (full & ~blocks.all(4).all(2)).any()
+
+
+def test_tile_rule_keeps_every_tile_past_the_summarised(monkeypatch):
+    """Tiles past the first ``SUMMARISED`` 64-row tiles are not summarised:
+    kept (causal pairs aside), never full."""
+    monkeypatch.setattr(fa, "SUMMARISED", 4)
+    seg = _segment_ids(np.random.default_rng(5), "runs", 2, 1024)
+    may, full = fa.tile_pairs(seg, seg, False, 1024)
+    assert may[:, 4:].all() and may[:, :, 2:].all() and not full[:, 4:].any() and not full[:, :, 2:].any()
+    causal_may, _ = fa.tile_pairs(seg, seg, True, 1024)
+    assert not (_tile_blocks(seg, True, 2, 1024).any(4).any(2) & ~causal_may).any()
+
+
+def test_tile_rule_summarises_as_many_tiles_as_the_kernels():
+    """``SUMMARISED`` is the kernels' ``MAXT``, and their tiles ``TILE_Q`` by
+    ``TILE_K``; the card tests hold the kernels' own count of the tiles they
+    computed to ``tile_pairs`` past it.  The count is read on the card only."""
+    src = fa.KERNEL.source.read_text()
+    assert re.search(r"constexpr int MAXT = (\d+);", src).group(1) == str(fa.SUMMARISED)
+    assert (fa.TILE_Q, fa.TILE_K) == (64, fa.BLOCK) == (64, 128)
+    q = torch.zeros(1, 1, 128, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.computed_tile_pairs(q, q, q)
+
+
+def test_tile_rule_is_applied_only_to_one_segment_tensor():
+    """Tiles are dropped only where every row's own key is allowed: no
+    segment ids, or one tensor for both sides."""
+    seg = torch.ones(2, 256, dtype=torch.int32)
+    assert fa._skip(None, None) == 1 and fa._skip(seg, seg) == 1
+    assert fa._skip(seg, seg[:, :]) == 1
+    assert fa._skip(seg, seg.clone()) == 0
+
+
+@pytest.mark.parametrize("mask", ["decoder", "encoder"])
+def test_twin_without_dropped_tiles_equals_full_twin(mask):
+    """At ``chip_smoke.py``'s two masks (the 7B fine-tune's causal 2048 with a
+    padded eighth, the encoder's packed 512: segments of 100 and 72 and 40
+    of padding), the twin with the keys of every dropped tile excluded gives
+    the full twin's output and log-sum-exp within 1e-6 relative: a dropped
+    tile's p are exactly 0.  The share of tile pairs computed is the
+    rule's: 216 of 512 and half."""
+    rng = np.random.default_rng(7)
+    if mask == "decoder":
+        b, s, causal, share = 1, 2048, True, 216 / 512
+        seg = torch.ones(b, s, dtype=torch.int32)
+        seg[0, s - s // 8:] = 0
+    else:
+        b, s, causal, share = 8, 512, False, 0.5
+        seg = (torch.arange(s)[None].expand(b, s) // 100 + 1).int().contiguous()
+        seg[:, -40:] = 0
+    q, k, v = (torch.tensor(_bf16_values(rng, (b, 2, s, 16))) for _ in range(3))
+    scale = 0.25
+    may, _ = fa.tile_pairs(seg, seg, causal, s)
+    assert float(may.float().mean()) == share
+    o, lse = fa.flash_attention_plain(q, k, v, seg, seg, causal, scale)
+    keep = may.repeat_interleave(64, 1).repeat_interleave(128, 2)[:, None]
+    logits = fa._logits(q, k, seg, seg, causal, scale).masked_fill(~keep, float("-inf"))
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True)
+    o2 = torch.matmul(p.to(torch.bfloat16).float(), v) / l
+    lse2 = (m + torch.log(l))[..., 0]
+    assert (o2 - o).abs().max() <= 1e-6 * o.abs().max()
+    assert (lse2 - lse).abs().max() <= 1e-6 * lse.abs().max()
 
 
 ENC = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,

@@ -19,11 +19,14 @@ bf16 ulps of the largest output: both round the same fp32 context to bf16
 once, and only the fp32 summation order differs.  Its backward is one
 recompute for both routes (equal gradients); a training step's loss and
 gradients on the kernel route are held to the plain route's.
-``flash_attention``'s forward and its two backward kernels are held to the
+``flash_attention``'s forward and its backward kernels are held to the
 twin within 1e-2 of the largest |output| or |gradient| (p is rounded to
 bf16 against a running maximum in the kernel, against the final one in the
-twin) and the log-sum-exp within 1e-4; the Llama forward and a fine-tune
-step through them to the twin route within stated tolerances.
+twin) and the log-sum-exp within 1e-4, and two backward runs, whose fp32
+dq sums are atomic adds in another order each run, to each other within
+the same 1e-2; the tile pairs they computed, by their own count, equal the
+tile rule's (``tile_pairs``); the Llama forward and a fine-tune step through
+them to the twin route within stated tolerances.
 """
 
 import numpy as np
@@ -967,6 +970,32 @@ FLASH_CASES = [
     (2, 2, 1, 128, 64, False, None, torch.bfloat16),
     (3, 12, 12, 512, 64, False, "packed", torch.bfloat16),
     (1, 8, 8, 1024, 128, True, "padded", torch.bfloat16),
+    # segments of 128 keys: whole key tiles disjoint, dropped
+    (2, 4, 4, 512, 64, False, "tiles", torch.bfloat16),
+    (1, 4, 4, 512, 128, True, "tiles", torch.bfloat16),
+    # one segment only: every tile below the diagonal unmasked
+    (2, 4, 4, 384, 64, True, "one", torch.bfloat16),
+    (2, 4, 4, 256, 128, False, "one", torch.bfloat16),
+    # ids not sorted within a row (padding in the middle, ids 1 and 65
+    # equal modulo 64): a [least, largest] range test would keep tiles
+    (2, 4, 4, 512, 64, False, "unsorted", torch.bfloat16),
+    (2, 4, 2, 512, 128, True, "unsorted", torch.bfloat16),
+    # kv heads shared by 3 query heads, both head dims
+    (2, 6, 2, 384, 64, True, "padded", torch.bfloat16),
+    (1, 6, 2, 256, 128, False, "packed", torch.bfloat16),
+    # fp32 output at S = 128, one tile
+    (2, 2, 2, 128, 128, True, "padded", torch.float32),
+    # seg_kv another tensor than seg_q: every tile computed; its rows whose
+    # keys are all forbidden take the library's uniform average
+    (2, 4, 4, 256, 64, False, "distinct", torch.bfloat16),
+    (1, 4, 2, 384, 128, True, "distinct", torch.bfloat16),
+    # more than 4 blocks an SM: a block walks 2-4 heads (the last group of
+    # 7 heads shorter), the next head's loads beside the last one's stores
+    (72, 8, 4, 512, 64, True, "unsorted", torch.bfloat16),
+    (48, 7, 7, 512, 64, False, "packed", torch.bfloat16),
+    (64, 7, 7, 384, 128, True, "padded", torch.bfloat16),
+    # past the first 256 tiles of 64 rows, which alone are summarised
+    (1, 2, 1, 16512, 64, True, "tiles", torch.bfloat16),
 ]
 
 
@@ -977,10 +1006,24 @@ def _flash_inputs(g, b, h, hkv, s, d, segments, dtype):
     if segments == "padded":
         seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
         seg[0, s - s // 5:] = 0
-    elif segments == "packed":
+    elif segments in ("packed", "distinct"):
         seg = (torch.arange(s, device="cuda")[None].expand(b, s) // 100 + 1).int().contiguous()
         seg[:, -30:] = 0
+    elif segments == "tiles":
+        seg = (torch.arange(s, device="cuda")[None].expand(b, s) // 128 + 1).int().contiguous()
+    elif segments == "one":
+        seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    elif segments == "unsorted":
+        runs = [(65, 90), (3, 70), (0, 40), (1, 100), (2, 60), (65, 30)]
+        row = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in runs])
+        row = torch.cat([row, torch.full((s - len(row),), 7, dtype=torch.int32)])
+        seg = torch.stack([row.roll(77 * i) for i in range(b)]).to("cuda")
     return q, k, v, do, seg
+
+
+def _seg_kv(seg, segments):
+    # the same values in another tensor, shifted so some rows allow no key
+    return seg.roll(37, dims=1).contiguous() if segments == "distinct" else seg
 
 
 @pytest.mark.cuda
@@ -988,21 +1031,33 @@ def _flash_inputs(g, b, h, hkv, s, d, segments, dtype):
 def test_flash_kernels_equal_twin(cuda, case):
     b, h, hkv, s, d, causal, segments, dtype = case
     q, k, v, do, seg = _flash_inputs(cuda, b, h, hkv, s, d, segments, dtype)
+    seg_kv = _seg_kv(seg, segments)
     scale = d ** -0.5
     before = dict(fa.KERNEL.calls)
-    o, lse = fa.flash_attention_forward(q, k, v, seg, seg, causal, scale)
-    o2, lse2 = fa.flash_attention_plain(q, k, v, seg, seg, causal, scale)
+    o, lse = fa.flash_attention_forward(q, k, v, seg, seg_kv, causal, scale)
+    o2, lse2 = fa.flash_attention_plain(q, k, v, seg, seg_kv, causal, scale)
     assert o.dtype == dtype and o.shape == (b, h, s, d)
     assert (o.float() - o2.float()).abs().max() <= 1e-2 * o2.float().abs().max()
     assert (lse - lse2).abs().max() <= 1e-4
-    got = fa.flash_attention_backward(q, k, v, seg, seg, o2, lse2, do, causal, scale)
-    want = fa.flash_attention_plain_bwd(q, k, v, seg, seg, o2, lse2, do, causal, scale)
-    for a, w in zip(got, want):
+    got = fa.flash_attention_backward(q, k, v, seg, seg_kv, o2, lse2, do, causal, scale)
+    want = fa.flash_attention_plain_bwd(q, k, v, seg, seg_kv, o2, lse2, do, causal, scale)
+    again = fa.flash_attention_backward(q, k, v, seg, seg_kv, o2, lse2, do, causal, scale)
+    for a, w, a2 in zip(got, want, again):
         assert a.dtype == w.dtype and a.shape == w.shape
         assert torch.isfinite(a).all()
         assert (a.float() - w.float()).abs().max() <= 1e-2 * w.float().abs().max()
-    for fn in ("ili_flash_fwd", "ili_flash_bwd_dkv", "ili_flash_bwd_dq"):
-        assert fa.KERNEL.calls[fn] == before.get(fn, 0) + 1
+        # dq's fp32 sums are atomic adds, in another order each run
+        assert (a.float() - a2.float()).abs().max() <= 1e-2 * w.float().abs().max()
+    for fn, n in (("ili_flash_fwd", 1), ("ili_flash_bwd_prep", 2), ("ili_flash_bwd", 2)):
+        assert fa.KERNEL.calls[fn] == before.get(fn, 0) + n
+    # the tile pairs the kernels computed, by their own count: the tile
+    # rule's where tiles are dropped (one segment tensor), else every one
+    fwd_tiles, bwd_tiles = fa.computed_tile_pairs(q, k, v, seg, seg_kv, causal, scale)
+    if seg_kv is seg:
+        want_tiles = h * int(fa.tile_pairs(seg, seg, causal, s, batch=b)[0].sum())
+    else:
+        want_tiles = b * h * (s // fa.TILE_Q) * (s // fa.TILE_K)
+    assert fwd_tiles == bwd_tiles == want_tiles
 
 
 @pytest.mark.cuda
