@@ -7,9 +7,10 @@ serving daemons (shard router, staged hot swap) on the MS MARCO-scale index,
 then the multi-device paths (doc-sharded engine, data-parallel encode)
 with one card standing in for several, the host-side remainder: data-prep
 scripts, async snapshots, a JAX-format checkpoint through the encode and
-query paths, term-pair attention and the gated tokenizer routes, and last
+query paths, term-pair attention and the gated tokenizer routes,
 expansion at Llama-2-7B width: the flash-attention kernels, generation,
-the QLoRA fine-tune and the expansion CLIs.
+the QLoRA fine-tune and the expansion CLIs, and last expansion's T5/mT5
+route at mT5-base width and the precomputed-expansion tools.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -280,6 +281,35 @@ Phases, in order; any failed check raises and the script exits non-zero:
    over 256 passages (10 sequences each) -> ``cli.merge`` (each passage
    keeps its text) -> ``cli.index`` (phase 7's trunk) -> ``cli.quantize``
    -> ``cli.invert`` -> ``cli.rank`` (64 queries of 4 words of a passage).
+16. The T5/mT5 route, in phase 6's work directory, at mT5-base width
+   (``T5Config.mt5_base``: 12 + 12 layers, d_model 768, 12 heads of 64,
+   gated-GELU d_ff 2048, vocabulary 250,112, an untied fp32 head; seeded
+   fp32 weights made on the card) with a T5-style word tokenizer of phase
+   15's 31,996 words.  The T5 route reaches no kernel: the counts of the
+   six are set to 0 when the phase starts and must read 0 at its end.  (1)
+   ``T5QueryGenerator`` at the JAX CLI's defaults (80 sequences, 50 new
+   tokens, top-k 50, top-p 0.95, documents within 350 tokens) for 2
+   batches of 4 passages (320 decoder rows) with the fp32 tree and its int8
+   and int4 quantizations: tokens in range, nothing but EOS after a row's
+   first EOS; sequences/s, tokens/s, a loop step's ms, peak memory (torch's
+   counters); the encoder's ms and a decode step's parts (the forward, the
+   fp32 head, the top-k/top-p filter and one of its full sorts of [320,
+   250112], the draw).  (2) Greedy in fp32 at full depth: 8 cached steps
+   over 4 passages, each token the argmax of one teacher-forced forward
+   over the same tokens (a near-tie within 1e-3).  (3) A 2-layer cut at
+   the same width, card against CPU: the model's position-bias tables
+   equal (built on the host; the card's own ``log`` buckets over [-4096,
+   4096] are printed), teacher-forced logits within 1e-3 in fp32 and 5% of
+   the largest in bf16.  (4) ``cli.expand --t5`` on a seeded local HF
+   ``T5ForConditionalGeneration`` directory of mT5-base's shape (a
+   word-level fast tokenizer) over 32 passages: ``--greedy`` (10
+   sequences a passage) writes what the in-process ``T5QueryGenerator``
+   writes from the same directory, byte for byte; ``--int8`` (sampled at
+   the defaults) a row of 80 queries a passage.  (5)
+   ``cli.expand_precomputed`` over a seeded store of 4,096 passages x 80
+   scored queries, ``--threshold 0.7`` (a fraction) and ``--style tilde``:
+   every line equal to a reference written here (the numpy percentile, the
+   novel terms compared as sets, TILDE's in order).
 
 The second-to-last line is the ``kernels`` JSON object (six rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
@@ -398,6 +428,20 @@ REMAINDER = SimpleNamespace(queries=256, candidates=24, duplicates=512, expanded
 EXPAND = SimpleNamespace(seq=2048, gen_passages=2, returns=80, new_tokens=50, top_k=50, top_p=0.95,
                          max_tokens=350, ft_steps=3, cli_depth=2, cli_passages=256, cli_pairs=64, cli_steps=4,
                          cli_returns=10, cli_batch=16, enc_docs=64, seed=7, device="cuda")
+# The T5/mT5 route (phase 16): mT5-base (T5Config.mt5_base, the published
+# google/mt5-base config, the base of doc2query/msmarco-vietnamese-mt5-base-v1;
+# seeded fp32 weights) with a word tokenizer of phase 15's 31,996 words (the
+# model keeps its 250,112-row vocabulary); generation at the JAX CLI's
+# defaults (80 return sequences, 50 new tokens, top-k 50, top-p 0.95,
+# documents within 350 tokens, batches of 4 passages: 320 decoder rows) for
+# 2 batches a weight mode; 8 greedy steps over 4 passages; a 2-layer cut for
+# card against CPU on 3 trees (bf16 within half of bf16's own gap from fp32);
+# cli.expand --t5 over 32 passages (greedy with 10 sequences a passage, then
+# --int8 at the defaults), its directory's logits against HF's own forward;
+# cli.expand_precomputed over 4,096 passages x 80 scored queries.
+T5 = SimpleNamespace(batches=2, batch_docs=4, returns=80, new_tokens=50, top_k=50, top_p=0.95, max_tokens=350,
+                     greedy_docs=4, greedy_steps=8, cut_layers=2, cut_trees=3, cli_passages=32, cli_greedy_returns=10,
+                     store_passages=4096, store_queries=80, seed=8, device="cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
@@ -871,14 +915,18 @@ def all_kernels():
             pallas_scoring.KERNEL]
 
 
+def six_kernels():
+    from improving_learned_index_tpu_torch.ops import flash_attention
+
+    return all_kernels() + [flash_attention.KERNEL]
+
+
 def build_kernels() -> None:
     from improving_learned_index_tpu_torch.ops import _kernels
     from improving_learned_index_tpu_torch.search import native
 
-    from improving_learned_index_tpu_torch.ops import flash_attention
-
     log("== phase 2: build kernels and the native engine")
-    kernels = all_kernels() + [flash_attention.KERNEL]
+    kernels = six_kernels()
     t0 = time.perf_counter()
     _kernels.build(kernels)
     for k in kernels:
@@ -4422,6 +4470,548 @@ def run_expansion(cfg, workdir: Path) -> dict:
             "finetune": finetune, "cli_chain": chain, "seconds": seconds}
 
 
+# -- phase 16: expansion's T5/mT5 route ----------------------------------------------------
+
+
+class T5WordTokenizer:
+    """A word tokenizer with T5's conventions: pad 0, EOS 1 appended to every
+    text, unk 2, then one id per word; ids past the words (the model's
+    250,112-row vocabulary is wider) decode to nothing."""
+
+    PAD, EOS, UNK = 0, 1, 2
+
+    def __init__(self, words):
+        self.words = list(words)
+        self._w2i = {w: i + 3 for i, w in enumerate(self.words)}
+
+    def encode(self, text):
+        return [self._w2i.get(w, self.UNK) for w in text.split()] + [self.EOS]
+
+    def decode(self, ids):
+        n = len(self.words)
+        return " ".join(self.words[i - 3] for i in map(int, ids) if 3 <= i < n + 3)
+
+
+def eos_rule_violations(raw: np.ndarray, eos: int) -> int:
+    """Cells after a row's first EOS that hold another token (trap: a finished
+    row is forced to EOS, and the buffer starts as EOS)."""
+    after = np.maximum.accumulate(raw == eos, axis=1)
+    return int((after & (raw != eos)).sum())
+
+
+def t5_generation_runs(cfg, params, config, tok, passages) -> dict:
+    """mT5-base generation through ``T5QueryGenerator`` at the JAX CLI's
+    defaults, ``cfg.batches`` batches of ``cfg.batch_docs`` passages, with the
+    fp32 tree and its int8 and int4 quantizations; sequences/s, tokens/s,
+    peak memory; every token in range, the EOS rule held."""
+    from improving_learned_index_tpu_torch.core.config import GenerationConfig
+    from improving_learned_index_tpu_torch.expand import T5QueryGenerator
+    from improving_learned_index_tpu_torch.models.quantization import quantize_params_int4, quantize_params_int8
+
+    gen = GenerationConfig(num_return_sequences=cfg.returns, max_new_tokens=cfg.new_tokens, top_k=cfg.top_k,
+                           top_p=cfg.top_p, max_tokens=cfg.max_tokens)
+    out = {}
+    for mode in ("fp32", "int8", "int4"):
+        t0 = time.perf_counter()
+        mp = {"int8": quantize_params_int8, "int4": quantize_params_int4}.get(mode, lambda p: p)(params)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        generator = T5QueryGenerator(mp, config, tok, gen, pad_token_id=tok.PAD, eos_token_id=tok.EOS,
+                                     device=cfg.device)
+        torch.cuda.reset_peak_memory_stats()
+        seconds, tokens, sequences, enc_lens, steps = 0.0, 0, 0, [], []
+        for b in range(cfg.batches):
+            ids, mask = generator.tokenize(passages[b * cfg.batch_docs:(b + 1) * cfg.batch_docs])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raw = generator.sampler.generate(generator.params, ids, mask, num_return_sequences=cfg.returns,
+                                             seed=cfg.seed + b)
+            seconds += time.perf_counter() - t0
+            if raw.shape != (cfg.batch_docs * cfg.returns, cfg.new_tokens) or raw.min() < 0 \
+                    or raw.max() >= config.vocab_size:
+                raise AssertionError(f"T5 {mode}: tokens of shape {raw.shape} in [{raw.min()}, {raw.max()}]")
+            bad = eos_rule_violations(raw, tok.EOS)
+            if bad:
+                raise AssertionError(f"T5 {mode}: {bad} tokens after a row's EOS are not EOS")
+            ended = raw == tok.EOS
+            lengths = np.where(ended.any(1), ended.argmax(1) + 1, raw.shape[1])
+            tokens += int(lengths.sum())
+            sequences += raw.shape[0]
+            enc_lens.append(int(ids.shape[1]))
+            steps.append(int(lengths.max()))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[mode] = {"quantize_s": quant_s, "seconds": seconds, "sequences": sequences, "new_tokens": tokens,
+                     "encoder_lengths": enc_lens, "decode_steps": steps, "sequences_per_s": sequences / seconds,
+                     "tokens_per_s": tokens / seconds, "loop_step_ms": 1e3 * seconds / sum(steps), "peak_gb": peak}
+        log(f"mT5-base generation {mode}: {sequences} sequences x {cfg.new_tokens} tokens from {cfg.batches} "
+            f"batches of {cfg.batch_docs} passages (encoder lengths {enc_lens}) in {seconds:.2f} s: "
+            f"{out[mode]['sequences_per_s']:.1f} sequences/s, {out[mode]['tokens_per_s']:.1f} tokens/s, "
+            f"{out[mode]['loop_step_ms']:.2f} ms a step, peak {peak:.2f} GB")
+        del mp, generator
+        torch.cuda.empty_cache()
+    return out
+
+
+def t5_step_breakdown(cfg, params, config, batch: int, enc_len: int) -> dict:
+    """The encoder at [batch, enc_len] and one decode step at ``batch`` rows
+    (cache index ``new_tokens // 2``), by part (CUDA events): the decoder's
+    forward (12 layers and the fp32 head, on the sampler's once-built
+    position bias), the head alone, the
+    top-k/top-p filter (its two full sorts of [batch, vocab]), one such
+    sort, and the whole draw (the filter, the Gumbel noise, the argmax);
+    the forward again with the int8 and the int4 tree; three steps (forward
+    and draw) profiled: the card's busy share and its kernels."""
+    from improving_learned_index_tpu_torch.core.config import GenerationConfig
+    from improving_learned_index_tpu_torch.expand.sampling import sample_token, top_k_top_p_filter
+    from improving_learned_index_tpu_torch.models.quantization import quantize_params_int4, quantize_params_int8
+    from improving_learned_index_tpu_torch.models.t5 import T5Model, make_t5_kv_caches
+
+    dev = cfg.device
+    model = T5Model(config, device="meta")
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg.seed)
+    ids = torch.randint(3, 32000, (batch, enc_len), generator=g, device=dev)
+    mask = torch.ones_like(ids)
+    gen = GenerationConfig(top_k=cfg.top_k, top_p=cfg.top_p)
+    with torch.no_grad():
+        encoder_ms = cuda_ms(lambda: model.encode(ids, mask, params=params), iters=3, warmup=1)
+        enc_out = model.encode(ids, mask, params=params)
+        cross = model.compute_cross_kvs(enc_out, params=params)
+        caches = make_t5_kv_caches(config, batch, cfg.new_tokens + 1, device=dev)
+        cur = torch.randint(3, 32000, (batch, 1), generator=g, device=dev)
+        t = cfg.new_tokens // 2
+
+        self_bias = model.decoder_self_bias(0, cfg.new_tokens, cfg.new_tokens + 1, params, dev)[:, :, t:t + 1]
+
+        def step(tree):
+            return model.decode(cur, enc_out, mask, kv_caches=caches, cache_index=t, cross_kvs=cross, params=tree,
+                                self_bias=self_bias)
+
+        logits = step(params)[0][:, 0]
+        x = torch.randn(batch, 1, config.d_model, generator=g, device=dev)
+        out = {"batch": batch, "encoder_length": enc_len, "cache_slots": cfg.new_tokens + 1,
+               "encoder_ms": encoder_ms, "decoder_forward_ms": cuda_ms(lambda: step(params), iters=5),
+               "head_ms": cuda_ms(lambda: model._logits(x, params)),
+               "filter_ms": cuda_ms(lambda: top_k_top_p_filter(logits, cfg.top_k, cfg.top_p), iters=5),
+               "one_sort_ms": cuda_ms(lambda: torch.sort(logits, dim=-1), iters=5),
+               "draw_ms": cuda_ms(lambda: sample_token(logits, gen, g), iters=5)}
+        for name, quant in (("int8", quantize_params_int8), ("int4", quantize_params_int4)):
+            tree = quant(params)
+            out[f"decoder_forward_{name}_ms"] = cuda_ms(lambda: step(tree), iters=5)
+            del tree
+        profile = profile_window(lambda: [sample_token(step(params)[0][:, 0], gen, g) for _ in range(3)], top=8)
+    out["step_ms"] = out["decoder_forward_ms"] + out["draw_ms"]
+    out["profile_3_steps"] = {k: profile[k] for k in ("wall_ms", "device_ms", "device_busy_share", "top_kernels")}
+    log(f"mT5-base at {batch} rows: encoder (S={enc_len}) {encoder_ms:.2f} ms; a decode step {out['step_ms']:.2f} ms "
+        f"= the forward {out['decoder_forward_ms']:.2f} (the fp32 head {out['head_ms']:.2f}; int8 tree "
+        f"{out['decoder_forward_int8_ms']:.2f}, int4 {out['decoder_forward_int4_ms']:.2f}) + the draw "
+        f"{out['draw_ms']:.2f} (top-k/top-p filter {out['filter_ms']:.2f}, one full sort {out['one_sort_ms']:.2f}); "
+        f"3 profiled steps: {json.dumps(out['profile_3_steps'])}")
+    del caches, cross, enc_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def t5_greedy_check(cfg, params, config, tok, passages) -> dict:
+    """Greedy decoding at mT5-base width and depth in fp32 compute: the cache
+    route's ``cfg.greedy_steps`` tokens against the argmax of one
+    teacher-forced forward over the decoder-start id and the chosen tokens
+    (JAX ``tests/test_t5.py``'s check): each chosen token is that argmax,
+    or within 1e-3 of its row's largest logit (a near-tie), up to and with
+    the row's EOS."""
+    from improving_learned_index_tpu_torch.core.config import GenerationConfig
+    from improving_learned_index_tpu_torch.expand import T5QueryGenerator
+    from improving_learned_index_tpu_torch.models.t5 import T5Model
+
+    fcfg = dataclasses.replace(config, dtype="float32")
+    steps = cfg.greedy_steps
+    gen = GenerationConfig(num_return_sequences=1, max_new_tokens=steps, do_sample=False, max_tokens=cfg.max_tokens)
+    generator = T5QueryGenerator(params, fcfg, tok, gen, pad_token_id=tok.PAD, eos_token_id=tok.EOS,
+                                 device=cfg.device)
+    ids, mask = generator.tokenize(passages)
+    got = generator.sampler.generate(generator.params, ids, mask)
+    dec = np.concatenate([np.zeros((len(passages), 1), np.int64), got[:, :-1]], 1)
+    dev = cfg.device
+    with torch.no_grad():
+        logits = T5Model(fcfg, device="meta")(torch.as_tensor(ids, dtype=torch.long, device=dev),
+                                              torch.as_tensor(mask, dtype=torch.long, device=dev),
+                                              torch.as_tensor(dec, device=dev), params=generator.params)
+    logits = logits.double().cpu().numpy()
+    ended = got == tok.EOS
+    lengths = np.where(ended.any(1), ended.argmax(1) + 1, steps)
+    exact, worst = 0, 0.0
+    for i, n in enumerate(lengths):
+        row = logits[i, :n]
+        chosen = np.take_along_axis(row, got[i, :n, None].astype(np.int64), 1)[:, 0]
+        exact += int((row.argmax(1) == got[i, :n]).sum())
+        worst = max(worst, float(((row.max(1) - chosen) / (1.0 + np.abs(row).max(1))).max()))
+    out = {"prompts": len(passages), "encoder_length": int(ids.shape[1]), "tokens": int(lengths.sum()),
+           "argmax_equal": exact, "worst_relative_gap": worst}
+    if worst > 1e-3:
+        raise AssertionError(f"mT5-base greedy: the cache route's tokens are not the teacher-forced argmax: {out}")
+    log(f"mT5-base greedy (fp32): {exact} of {out['tokens']} cached-route tokens are the teacher-forced argmax, "
+        f"the largest relative gap {worst:.3g}")
+    del generator
+    torch.cuda.empty_cache()
+    return out
+
+
+def t5_cut_inputs(tok, passages):
+    """Teacher-forcing inputs from two passages: their first 32 tokens (the
+    shorter right-padded) for the encoder, and the decoder-start id followed
+    by 7 of them for the decoder; numpy int64."""
+    ids = [tok.encode(p)[:32] for p in passages[:2]]
+    length = max(map(len, ids))
+    enc = np.zeros((2, length), np.int64)
+    mask = np.zeros((2, length), np.int64)
+    for i, e in enumerate(ids):
+        enc[i, :len(e)], mask[i, :len(e)] = e, 1
+    return enc, mask, np.concatenate([np.zeros((2, 1), np.int64), enc[:, :7]], 1)
+
+
+def t5_card_vs_cpu(cfg, params, config, tok, passages) -> dict:
+    """A 2-layer cut of mT5-base (2 encoder and 2 decoder layers, the full
+    vocabulary): the relative-position buckets the card computes from
+    ``relative_position_bucket`` against the CPU's over [-4096, 4096] both
+    ways (printed: the model builds its tables on the host), then, for
+    ``cfg.cut_trees`` trees (the full params' first layers, then cuts drawn
+    anew from the next seeds) on two passages each, the model's
+    position-bias tables on the card equal to the CPU's and teacher-forced
+    logits on the card against the CPU's: fp32 compute within 1e-3
+    absolute; bf16 within half of the smaller of the two devices' own
+    bf16-from-fp32 gaps on the same tree and input.  Both devices round the
+    same tensors to bf16 at the same places and differ only where another
+    summation order flips a rounding, which a random tree amplifies as it
+    amplifies bf16's rounding itself (each device's bf16 logits stand
+    19-33% of the largest |logit| from its fp32 ones, the card's from the
+    CPU's 4.2-7.5%, on 3 trees).  A card that skipped a bf16 rounding would
+    read near the bf16-from-fp32 gap, and a wrong weight or bias further."""
+    from improving_learned_index_tpu_torch.models.llama import tree_to
+    from improving_learned_index_tpu_torch.models.t5 import T5Model, init_t5_params, relative_position_bucket
+
+    rel = torch.arange(-4096, 4097)
+    card_buckets = {str(b): int((relative_position_bucket(rel.to(cfg.device), b, config.relative_attention_num_buckets,
+                                                          config.relative_attention_max_distance).cpu()
+                                 != relative_position_bucket(rel, b, config.relative_attention_num_buckets,
+                                                             config.relative_attention_max_distance)).sum())
+                    for b in (True, False)}
+    cut = dataclasses.replace(config, num_encoder_layers=cfg.cut_layers, num_decoder_layers=cfg.cut_layers)
+    keep = {"shared", "lm_head", "encoder_final_norm", "decoder_final_norm", "encoder_rel_bias", "decoder_rel_bias",
+            *(f"{s}_layer_{i}" for s in ("encoder", "decoder") for i in range(cfg.cut_layers))}
+    out = {"card_bucket_cells_differing": card_buckets, "readings": []}
+    failed = []
+    with torch.no_grad():
+        for r in range(cfg.cut_trees):
+            card = {k: v for k, v in params.items() if k in keep} if r == 0 \
+                else init_t5_params(cut, seed=cfg.seed + r, device=cfg.device)
+            cpu = tree_to(card, "cpu")
+            enc, mask, dec = t5_cut_inputs(tok, passages[2 * r:2 * r + 2])
+            logits, tables = {}, {}
+            for dtype in ("float32", "bfloat16"):
+                model = T5Model(dataclasses.replace(cut, dtype=dtype), device="meta")
+                for where, tree, dev in (("card", card, cfg.device), ("cpu", cpu, "cpu")):
+                    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+                    tables[where] = model.decoder_self_bias(3, 1, cfg.new_tokens + 1, tree, dev).cpu()
+                    logits[dtype, where] = model(t(enc), t(mask), t(dec), params=tree).float().cpu()
+            scale = float(logits["float32", "cpu"].abs().max())
+
+            def gap(a, b):
+                return float((logits[a] - logits[b]).abs().max())
+
+            reading = {"tree": "phase params" if r == 0 else f"seed {cfg.seed + r}", "encoder_length": enc.shape[1],
+                       "max_abs_logit": scale, "bias_tables_equal": bool(torch.equal(tables["card"], tables["cpu"])),
+                       "fp32_card_vs_cpu": gap(("float32", "card"), ("float32", "cpu")),
+                       "bf16_card_vs_cpu_share": gap(("bfloat16", "card"), ("bfloat16", "cpu")) / scale,
+                       "bf16_vs_fp32_card_share": gap(("bfloat16", "card"), ("float32", "card")) / scale,
+                       "bf16_vs_fp32_cpu_share": gap(("bfloat16", "cpu"), ("float32", "cpu")) / scale}
+            reading["bf16_limit_share"] = 0.5 * min(reading["bf16_vs_fp32_card_share"],
+                                                    reading["bf16_vs_fp32_cpu_share"])
+            out["readings"].append(reading)
+            if not reading["bias_tables_equal"] or reading["fp32_card_vs_cpu"] > 1e-3 \
+                    or reading["bf16_card_vs_cpu_share"] > reading["bf16_limit_share"]:
+                failed.append(reading)
+            del card, cpu
+    log(f"mT5-base cut to {cfg.cut_layers}+{cfg.cut_layers} layers, card vs CPU: {json.dumps(out)}")
+    if failed:
+        raise AssertionError(f"mT5-base cut, card vs CPU: {failed} past 1e-3 (fp32) or the bf16 limit")
+    torch.cuda.empty_cache()
+    return out
+
+
+def t5_port_vs_hf(cfg, path: Path, params, config, tok, passages) -> dict:
+    """The port's teacher-forced fp32 logits on ``load_hf_t5``'s tree
+    against ``T5ForConditionalGeneration``'s own forward from the same
+    directory, both on the card, within 1e-4 of the largest |logit| (fp32,
+    TF32 off: only the summation order differs); and HF's relative
+    position buckets on the card against the port's host table (HF leaves
+    out the ``1e-6``; printed)."""
+    import transformers
+    from transformers.models.t5.modeling_t5 import T5Attention as HFT5Attention
+
+    from improving_learned_index_tpu_torch.models.llama import tree_to
+    from improving_learned_index_tpu_torch.models.t5 import T5Model, relative_position_bucket
+
+    dev = cfg.device
+    rel = torch.arange(-4096, 4097)
+    buckets = {str(b): int((HFT5Attention._relative_position_bucket(
+        rel.to(dev), bidirectional=b, num_buckets=config.relative_attention_num_buckets,
+        max_distance=config.relative_attention_max_distance).cpu()
+        != relative_position_bucket(rel, b, config.relative_attention_num_buckets,
+                                    config.relative_attention_max_distance)).sum()) for b in (True, False)}
+    hf = transformers.T5ForConditionalGeneration.from_pretrained(str(path), local_files_only=True)
+    hf = hf.to(dev).float().eval()
+    enc, mask, dec = (torch.as_tensor(a, device=dev) for a in t5_cut_inputs(tok, passages))
+    with torch.no_grad():
+        want = hf(input_ids=enc, attention_mask=mask, decoder_input_ids=dec).logits.float()
+        got = T5Model(dataclasses.replace(config, dtype="float32"), device="meta")(
+            enc, mask, dec, params=tree_to(params, dev))
+    out = {"layers": [config.num_encoder_layers, config.num_decoder_layers], "encoder_length": int(enc.shape[1]),
+           "hf_bucket_cells_differing": buckets, "max_abs_logit": float(want.abs().max()),
+           "max_abs_diff": float((got - want).abs().max())}
+    del hf
+    torch.cuda.empty_cache()
+    log(f"mT5-base from the HF directory, the port against T5ForConditionalGeneration on the card (fp32): "
+        f"{json.dumps(out)}")
+    if out["max_abs_diff"] > 1e-4 * out["max_abs_logit"]:
+        raise AssertionError(f"the port's logits from load_hf_t5 differ from HF's own forward: {out}")
+    return out
+
+
+def hf_t5_model(config, seed: int, device: str):
+    """A seeded ``transformers.T5ForConditionalGeneration`` of ``config``'s
+    shape (its feed-forward and its head's tie) built on ``device``, with
+    both stacks embedding through ``shared``, as a T5 checkpoint does."""
+    import transformers
+
+    tie = config.tie_word_embeddings
+    hf = transformers.T5Config(
+        vocab_size=config.vocab_size, d_model=config.d_model, d_kv=config.d_kv, num_heads=config.num_heads,
+        d_ff=config.d_ff, num_layers=config.num_encoder_layers, num_decoder_layers=config.num_decoder_layers,
+        relative_attention_num_buckets=config.relative_attention_num_buckets,
+        relative_attention_max_distance=config.relative_attention_max_distance,
+        feed_forward_proj="gated-gelu" if config.gated_act else "relu", tie_word_embeddings=tie, dropout_rate=0.0,
+        decoder_start_token_id=0, eos_token_id=1, pad_token_id=0)
+    # transformers 5 forces the keyword to True (an untied head's unscaled
+    # outputs become scale_decoder_outputs=False): set both after the fact
+    hf.tie_word_embeddings = hf.scale_decoder_outputs = tie
+    torch.manual_seed(seed)
+    with torch.device(device):
+        model = transformers.T5ForConditionalGeneration(hf)
+    # transformers 5 unties an untied config's embed_tokens from shared too
+    # and draws each anew: give them shared's values, as in an mT5 checkpoint
+    with torch.no_grad():
+        for stack in (model.encoder, model.decoder):
+            stack.embed_tokens.weight.copy_(model.shared.weight)
+    return model.eval()
+
+
+def write_hf_t5(path: Path, config, words, seed: int, device: str) -> None:
+    """A local HF T5 directory of ``config``'s shape: ``hf_t5_model``, and a
+    word-level fast tokenizer with T5's conventions (pad 0, EOS 1 appended to
+    every text, unk 2, then ``words``)."""
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"  # local directories only
+    import huggingface_hub.constants
+    import transformers
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+
+    huggingface_hub.constants.HF_HUB_OFFLINE = True
+    vocab = {"<pad>": 0, "</s>": 1, "<unk>": 2, **{w: i + 3 for i, w in enumerate(words)}}
+    tk = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tk.post_processor = processors.TemplateProcessing(single="$A </s>", special_tokens=[("</s>", 1)])
+    transformers.PreTrainedTokenizerFast(tokenizer_object=tk, eos_token="</s>", unk_token="<unk>",
+                                         pad_token="<pad>").save_pretrained(path)
+    model = hf_t5_model(config, seed, device)
+    model.save_pretrained(path)
+    del model
+    torch.cuda.empty_cache()
+
+
+def t5_cli_route(cfg, workdir: Path, words, passages) -> dict:
+    """``cli.expand --t5`` on a seeded local HF directory at mT5-base width:
+    greedy over ``cfg.cli_passages`` passages, ``cfg.cli_greedy_returns``
+    sequences each (the file must equal what the in-process
+    ``T5QueryGenerator`` writes from the same directory), then ``--int8``
+    (sampled at the CLI's defaults): a row per passage, 80 queries each."""
+    from improving_learned_index_tpu_torch.cli.expand import main as expand_main
+    from improving_learned_index_tpu_torch.core.config import GenerationConfig
+    from improving_learned_index_tpu_torch.expand import T5QueryGenerator, generate_expansions
+    from improving_learned_index_tpu_torch.models.t5 import T5Config, load_hf_t5
+
+    d = workdir / "t5"
+    d.mkdir(exist_ok=True)
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        rc = fn()
+        seconds[name] = time.perf_counter() - t0
+        if rc not in (0, None):
+            raise AssertionError(f"{name} exited {rc}")
+
+    config = T5Config.mt5_base()
+    timed("write_hf_model", lambda: write_hf_t5(d / "hf", config, words, cfg.seed, cfg.device))
+    coll = d / "collection.tsv"
+    coll.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages[: cfg.cli_passages])))
+    gen = GenerationConfig(num_return_sequences=cfg.cli_greedy_returns, max_new_tokens=cfg.new_tokens,
+                           max_tokens=cfg.max_tokens, do_sample=False)
+    common = ["--collection_path", str(coll), "--t5", str(d / "hf"), "--seed", str(cfg.seed), "--device", cfg.device,
+              "--max_new_tokens", str(cfg.new_tokens), "--max_tokens", str(cfg.max_tokens)]
+    timed("cli.expand --t5 --greedy", lambda: expand_main(common + ["--output_path", str(d / "greedy.jsonl"),
+                                                                    "--greedy", "--num_return_sequences",
+                                                                    str(cfg.cli_greedy_returns)]))
+    t0 = time.perf_counter()
+    params, hf_config, tok, ids = load_hf_t5(str(d / "hf"))
+    if hf_config != config or ids != {"pad_token_id": 0, "eos_token_id": 1, "decoder_start_token_id": 0}:
+        raise AssertionError(f"the HF directory reads back as {hf_config}, ids {ids}")
+    hf_check = t5_port_vs_hf(cfg, d / "hf", params, config, tok, passages)
+    generator = T5QueryGenerator(params, config, tok, gen, device=cfg.device, **ids)
+    del params
+    generate_expansions(generator, coll, d / "in_process.jsonl", seed=cfg.seed)
+    seconds["in-process T5QueryGenerator"] = time.perf_counter() - t0
+    del generator
+    torch.cuda.empty_cache()
+    if not files_equal(d / "greedy.jsonl", d / "in_process.jsonl"):
+        raise AssertionError("cli.expand --t5 --greedy differs from the in-process T5QueryGenerator")
+    timed("cli.expand --t5 --int8", lambda: expand_main(common + [
+        "--output_path", str(d / "int8.jsonl"), "--int8", "--num_return_sequences", str(cfg.returns),
+        "--top_k", str(cfg.top_k), "--top_p", str(cfg.top_p)]))
+    out = {"seconds": seconds, "port_vs_hf": hf_check}
+    for name, returns in (("greedy", cfg.cli_greedy_returns), ("int8", cfg.returns)):
+        rows = [json.loads(line) for line in (d / f"{name}.jsonl").read_text().splitlines()]
+        if [r["doc_id"] for r in rows] != [str(i) for i in range(cfg.cli_passages)] \
+                or any(len(r["queries"]) != returns for r in rows):
+            raise AssertionError(f"cli.expand --t5 ({name}) wrote the wrong rows")
+        out[f"{name}_nonempty_queries"] = sum(bool(q) for r in rows for q in r["queries"])
+    log(f"cli.expand --t5 (mT5-base, {cfg.cli_passages} passages): {json.dumps(seconds)}; the greedy file equals "
+        f"the in-process generator's; non-empty queries {out['greedy_nonempty_queries']} greedy, "
+        f"{out['int8_nonempty_queries']} int8")
+    shutil.rmtree(d)
+    return out
+
+
+def precomputed_reference(passages, store, vocab_path: Path, style: str, percentile: float) -> list:
+    """The precomputed expansions, written here from their definitions:
+    doc2query-- keeps a passage's queries scoring at or above the numpy
+    percentile of all scores and appends the set of their terms that the
+    passage lacks (a set: the order is the process's); TILDE appends, in
+    order, each stored term not among the passage's terms.  Terms are the
+    WordPiece tokenizer's ``process_query``.  Returns (doc id, passage,
+    suffix) a line: the suffix a set for doc2query--, a string for TILDE."""
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+
+    tok = ImpactTokenizer(WordPieceVocab.load(vocab_path), 512)
+    threshold = float(np.percentile(np.array([s for qs in store for _, s in qs], np.float64), percentile))
+    rows = []
+    for i, (doc, qs) in enumerate(zip(passages, store)):
+        doc_terms = tok.process_query(doc)
+        if style == "tilde":
+            rows.append((str(i), doc, " ".join(q for q, _ in qs if q not in doc_terms)))
+        else:
+            kept = [q for q, s in qs if s >= threshold]
+            rows.append((str(i), doc, set(tok.process_query(" ".join(kept))) - set(doc_terms) if kept else set()))
+    return rows
+
+
+def t5_precomputed_route(cfg, workdir: Path, words, passages) -> dict:
+    """``cli.expand_precomputed`` in both styles over a seeded store of
+    ``cfg.store_passages`` passages x ``cfg.store_queries`` scored queries
+    (2-6 of the first 4,000 words each, scores in [0, 1)), every line
+    against ``precomputed_reference``."""
+    from improving_learned_index_tpu_torch.cli.expand_precomputed import main as precomputed_main
+
+    d = workdir / "precomputed"
+    d.mkdir(exist_ok=True)
+    rng = np.random.default_rng(cfg.seed)
+    docs = passages[: cfg.store_passages]
+    pool = np.array(words[:4000])
+    store = []
+    for _ in docs:
+        lens = rng.integers(2, 7, cfg.store_queries)
+        picks = rng.choice(pool, int(lens.sum()))
+        cuts = np.concatenate([[0], np.cumsum(lens)])
+        scores = np.round(rng.random(cfg.store_queries), 4)
+        store.append([(" ".join(picks[a:b]), float(s)) for a, b, s in zip(cuts[:-1], cuts[1:], scores)])
+    (d / "collection.tsv").write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(docs)))
+    with open(d / "store.jsonl", "w", encoding="utf-8") as f:
+        for i, qs in enumerate(store):
+            f.write(json.dumps({"doc_id": str(i), "queries": [{"query": q, "score": s} for q, s in qs]}) + "\n")
+    out = {"passages": len(docs), "queries": len(docs) * cfg.store_queries, "seconds": {}}
+    # --threshold 0.7, a fraction, is the 70th percentile (0.7 * 100, as the CLI reads it)
+    for style, flags in (("doc2query_mm", ["--threshold", "0.7"]), ("tilde", ["--style", "tilde"])):
+        t0 = time.perf_counter()
+        rc = precomputed_main(["--vocab_path", str(workdir / "vocab.txt"), "--collection_path",
+                               str(d / "collection.tsv"), "--queries_path", str(d / "store.jsonl"),
+                               "--output_path", str(d / f"{style}.tsv"), *flags])
+        out["seconds"][style] = time.perf_counter() - t0
+        want = precomputed_reference(docs, store, workdir / "vocab.txt", style, 0.7 * 100)
+        lines = (d / f"{style}.tsv").read_text(encoding="utf-8").splitlines()
+        if rc != 0 or len(lines) != len(want):
+            raise AssertionError(f"cli.expand_precomputed --style {style}: rc {rc}, {len(lines)} lines")
+        grown = 0
+        for line, (doc_id, doc, suffix) in zip(lines, want):
+            got_id, text = line.split("\t", 1)
+            got_doc, sep, got_suffix = text.partition(" [SEP] ")
+            same = got_suffix == suffix if style == "tilde" else set(got_suffix.split()) == suffix
+            if got_id != doc_id or (got_doc != doc if sep else text != doc) or not same or bool(sep) != bool(suffix):
+                raise AssertionError(f"cli.expand_precomputed --style {style}, doc {doc_id}: {line[:200]!r}")
+            grown += bool(sep)
+        out[f"{style}_grown"] = grown
+    log(f"cli.expand_precomputed over {len(docs)} passages x {cfg.store_queries} scored queries: every line equals "
+        f"the reference; {json.dumps(out)}")
+    shutil.rmtree(d)
+    return out
+
+
+def run_t5(cfg, workdir: Path) -> dict:
+    """Phase 16: expansion's T5/mT5 route at mT5-base width, and the
+    precomputed-expansion tools."""
+    from improving_learned_index_tpu_torch.models.t5 import T5Config, init_t5_params
+
+    log("== phase 16: the T5/mT5 route at mT5-base width (generation, greedy, card vs CPU, cli.expand --t5), "
+        "cli.expand_precomputed")
+    t_phase = time.perf_counter()
+    for k in six_kernels():
+        k.calls.clear()
+    words = word_tokenizer(workdir, 32000).words
+    tok = T5WordTokenizer(words)
+    with open(workdir / "collection.tsv", encoding="utf-8") as f:
+        passages = [line.split("\t", 1)[1].rstrip("\n") for line in islice(f, cfg.store_passages)]
+    config = T5Config.mt5_base()
+    t0 = time.perf_counter()
+    params = init_t5_params(config, seed=cfg.seed, device=cfg.device)
+    torch.cuda.synchronize()
+    seconds = {"build": time.perf_counter() - t0}
+    log(f"mT5-base parameters (fp32, seeded) built on the card in {seconds['build']:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; TF32 for fp32 matmuls {torch.backends.cuda.matmul.allow_tf32}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the fp32 head would round its inputs")
+    parts = {}
+    for name, fn in (
+            ("generation", lambda: t5_generation_runs(cfg, params, config, tok, passages)),
+            ("step_breakdown", lambda: t5_step_breakdown(cfg, params, config, cfg.batch_docs * cfg.returns,
+                                                         max(parts["generation"]["fp32"]["encoder_lengths"]))),
+            ("greedy", lambda: t5_greedy_check(cfg, params, config, tok, passages[: cfg.greedy_docs])),
+            ("card_vs_cpu", lambda: t5_card_vs_cpu(cfg, params, config, tok, passages))):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    for name, fn in (("cli", lambda: t5_cli_route(cfg, workdir, words, passages)),
+                     ("precomputed", lambda: t5_precomputed_route(cfg, workdir, words, passages))):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in six_kernels()}
+    if any(launches.values()):
+        raise AssertionError(f"the T5 route launched kernels: {launches}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    log(f"phase 16 in {seconds['phase']:.1f} s ({json.dumps(seconds)}); kernel launches {json.dumps(launches)} "
+        f"(the T5 route reaches no kernel)")
+    return {**parts, "launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     log("== phase 1: environment")
     if shutil.which("nvidia-smi"):
@@ -4472,6 +5062,8 @@ def main() -> int:
         remainder = run_remainder(REMAINDER, workdir)
         torch.cuda.empty_cache()
         expansion = run_expansion(EXPAND, workdir)
+        torch.cuda.empty_cache()
+        t5 = run_t5(T5, workdir)
     finally:
         for d in (qdir, workdir):
             shutil.rmtree(d, ignore_errors=True)
@@ -4514,6 +5106,7 @@ def main() -> int:
     log(json.dumps({"remainder": remainder}))
     f_row = expansion.pop("row")
     log(json.dumps({"expansion": expansion}))
+    log(json.dumps({"t5": t5}))
     print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row, f_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

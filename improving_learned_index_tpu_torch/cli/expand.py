@@ -2,15 +2,19 @@
 (reference: python -m src.llama2.generate, generate.py:120-206).
 
     python -m improving_learned_index_tpu_torch.cli.expand --collection_path c.tsv \
-        --output_path expansions.jsonl (--local_path DIR | --llama_path HF_DIR | --tiny) \
+        --output_path expansions.jsonl (--local_path DIR | --llama_path HF_DIR | --tiny | --t5 HF_DIR) \
         [--peft_path adapter.msgpack] [--int8 | --int4] [--kv_quant int8] [--greedy] [--device cpu]
 
 The Llama route: a local generator directory (``expand.save_local_generator``,
 the JAX layout), a local HF Llama directory (``transformers``) or a tiny
 random model; ``--peft_path`` merges a LoRA adapter msgpack
 (``cli.finetune --output_adapter``) into the base; weight-only int8 /
-packed-int4 quantization on the device; an int8 KV cache.  ``--t5`` (the
-T5/mT5 route) is not ported yet.
+packed-int4 quantization on the device; an int8 KV cache.  The T5/mT5 route
+(``--t5``, reference ``python -m src.llama2.generate_t5``): a local HF T5 or
+mT5 directory (``transformers``; the config, weights and tokenizer, with its
+pad, EOS and decoder-start ids) through ``expand.T5QueryGenerator``, with
+``--int8`` / ``--int4`` quantized on the device; the other model flags are
+the Llama route's.
 """
 
 from __future__ import annotations
@@ -62,12 +66,10 @@ def main(argv=None) -> int:
                         help="int8 KV cache (per-token/head scales)")
     parser.add_argument("--tiny", action="store_true", help="tiny random model (smoke)")
     parser.add_argument("--t5", type=str, default=None, metavar="MODEL",
-                        help="the T5/mT5 route (not ported yet)")
+                        help="local HF T5/mT5 checkpoint dir (e.g. an mT5 doc2query model) instead of Llama")
     parser.add_argument("--device", default=None, help="torch device; default cuda (cpu only when asked for)")
     args = parser.parse_args(argv)
 
-    if args.t5:
-        raise SystemExit("cli.expand --t5: the T5 route is not ported yet (ROADMAP queue 1 item 8a)")
     device = resolve_device(args.device)
     gen_cfg = GenerationConfig(
         num_return_sequences=args.num_return_sequences,
@@ -77,6 +79,8 @@ def main(argv=None) -> int:
         max_tokens=args.max_tokens,
         do_sample=not args.greedy,
     )
+    if args.t5:
+        return _t5_main(args, gen_cfg, device)
     pad_id, eos_id = 0, 2
     if args.local_path:
         from ..expand.generate import load_local_generator
@@ -110,6 +114,24 @@ def main(argv=None) -> int:
         prompt_template=PROMPT_VI if args.prompt == "vi" else PROMPT_EN,
         pad_token_id=pad_id, eos_token_id=eos_id, device=device,
     )
+    n = generate_expansions(generator, args.collection_path, args.output_path, args.collection_type,
+                            batch_size=args.batch_size, num_docs=args.num_docs, seed=args.seed)
+    print(f"expanded {n} documents -> {args.output_path}")
+    return 0
+
+
+def _t5_main(args, gen_cfg: GenerationConfig, device) -> int:
+    """The T5/mT5 route (the JAX CLI's ``_t5_main``)."""
+    from ..expand.t5_generate import T5QueryGenerator
+    from ..models.t5 import load_hf_t5
+
+    params, config, tokenizer, ids = load_hf_t5(args.t5)
+    params = tree_to(params, device)
+    if args.int8 or args.int4:
+        from ..models.quantization import quantize_params_int4, quantize_params_int8
+
+        params = (quantize_params_int4 if args.int4 else quantize_params_int8)(params)
+    generator = T5QueryGenerator(params, config, tokenizer, gen_cfg, device=device, **ids)
     n = generate_expansions(generator, args.collection_path, args.output_path, args.collection_type,
                             batch_size=args.batch_size, num_docs=args.num_docs, seed=args.seed)
     print(f"expanded {n} documents -> {args.output_path}")

@@ -1,5 +1,6 @@
-"""doc2query expansion, Llama route: generation, LoRA fine-tuning, merge.
-(The T5 route and the precomputed-expansion tools are not ported yet.)"""
+"""doc2query expansion: the Llama route (generation, LoRA fine-tuning,
+merge), the T5/mT5 route (``T5QueryGenerator``) and expansion from
+precomputed query or term stores (doc2query--, TILDE)."""
 
 from .generate import (
     PROMPT_EN,
@@ -14,7 +15,9 @@ from .generate import (
 )
 from .lora import LoraConfig, init_lora_params, lora_forward_params, merge_lora
 from .merge import merge_collection_and_expansions
+from .precomputed import expand_with_precomputed, load_scored_queries_jsonl, score_percentile_threshold, tilde_expand
 from .sampling import Sampler, top_k_top_p_filter
+from .t5_generate import T5QueryGenerator, T5Sampler
 
 __all__ = [
     "PROMPT_EN",
@@ -31,6 +34,12 @@ __all__ = [
     "lora_forward_params",
     "merge_lora",
     "merge_collection_and_expansions",
+    "expand_with_precomputed",
+    "load_scored_queries_jsonl",
+    "score_percentile_threshold",
+    "tilde_expand",
     "Sampler",
     "top_k_top_p_filter",
+    "T5QueryGenerator",
+    "T5Sampler",
 ]

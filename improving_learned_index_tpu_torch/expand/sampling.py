@@ -47,6 +47,17 @@ def top_k_top_p_filter(logits: torch.Tensor, top_k: int, top_p: float) -> torch.
     return logits
 
 
+def sample_token(logits: torch.Tensor, gen: GenerationConfig, generator: torch.Generator) -> torch.Tensor:
+    """[B, V] fp32 logits -> [B] ids: argmax without ``do_sample``, else
+    Gumbel-max over the temperature-scaled, top-k/top-p filtered logits."""
+    if not gen.do_sample:
+        return torch.argmax(logits, dim=-1)
+    logits = top_k_top_p_filter(logits / max(gen.temperature, 1e-6), gen.top_k, gen.top_p)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
 class Sampler:
     """Prefill + step-by-step decode for a ``LlamaModel`` over a parameter
     tree (full precision or quantized) on the tree's device."""
@@ -58,13 +69,7 @@ class Sampler:
         self.module = LlamaModel(config, device="meta")
 
     def _sample(self, logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        g = self.gen
-        if not g.do_sample:
-            return torch.argmax(logits, dim=-1)
-        logits = top_k_top_p_filter(logits / max(g.temperature, 1e-6), g.top_k, g.top_p)
-        u = torch.rand(logits.shape, generator=generator, device=logits.device)
-        u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-        return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+        return sample_token(logits, self.gen, generator)
 
     @torch.no_grad()
     def run(self, params: Dict[str, Any], input_ids: torch.Tensor, attention_mask: torch.Tensor,

@@ -427,8 +427,9 @@ def init_llama_params(config: LlamaConfig, seed: int = 0, device=None,
     return _map_shapes(draw, param_shapes(config))
 
 
-def _check_tree(params: Dict[str, Any], config: LlamaConfig) -> None:
-    want = _map_shapes(lambda p, s: s, param_shapes(config))
+def _check_tree(params: Dict[str, Any], want: Dict[str, Any]) -> None:
+    """Raise unless ``params`` holds every leaf of the shape tree ``want``
+    at its shape (a quantized leaf at its full-precision shape)."""
 
     def shape_of(x):
         if isinstance(x, dict) and "q" in x:
@@ -466,7 +467,7 @@ def llama_flax_params_to_port(params: Dict[str, Any], config: LlamaConfig) -> Di
     tensors: the same names, layouts and dtypes (checked against
     ``config``)."""
     tree = tree_map(_to_torch, params)
-    _check_tree(tree, config)
+    _check_tree(tree, param_shapes(config))
     return tree
 
 

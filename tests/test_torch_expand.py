@@ -140,10 +140,10 @@ def test_local_generators_cross_load(jax_side, tmp_path):
     assert jcfg == jax_side["cfg"] and jtok.words == tok.words
 
 
-def test_cli_expand_routes(jax_side, tmp_path):
+def test_cli_expand_routes(jax_side, tmp_path, monkeypatch):
     """``--local_path`` (greedy) writes what the API writes; ``--tiny`` with
-    int8 weights and an int8 cache runs; ``--t5`` is refused, naming the
-    slice that ports it."""
+    int8 weights and an int8 cache runs; ``--t5`` on a local tiny HF T5
+    directory runs and writes one line per document."""
     coll = _collection(tmp_path / "c.tsv")
     out = tmp_path / "cli.jsonl"
     assert expand_main(["--collection_path", str(coll), "--output_path", str(out), "--local_path",
@@ -157,9 +157,20 @@ def test_cli_expand_routes(jax_side, tmp_path):
                         "--device", "cpu"]) == 0
     rows = [json.loads(line) for line in tiny.read_text().splitlines()]
     assert len(rows) == len(DOCS) and all(len(r["queries"]) == 3 for r in rows)
-    with pytest.raises(SystemExit, match="8a"):
-        expand_main(["--collection_path", str(coll), "--output_path", str(tmp_path / "t5.jsonl"),
-                     "--t5", "some-model", "--device", "cpu"])
+    pytest.importorskip("transformers")
+    import huggingface_hub.constants as hc
+
+    from test_torch_t5 import write_hf_t5_dir
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("TRANSFORMERS_OFFLINE", "1")
+    monkeypatch.setattr(hc, "HF_HUB_OFFLINE", True)
+    write_hf_t5_dir(tmp_path / "t5", sorted({w for _, t in DOCS for w in t.split()}))
+    t5 = tmp_path / "t5.jsonl"
+    assert expand_main(["--collection_path", str(coll), "--output_path", str(t5), "--t5", str(tmp_path / "t5"),
+                        "--num_return_sequences", "2", "--max_new_tokens", "4", "--device", "cpu"]) == 0
+    rows = [json.loads(line) for line in t5.read_text().splitlines()]
+    assert [r["doc_id"] for r in rows] == [i for i, _ in DOCS] and all(len(r["queries"]) == 2 for r in rows)
 
 
 def test_sampled_generation_is_seeded(jax_side):

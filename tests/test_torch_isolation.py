@@ -14,7 +14,9 @@ host-side remainder (the data-prep scripts, the segmenters and the HF
 tokenizer adapter, the Anserini export, term-pair attention, the flax
 msgpack reader and the async checkpoint manager), and expansion (the
 Llama decoder, quantization, LoRA, sampling, generation, fine-tuning,
-merge, flash attention and their CLIs).  No port file imports
+merge, flash attention and their CLIs; the T5/mT5 model, its sampler and
+query generator, ``cli.expand --t5``, the precomputed-expansion tools and
+``cli.expand_precomputed``).  No port file imports
 ``msgpack``; ``transformers``, ``matplotlib``, ``py_vncorenlp`` and
 ``underthesea`` are imported only inside the functions that need them."""
 
@@ -45,6 +47,9 @@ EXPANSION_MODULES = (
     "ops/flash_attention.py", "models/llama.py", "models/quantization.py", "expand/__init__.py",
     "expand/lora.py", "expand/sampling.py", "expand/generate.py", "expand/merge.py", "expand/finetune.py",
     "cli/expand.py", "cli/finetune.py", "cli/merge.py", "utils/text_utils.py",
+)
+T5_MODULES = (
+    "models/t5.py", "expand/t5_generate.py", "expand/precomputed.py", "cli/expand_precomputed.py", "cli/expand.py",
 )
 
 
@@ -79,7 +84,7 @@ def test_port_sources_import_no_jax():
                    "cli/invert.py", "cli/merge_indexes.py", "cli/filter_index.py",
                    "cli/split_index.py", "serve/__init__.py", "serve/server.py", "serve/router.py",
                    "cli/serve.py", "search/sharded_engine.py", "parallel/multidevice.py",
-                   *REMAINDER_MODULES, *EXPANSION_MODULES):
+                   *REMAINDER_MODULES, *EXPANSION_MODULES, *T5_MODULES):
         assert module in names
     assert len(files) > 30
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
@@ -630,8 +635,9 @@ def test_remainder_entry_points_without_cuda_raise(tmp_path):
 
 def test_cpu_expansion_leaves_jax_unimported(tmp_path):
     """Generation (int4 weights, int8 cache), a fine-tune step through the
-    flash twin, a local generator round trip and the merge CLI, on the CPU,
-    in a fresh process: nothing of JAX loads."""
+    flash twin, a local generator round trip, T5 generation (int4 weights)
+    and ``cli.expand_precomputed``, on the CPU, in a fresh process: nothing
+    of JAX loads."""
     code = """
 import dataclasses, sys
 from pathlib import Path
@@ -651,6 +657,20 @@ ft = Doc2QueryFineTuner(params, cfg, tok, quantize_base="int8", layerwise=True, 
 assert ft.train([("a b c d", "e f"), ("g h", "i")], batch_size=2) > 0
 save_local_generator(d / "gen", ft.merged_params(), cfg, tok)
 assert load_local_generator(d / "gen")[1] == cfg
+from improving_learned_index_tpu_torch.cli.expand_precomputed import main as precomputed_main
+from improving_learned_index_tpu_torch.expand import T5QueryGenerator
+from improving_learned_index_tpu_torch.models.t5 import T5Config, init_t5_params
+from improving_learned_index_tpu_torch.text import WordPieceVocab
+t5cfg = T5Config.tiny(vocab_size=tok.vocab_size)
+t5 = T5QueryGenerator(quantize_params_int4(init_t5_params(t5cfg)), t5cfg, tok,
+                      GenerationConfig(num_return_sequences=2, max_new_tokens=3), eos_token_id=tok.EOS, device="cpu")
+assert len(t5.generate(["a b c", "g h"])[0]) == 2
+(d / "c.tsv").write_text("0\\ta b c\\n1\\tg h\\n")
+(d / "s.jsonl").write_text('{"doc_id": "0", "queries": [{"query": "d e", "score": 1.0}]}\\n')
+WordPieceVocab.build(["a b c d e f g h i"], max_size=64).save(d / "vocab.txt")
+assert precomputed_main(["--vocab_path", str(d / "vocab.txt"), "--collection_path", str(d / "c.tsv"),
+                         "--queries_path", str(d / "s.jsonl"), "--output_path", str(d / "x.tsv")]) == 0
+assert (d / "x.tsv").read_text().startswith("0\\ta b c [SEP] ")
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "improving_learned_index_tpu")]
 assert not leaked, leaked
 print("ok")
@@ -664,8 +684,8 @@ print("ok")
 
 
 def test_expansion_entry_points_without_cuda_raise(tmp_path):
-    """``QueryGenerator``, ``Doc2QueryFineTuner`` and ``cli.expand`` /
-    ``cli.finetune`` default to cuda and raise without one."""
+    """``QueryGenerator``, ``T5QueryGenerator``, ``Doc2QueryFineTuner`` and
+    ``cli.expand`` / ``cli.finetune`` default to cuda and raise without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from improving_learned_index_tpu_torch.cli.expand import main as expand_main
@@ -679,7 +699,12 @@ def test_expansion_entry_points_without_cuda_raise(tmp_path):
     params = init_llama_params(cfg)
     (tmp_path / "c.tsv").write_text("0\ta b\n")
     (tmp_path / "p.tsv").write_text("a b\ta\n")
+    from improving_learned_index_tpu_torch.expand import T5QueryGenerator
+    from improving_learned_index_tpu_torch.models.t5 import T5Config, init_t5_params
+
+    t5cfg = T5Config.tiny(vocab_size=tok.vocab_size)
     for make in (lambda: QueryGenerator(params, cfg, tok), lambda: Doc2QueryFineTuner(params, cfg, tok),
+                 lambda: T5QueryGenerator(init_t5_params(t5cfg), t5cfg, tok),
                  lambda: expand_main(["--collection_path", str(tmp_path / "c.tsv"), "--output_path",
                                       str(tmp_path / "o.jsonl"), "--tiny"]),
                  lambda: finetune_main(["--dataset_path", str(tmp_path / "p.tsv"), "--output_adapter",

@@ -26,7 +26,8 @@ twin) and the log-sum-exp within 1e-4, and two backward runs, whose fp32
 dq sums are atomic adds in another order each run, to each other within
 the same 1e-2; the tile pairs they computed, by their own count, equal the
 tile rule's (``tile_pairs``); the Llama forward and a fine-tune step through
-them to the twin route within stated tolerances.
+them to the twin route within stated tolerances.  The T5 route reaches no
+kernel: a tiny fp32 T5's greedy tokens on the card equal the CPU's.
 """
 
 import numpy as np
@@ -1123,3 +1124,46 @@ def test_llama_flash_forward_and_finetune_step_equal_twin_route(cuda):
     assert abs(losses[0] - losses[1]) <= 0.01 * abs(losses[1])
     cos = torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0)
     assert cos >= 0.99, float(cos)
+
+
+@pytest.mark.cuda
+def test_t5_greedy_on_card_equals_cpu(cuda):
+    """A tiny T5 in fp32 compute (gated, untied, as mT5): greedy tokens on the
+    card equal the CPU's with fp32 and int8 trees, teacher-forced logits
+    within 1e-4, the bucket function on card tensors equal to the CPU's
+    over [-4096, 4096] both ways; the T5 route launches none of the six
+    kernels (its attention is plain torch, as the JAX package's is XLA)."""
+    import dataclasses
+
+    from improving_learned_index_tpu_torch.core.config import GenerationConfig
+    from improving_learned_index_tpu_torch.expand.t5_generate import T5Sampler
+    from improving_learned_index_tpu_torch.models import t5 as tt5
+    from improving_learned_index_tpu_torch.models.llama import tree_to
+    from improving_learned_index_tpu_torch.models.quantization import quantize_params_int8
+
+    rel = torch.arange(-4096, 4097)
+    for bidirectional in (True, False):
+        assert torch.equal(tt5.relative_position_bucket(rel.cuda(), bidirectional, 32, 128).cpu(),
+                           tt5.relative_position_bucket(rel, bidirectional, 32, 128))
+    cfg = dataclasses.replace(tt5.T5Config.tiny(vocab_size=300), dtype="float32")
+    params = tt5.init_t5_params(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, 300, (3, 11)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1, 8:] = 0
+    dec = torch.as_tensor(rng.integers(3, 300, (3, 6)))
+    dec[:, 0] = 0
+    model = tt5.T5Model(cfg, device="meta")
+    with torch.no_grad():
+        cpu = model(torch.as_tensor(ids).long(), torch.as_tensor(mask).long(), dec, params=params)
+        card = model(torch.as_tensor(ids).long().cuda(), torch.as_tensor(mask).long().cuda(), dec.cuda(),
+                     params=tree_to(params, "cuda"))
+    assert (card.cpu() - cpu).abs().max() <= 1e-4
+    sampler = T5Sampler(cfg, GenerationConfig(max_new_tokens=8, do_sample=False))
+    counters = (fa.KERNEL, sa.KERNEL, gr.KERNEL, ss.KERNEL, ps.KERNEL, COUNT_KERNEL)
+    before = [k.launches for k in counters]
+    for tree in (params, quantize_params_int8(params)):
+        want = sampler.generate(tree, ids, mask, num_return_sequences=2)
+        got = sampler.generate(tree_to(tree, "cuda"), ids, mask, num_return_sequences=2)
+        np.testing.assert_array_equal(got, want)
+    assert [k.launches for k in counters] == before
