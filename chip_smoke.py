@@ -10,7 +10,8 @@ scripts, async snapshots, a JAX-format checkpoint through the encode and
 query paths, term-pair attention and the gated tokenizer routes,
 expansion at Llama-2-7B width: the flash-attention kernels, generation,
 the QLoRA fine-tune and the expansion CLIs, and last expansion's T5/mT5
-route at mT5-base width and the precomputed-expansion tools.
+route at mT5-base width and the precomputed-expansion tools, and the
+port's two walkthroughs (``examples/``).
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
 
@@ -92,7 +93,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    peak memory for both.  Check 4:
    ``cli.index --checkpoint <final>`` over 512 passages writes the forward
    index the trained model gives in process: identical term lists and
-   impacts.
+   impacts.  Check 5: the trained state dict through
+   ``port_deep_impact_to_hf`` and back through ``hf_deep_impact_to_port``
+   equals itself tensor for tensor; saved as ``pytorch_model.bin``,
+   ``load_hf_checkpoint`` reads the trained trunk (and the seeded head, as
+   the JAX route does), and with the file's head the model's impacts on 64
+   passages equal the trained model's bit for bit (within the trained
+   model's own spread if two of its runs differ, said so); the export's
+   seconds.
 9. In-memory eval: two seeded BEIR-format datasets from phase 6's
    generator, ``nano`` (5,000 passages, NanoBEIR's scale) and ``large``
    (131,072, past ``SparseSearch``'s 100,000-doc switch to the hybrid
@@ -147,7 +155,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (the attention maps take the plain route, as in the JAX package), the
    forward index holds composite ``a|b`` terms, and the single-term impacts
    are within phase 7's tolerance of ``DeepImpact``'s kernel route on the
-   same trunk.  Each part prints its wall seconds and a rate (pairs/s,
+   same trunk; ``PairwiseForwardIndex`` over that file and its
+   ``quantize_file`` output: 64 queries of 1-3 of a document's terms (half
+   of them both terms of one composite entry), every document's score equal
+   to an independent sum over the parsed file, exactly, and some scores
+   with a composite part.  Each part prints its wall seconds and a rate (pairs/s,
    docs/s) and each training CLI its peak memory.
 
 11. The store route, in phase 6's work directory (its 32,768 passages,
@@ -310,6 +322,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    scored queries, ``--threshold 0.7`` (a fraction) and ``--style tilde``:
    every line equal to a reference written here (the numpy percentile, the
    novel terms compared as sets, TILDE's in order).
+17. The walkthroughs: ``examples/quickstart_torch.py`` (a tiny Llama's
+   expansion, merge, a tiny encoder's impacts, index, rank, evaluate, the
+   hybrid engine against the host engine) and
+   ``examples/index_lifecycle_torch.py`` (store, quantize, invert, an
+   incremental merge, a deletion, a router over two shard daemons against
+   one engine, the serving daemon over ``build_engine(engine="auto")``),
+   each in process with ``--device cuda``, the counts of the six kernels
+   set to 0 just before and read just after: ``count_ge`` must have
+   launched in each; their seconds.
 
 The second-to-last line is the ``kernels`` JSON object (six rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
@@ -324,7 +345,8 @@ data-parallel encode add a path each, phase 14 its trainer, its
 ``cli.index`` routes, its term pairs (0) and its ``cli.rank``; row 6,
 ``flash_attention``, counts forward and backward launches over phase 15's
 7B fine-tune steps and the S=512 encode, and the 7B
-generation, which runs the cache route and launches none), the last line ``{"ok": true,
+generation, which runs the cache route and launches none; every row also
+counts phase 17's two walkthroughs), the last line ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -370,7 +392,7 @@ ENCODE = SimpleNamespace(
 # --realistic --batch 128); triples for 16 such steps.
 TRAIN = SimpleNamespace(
     groups=128, triples=16 * 128, steps=12, save_every=6, unpacked_steps=4,
-    index_docs=512, profile_steps=2, seed=0, device="cuda",
+    index_docs=512, profile_steps=2, export_docs=64, seed=0, device="cuda",
 )
 # The eval configuration: NanoBEIR's scale (NanoMSMARCO: ~5k docs, 50
 # queries) and a corpus past SparseSearch's 100,000-doc engine switch, from
@@ -390,7 +412,7 @@ EVAL = SimpleNamespace(
 # default); the pairwise model on the same trunk with a seeded pair head.
 RERANK = SimpleNamespace(
     candidates=100, batch=128, ce_groups=32, ce_steps=4, ce_queries=20, ce_batch=32,
-    pw_groups=4, pw_steps=2, pw_index_docs=256, pw_batch=64, seed=2, device="cuda",
+    pw_groups=4, pw_steps=2, pw_index_docs=256, pw_batch=64, pw_queries=32, seed=2, device="cuda",
 )
 # The store route (phase 11): phase 6's corpus through phase 7's encode
 # geometry, one seeded crash point per output.
@@ -442,6 +464,8 @@ EXPAND = SimpleNamespace(seq=2048, gen_passages=2, returns=80, new_tokens=50, to
 T5 = SimpleNamespace(batches=2, batch_docs=4, returns=80, new_tokens=50, top_k=50, top_p=0.95, max_tokens=350,
                      greedy_docs=4, greedy_steps=8, cut_layers=2, cut_trees=3, cli_passages=32, cli_greedy_returns=10,
                      store_passages=4096, store_queries=80, seed=8, device="cuda")
+# The walkthroughs (phase 17): the examples' own corpora, queries and sizes.
+WALK = SimpleNamespace(device="cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
@@ -1715,9 +1739,71 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     out["index_check"] = {"docs": len(got_docs), "terms": sum(map(len, got_docs)), "scored": scored}
     log(f"check 4, cli.index --checkpoint {final.name}: {json.dumps(out['index_check'])}, "
         "term lists and impacts equal to the trained model's")
+    out["hf_export"] = hf_export_check(trained, config, tok, passages[: cfg.export_docs], workdir / "hf_export")
+    log(f"check 5, the trained model in the HF layout and back: {json.dumps(out['hf_export'])}")
+    del trained
+    torch.cuda.empty_cache()
     out["launches"] = launches["short_attention"]
     out["train_args"] = common
     return out
+
+
+def hf_export_check(trained, config, tok, docs: list, directory: Path) -> dict:
+    """Phase 8, check 5: the trained model's state dict through
+    ``port_deep_impact_to_hf`` (the HF checkpoint layout the reference stack
+    loads) and back through ``hf_deep_impact_to_port``: every tensor equal.
+    Saved as ``pytorch_model.bin`` and read by ``load_hf_checkpoint``, the
+    trunk is the trained one and the head the seeded draw (as on the JAX
+    route, which reads the trunk alone); with the file's trained head put
+    back, the model's impacts on ``docs`` equal the trained model's bit for
+    bit -- or, if two runs of the trained model on that batch differ, within
+    their spread (said so in the result)."""
+    from improving_learned_index_tpu_torch.models import (
+        DeepImpact, hf_deep_impact_to_port, load_hf_checkpoint, port_deep_impact_to_hf,
+    )
+
+    sd = {k: v.detach().cpu() for k, v in trained.module.state_dict().items()}
+    t0 = time.perf_counter()
+    hf = port_deep_impact_to_hf(sd, config)
+    export_s = time.perf_counter() - t0
+    if any(v.dtype != np.float32 or not v.flags.c_contiguous for v in hf.values()):
+        raise AssertionError("port_deep_impact_to_hf: an array that is not contiguous fp32")
+    back = hf_deep_impact_to_port(hf, config)
+    if back.keys() != sd.keys():
+        raise AssertionError("hf_deep_impact_to_port(port_deep_impact_to_hf(sd)) has other keys")
+    differ = [k for k, v in sd.items() if not torch.equal(back[k], v.float())]
+    if differ:
+        raise AssertionError(f"the HF-layout round trip changed {len(differ)} tensors: {differ[:4]}")
+    directory.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    torch.save({k: torch.from_numpy(v) for k, v in hf.items()}, directory / "pytorch_model.bin")
+    save_s = time.perf_counter() - t0
+    loaded = load_hf_checkpoint(directory, config)
+    trunk_differ = [k for k, v in sd.items() if not k.startswith("impact_head.") and not torch.equal(loaded[k], v)]
+    if trunk_differ:
+        raise AssertionError(f"load_hf_checkpoint: {len(trunk_differ)} trunk tensors differ: {trunk_differ[:4]}")
+    seeded = hf_deep_impact_to_port({k: v for k, v in hf.items() if not k.startswith("impact_score_encoder")}, config)
+    if not all(torch.equal(loaded[k], seeded[k]) for k in ("impact_head.dense.weight", "impact_head.dense.bias")):
+        raise AssertionError("load_hf_checkpoint: the head is not the seeded draw")
+    file_head = hf_deep_impact_to_port(torch.load(directory / "pytorch_model.bin", weights_only=True), config)
+    loaded.update({k: file_head[k] for k in ("impact_head.dense.weight", "impact_head.dense.bias")})
+    reloaded = DeepImpact(config, tok, state_dict=loaded, device=trained.device)
+    first, second = trained.get_impact_scores_batch(docs), trained.get_impact_scores_batch(docs)
+    got = reloaded.get_impact_scores_batch(docs)
+    del reloaded
+    if [[t for t, _ in d] for d in got] != [[t for t, _ in d] for d in first]:
+        raise AssertionError("the reloaded HF checkpoint scores other terms than the trained model")
+    deterministic = first == second
+    spread = max((abs(a - b) for x, y in zip(first, second) for (_, a), (_, b) in zip(x, y)), default=0.0)
+    err = max((abs(a - b) for x, y in zip(got, first) for (_, a), (_, b) in zip(x, y)), default=0.0)
+    if (deterministic and got != first) or err > spread:
+        raise AssertionError(f"the reloaded HF checkpoint's impacts differ from the trained model's by {err} "
+                             f"(two runs of the trained model differ by {spread})")
+    shutil.rmtree(directory, ignore_errors=True)
+    return {"tensors": len(hf), "bytes": sum(v.nbytes for v in hf.values()), "export_s": export_s,
+            "save_s": save_s, "docs": len(docs), "impacts": sum(map(len, got)),
+            "compared": "bit-equal" if deterministic else f"within the trained model's own spread {spread}",
+            "max_abs_err": err}
 
 
 # -- in-memory eval -----------------------------------------------------------------
@@ -2488,6 +2574,7 @@ def run_rerank(cfg, workdir: Path, ckpt: Path) -> dict:
     pw["index"] = {"docs": len(docs), "wall_s": index_wall, "docs_per_s": len(docs) / index_wall,
                    "terms": sum(map(len, docs)), "composite_terms": composite, "launches": index_pw,
                    "single_vs_deep_impact": errs}
+    pw["forward_index_scores"] = pairwise_score_check(fwd, d / "forward.pairwise.q.txt", cfg.pw_queries, cfg.seed)
     out["pairwise"] = pw
     log(f"4. pairwise: {json.dumps(pw)}")
     torch.cuda.empty_cache()
@@ -2498,6 +2585,63 @@ def run_rerank(cfg, workdir: Path, ckpt: Path) -> dict:
 
 
 # -- index lifecycle ---------------------------------------------------------------
+
+
+def pairwise_score_check(fwd: Path, quantized: Path, n_queries: int, seed: int) -> dict:
+    """Phase 10, part 4: the pairwise forward index read back by
+    ``PairwiseForwardIndex``.  Queries of 1-3 single terms of one document
+    (``n_queries`` of a seeded random document each, and as many that name
+    both terms of one of its composite entries); every ``score(pid, q)`` of
+    every document equals an independent sum over ``parse_forward``: the
+    single terms, then ``t1|t2`` for each ordered pair of distinct terms, in
+    the set's order and by the same float operations as the class (so the
+    check is exact).
+    The same on the file's ``quantize_file`` output."""
+    from improving_learned_index_tpu_torch.index import PairwiseForwardIndex, quantize_file
+
+    rng = np.random.default_rng(seed)
+    docs = parse_forward(fwd)
+    queries = []
+    for pid in rng.integers(0, len(docs), n_queries):
+        singles = sorted(t for t in docs[pid] if "|" not in t)
+        if singles:
+            queries.append(set(map(str, rng.choice(singles, size=min(len(singles), int(rng.integers(1, 4))),
+                                                   replace=False))))
+    pairs = [t for doc in docs for t in doc if "|" in t]
+    for i in rng.choice(len(pairs), min(n_queries, len(pairs)), replace=False):
+        queries.append(set(pairs[i].split("|")))
+
+    def reference(doc, q):
+        # ``sum`` for the single terms, as the class takes them: Python 3.12's
+        # float ``sum`` is compensated, so a plain loop of ``+=`` can differ
+        total = sum(doc.get(t, 0) for t in q)
+        for t1 in q:
+            for t2 in q:
+                if t1 != t2:
+                    total += doc.get(f"{t1}|{t2}", 0)
+        return total
+
+    out = {"queries": len(queries)}
+    t0 = time.perf_counter()
+    quantize_file(fwd, quantized)
+    out["quantize_s"] = time.perf_counter() - t0
+    for name, path in (("float", fwd), ("quantized", quantized)):
+        index, ref_docs = PairwiseForwardIndex(path), parse_forward(path)
+        t0 = time.perf_counter()
+        scores = [[index.score(pid, q) for q in queries] for pid in range(len(index))]
+        wall = time.perf_counter() - t0
+        bad = [(pid, sorted(q)) for pid, row in enumerate(scores) for q, got in zip(queries, row)
+               if got != reference(ref_docs[pid], q)]
+        if len(scores) != len(ref_docs) or bad:
+            raise AssertionError(f"PairwiseForwardIndex ({name}): {len(bad)} scores differ from the "
+                                 f"independent sum, first {bad[:3]}")
+        composite = sum(any(doc.get(f"{t1}|{t2}", 0) for t1 in q for t2 in q if t1 != t2)
+                        for doc in ref_docs for q in queries)
+        if composite == 0:
+            raise AssertionError(f"PairwiseForwardIndex ({name}): no score had a composite part")
+        out[name] = {"scores": len(scores) * len(queries), "with_composite_part": composite,
+                     "scores_per_s": len(scores) * len(queries) / wall}
+    return out
 
 
 def files_equal(a: Path, b: Path, chunk: int = 64 << 20) -> bool:
@@ -5012,6 +5156,43 @@ def run_t5(cfg, workdir: Path) -> dict:
     return {**parts, "launches": launches, "seconds": seconds}
 
 
+# -- phase 17: the walkthroughs ------------------------------------------------------
+WALKTHROUGHS = ("quickstart_torch.py", "index_lifecycle_torch.py")
+
+
+def run_walkthroughs(cfg, workdir: Path) -> dict:
+    """Phase 17: the port's two walkthroughs (``examples/``), in process as a
+    user runs them, with ``--device`` and a work directory of their own.
+    The counts of the six kernels are set to 0 just before each and read
+    just after; ``count_ge`` must have launched in each (quickstart step 6
+    and the lifecycle's served engine run the exact top-k's search passes).
+    Each walkthrough checks its own results (the hybrid engine against the
+    host engine; the router over the shard daemons against one engine)."""
+    import runpy
+
+    log("== phase 17: the walkthroughs (examples/quickstart_torch.py, examples/index_lifecycle_torch.py)")
+    t_phase = time.perf_counter()
+    kernels = six_kernels()
+    out = {"seconds": {}, "launches": {}}
+    for name in WALKTHROUGHS:
+        main_fn = runpy.run_path(str(REPO / "examples" / name))["main"]
+        for k in kernels:
+            k.calls.clear()
+        t0 = time.perf_counter()
+        rc = main_fn(["--device", cfg.device, "--workdir", str(workdir / Path(name).stem)])
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = launches = {k.name: k.launches for k in kernels}
+        if rc != 0:
+            raise AssertionError(f"{name} returned {rc}")
+        if launches["count_ge"] == 0:
+            raise AssertionError(f"{name}: count_ge launched 0 times")
+        log(f"{name}: {out['seconds'][name]:.2f} s, launches {json.dumps(launches)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17 in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     log("== phase 1: environment")
     if shutil.which("nvidia-smi"):
@@ -5064,6 +5245,8 @@ def main() -> int:
         expansion = run_expansion(EXPAND, workdir)
         torch.cuda.empty_cache()
         t5 = run_t5(T5, workdir)
+        torch.cuda.empty_cache()
+        walkthroughs = run_walkthroughs(WALK, workdir / "walkthroughs")
     finally:
         for d in (qdir, workdir):
             shutil.rmtree(d, ignore_errors=True)
@@ -5093,7 +5276,11 @@ def main() -> int:
                                  "RetrievalServer (in-process)": served["count_ge"],
                                  "ShardedSearchEngine (4 shards)": sharded["count_ge"],
                                  "cli.rank (msgpack-built index)": rem["count_ge"]}
-    for row in (a_row, s_row, g_row, c_row):
+    b_row["launches_by_path"] = {"PallasBlockedEngine": b_row["launches"]}
+    f_row = expansion.pop("row")
+    for row in (g_row, s_row, a_row, c_row, b_row, f_row):
+        for name, counts in walkthroughs["launches"].items():
+            row["launches_by_path"][name] = counts[row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     log(json.dumps({"query": {k: v for k, v in query.items() if k != "kernels"}}))
     log(json.dumps({"encode": {k: v for k, v in encode.items() if k != "row"}}))
@@ -5104,9 +5291,9 @@ def main() -> int:
     log(json.dumps({"lifecycle": lifecycle}))
     log(json.dumps({"multidevice": multi}))
     log(json.dumps({"remainder": remainder}))
-    f_row = expansion.pop("row")
     log(json.dumps({"expansion": expansion}))
     log(json.dumps({"t5": t5}))
+    log(json.dumps({"walkthroughs": walkthroughs}))
     print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row, f_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

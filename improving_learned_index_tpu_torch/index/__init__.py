@@ -1,10 +1,22 @@
-from .forward_index import ForwardIndex, iter_forward_index, quantize_file
+from .forward_index import (
+    ForwardIndex,
+    PairwiseForwardIndex,
+    format_line,
+    format_quantized_line,
+    iter_forward_index,
+    parse_line,
+    quantize_file,
+)
 from .indexer import Indexer
 from .inverted import InvertedIndexData, index_from_numpy
 
 __all__ = [
     "ForwardIndex",
+    "PairwiseForwardIndex",
+    "format_line",
+    "format_quantized_line",
     "iter_forward_index",
+    "parse_line",
     "quantize_file",
     "Indexer",
     "InvertedIndexData",

@@ -3,11 +3,13 @@ implicit doc id = line number) -- format parity with the reference
 (src/deep_impact/index.py:62-68, indexing/deep_impact_collection.py:6-33).
 
 The port's copy of ``improving_learned_index_tpu/index/forward_index.py``
-(pure Python); the pairwise forward index comes with the pairwise model.
+(pure Python).  ``PairwiseForwardIndex`` reads back the ``term1|term2``
+composite entries that the pairwise model writes (``models/pairwise.py``).
 """
 
 from __future__ import annotations
 
+from itertools import permutations
 from pathlib import Path
 from typing import Dict, Iterator, List, Sequence, Set, Tuple, Union
 
@@ -56,6 +58,21 @@ class ForwardIndex:
     def score(self, pid: int, query_terms: Set[str]) -> float:
         impacts = self[pid]
         return sum(impacts.get(t, 0) for t in query_terms)
+
+
+class PairwiseForwardIndex(ForwardIndex):
+    """Adds term1|term2 composite postings (reference deep_impact_collection.py:36-45).
+
+    Single terms are summed first, then every ordered pair of distinct query
+    terms in ``permutations`` order, so one set gives the JAX class's float.
+    """
+
+    def score(self, pid: int, query_terms: Set[str]) -> float:
+        total = super().score(pid, query_terms)
+        impacts = self[pid]
+        for t1, t2 in permutations(query_terms, 2):
+            total += impacts.get(f"{t1}|{t2}", 0)
+        return total
 
 
 def iter_forward_index(index_path: PathLike) -> Iterator[Tuple[int, Dict[str, float]]]:

@@ -8,8 +8,14 @@ from .factory import (
     deep_impact_xlmr,
     deep_pairwise_impact,
 )
-from .hf_import import flax_params_to_port, hf_deep_impact_to_port, load_hf_checkpoint
+from .hf_import import (
+    flax_params_to_port,
+    hf_deep_impact_to_port,
+    load_hf_checkpoint,
+    port_deep_impact_to_hf,
+)
 from .pairwise import DeepPairwiseImpact, PairwiseImpactModel, build_pair_slots
+from .quantization import dequantize_params, quantize_params_int4, quantize_params_int8
 
 __all__ = [
     "DeepImpact",
@@ -32,4 +38,8 @@ __all__ = [
     "flax_params_to_port",
     "hf_deep_impact_to_port",
     "load_hf_checkpoint",
+    "port_deep_impact_to_hf",
+    "quantize_params_int8",
+    "quantize_params_int4",
+    "dequantize_params",
 ]

@@ -16,6 +16,10 @@ torch ``Linear`` weights [out, in]; the flax attention projections are
   (``bert.``/``roberta.`` prefixes stripped, reference head keys
   ``impact_score_encoder.0``) -> the port's ``state_dict``; without head
   keys the head is the same seeded numpy draw as ``hf_deep_impact_to_flax``.
+- ``port_deep_impact_to_hf(state_dict, config)``: its exact inverse, the
+  counterpart of ``flax_deep_impact_to_hf``: a model trained by the port
+  -> the HF checkpoint layout the reference stack loads (contiguous numpy
+  fp32, head keys ``impact_score_encoder.0``).
 - ``load_hf_checkpoint(path, config)``: a local directory's
   ``pytorch_model.bin`` (read with ``weights_only=True``, no
   ``transformers``).  It gives what the JAX package's ``load_hf_checkpoint``
@@ -35,6 +39,24 @@ import torch
 from ..core.config import EncoderConfig
 
 _HEAD_KEY = "impact_score_encoder.0"
+# the port's names -> HF's, in the trunk and in each layer
+_EMBEDDING_NAMES = {
+    "word_embeddings.weight": "word_embeddings.weight",
+    "position_embeddings.weight": "position_embeddings.weight",
+    "token_type_embeddings.weight": "token_type_embeddings.weight",
+    "layer_norm.weight": "LayerNorm.weight",
+    "layer_norm.bias": "LayerNorm.bias",
+}
+_LAYER_NAMES = {
+    "attention.query": "attention.self.query",
+    "attention.key": "attention.self.key",
+    "attention.value": "attention.self.value",
+    "attention.output_dense": "attention.output.dense",
+    "attention_norm": "attention.output.LayerNorm",
+    "intermediate": "intermediate.dense",
+    "output": "output.dense",
+    "output_norm": "output.LayerNorm",
+}
 
 
 def _np(x) -> np.ndarray:
@@ -105,24 +127,10 @@ def hf_deep_impact_to_port(
     when ``head_key`` is absent, as ``hf_deep_impact_to_flax`` does."""
     sd = _strip_prefix(state_dict)
     out: Dict[str, np.ndarray] = {
-        "encoder.embeddings.word_embeddings.weight": sd["embeddings.word_embeddings.weight"],
-        "encoder.embeddings.position_embeddings.weight": sd["embeddings.position_embeddings.weight"],
-        "encoder.embeddings.token_type_embeddings.weight": sd["embeddings.token_type_embeddings.weight"],
-        "encoder.embeddings.layer_norm.weight": sd["embeddings.LayerNorm.weight"],
-        "encoder.embeddings.layer_norm.bias": sd["embeddings.LayerNorm.bias"],
-    }
-    names = {
-        "attention.query": "attention.self.query",
-        "attention.key": "attention.self.key",
-        "attention.value": "attention.self.value",
-        "attention.output_dense": "attention.output.dense",
-        "attention_norm": "attention.output.LayerNorm",
-        "intermediate": "intermediate.dense",
-        "output": "output.dense",
-        "output_norm": "output.LayerNorm",
+        f"encoder.embeddings.{ours}": sd[f"embeddings.{theirs}"] for ours, theirs in _EMBEDDING_NAMES.items()
     }
     for i in range(config.num_layers):
-        for ours, theirs in names.items():
+        for ours, theirs in _LAYER_NAMES.items():
             for part in ("weight", "bias"):
                 out[f"encoder.layers.{i}.{ours}.{part}"] = sd[f"encoder.layer.{i}.{theirs}.{part}"]
     wkey, bkey = f"{head_key}.weight", f"{head_key}.bias"
@@ -136,6 +144,31 @@ def hf_deep_impact_to_port(
         out["impact_head.dense.weight"] = kernel.T
         out["impact_head.dense.bias"] = np.zeros((1,), dtype=np.float32)
     return _tensors(out)
+
+
+def port_deep_impact_to_hf(
+    state_dict: Dict[str, Any],
+    config: EncoderConfig,
+    head_key: str = _HEAD_KEY,
+    trunk_prefix: str = "bert.",
+) -> Dict[str, np.ndarray]:
+    """The port's ``DeepImpactModel`` state dict -> an HF-format state dict
+    of contiguous numpy fp32 arrays, with the reference's head keys
+    (original.py:44-47).  The exact inverse of ``hf_deep_impact_to_port``:
+    both sides keep torch's [out, in] ``Linear`` layout, so this is renames
+    and the fp32 cast only, and the round trip is bit-exact."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    p = trunk_prefix
+    out: Dict[str, np.ndarray] = {
+        f"{p}embeddings.{theirs}": sd[f"encoder.embeddings.{ours}"] for ours, theirs in _EMBEDDING_NAMES.items()
+    }
+    for i in range(config.num_layers):
+        for ours, theirs in _LAYER_NAMES.items():
+            for part in ("weight", "bias"):
+                out[f"{p}encoder.layer.{i}.{theirs}.{part}"] = sd[f"encoder.layers.{i}.{ours}.{part}"]
+    out[f"{head_key}.weight"] = sd["impact_head.dense.weight"]
+    out[f"{head_key}.bias"] = sd["impact_head.dense.bias"]
+    return {k: np.ascontiguousarray(v, dtype=np.float32) for k, v in out.items()}
 
 
 def load_hf_checkpoint(

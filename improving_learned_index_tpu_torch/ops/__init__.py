@@ -8,6 +8,13 @@ from .gather_rows import (
     group_pairs,
 )
 from .pallas_scoring import PallasBlockedEngine, blocked_scores, blocked_scores_plain
+from .quantize import (
+    global_max,
+    quantize_array,
+    quantize_device,
+    quantize_scale,
+    quantize_value,
+)
 from .scatter_scores import (
     apply_tail_chunks,
     apply_tail_chunks_plain,
@@ -30,5 +37,10 @@ __all__ = [
     "count_ge",
     "count_ge_plain",
     "exact_topk_integer",
+    "global_max",
     "group_pairs",
+    "quantize_array",
+    "quantize_device",
+    "quantize_scale",
+    "quantize_value",
 ]

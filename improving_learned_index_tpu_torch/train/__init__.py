@@ -1,5 +1,6 @@
 from .collate import (
     COLLATES,
+    collate_cross_encoder,
     collate_distillation,
     collate_in_batch_negatives,
     collate_triples,
@@ -9,6 +10,7 @@ from .trainer import Trainer, make_loss_fn, masked_doc_scores
 
 __all__ = [
     "COLLATES",
+    "collate_cross_encoder",
     "collate_distillation",
     "collate_in_batch_negatives",
     "collate_triples",

@@ -16,7 +16,10 @@ msgpack reader and the async checkpoint manager), and expansion (the
 Llama decoder, quantization, LoRA, sampling, generation, fine-tuning,
 merge, flash attention and their CLIs; the T5/mT5 model, its sampler and
 query generator, ``cli.expand --t5``, the precomputed-expansion tools and
-``cli.expand_precomputed``).  No port file imports
+``cli.expand_precomputed``), the last of the surface
+(``PairwiseForwardIndex``, ``port_deep_impact_to_hf`` and the subpackage
+exports) and the two walkthroughs (``examples/quickstart_torch.py``,
+``examples/index_lifecycle_torch.py``).  No port file imports
 ``msgpack``; ``transformers``, ``matplotlib``, ``py_vncorenlp`` and
 ``underthesea`` are imported only inside the functions that need them."""
 
@@ -48,6 +51,7 @@ EXPANSION_MODULES = (
     "expand/lora.py", "expand/sampling.py", "expand/generate.py", "expand/merge.py", "expand/finetune.py",
     "cli/expand.py", "cli/finetune.py", "cli/merge.py", "utils/text_utils.py",
 )
+WALKTHROUGHS = (REPO / "examples" / "quickstart_torch.py", REPO / "examples" / "index_lifecycle_torch.py")
 T5_MODULES = (
     "models/t5.py", "expand/t5_generate.py", "expand/precomputed.py", "cli/expand_precomputed.py", "cli/expand.py",
 )
@@ -66,7 +70,7 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", *WALKTHROUGHS]
     names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     for module in ("ops/short_attention.py", "models/encoder.py", "models/hf_import.py",
                    "models/deep_impact.py", "index/indexer.py", "cli/index.py",
@@ -712,3 +716,40 @@ def test_expansion_entry_points_without_cuda_raise(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert not (tmp_path / "o.jsonl").exists() and not (tmp_path / "a.msgpack").exists()
+
+
+def test_cpu_walkthroughs_and_new_surface_leave_jax_unimported(tmp_path):
+    """Both walkthroughs in-process with ``--device cpu``, then
+    ``PairwiseForwardIndex``, ``port_deep_impact_to_hf`` and the subpackage
+    exports, in a fresh process: nothing of JAX loads."""
+    code = """
+import runpy, sys
+from pathlib import Path
+d = Path(sys.argv[1])
+for name in ("quickstart_torch.py", "index_lifecycle_torch.py"):
+    main = runpy.run_path(str(Path(sys.argv[2]) / "examples" / name))["main"]
+    assert main(["--device", "cpu", "--workdir", str(d / name)]) == 0
+from improving_learned_index_tpu_torch.core.config import EncoderConfig
+from improving_learned_index_tpu_torch.index import PairwiseForwardIndex, format_line, format_quantized_line, parse_line
+from improving_learned_index_tpu_torch.models import (DeepImpactModel, dequantize_params, hf_deep_impact_to_port,
+                                                      port_deep_impact_to_hf, quantize_params_int4,
+                                                      quantize_params_int8)
+from improving_learned_index_tpu_torch.ops import global_max, quantize_array, quantize_device, quantize_scale, quantize_value
+from improving_learned_index_tpu_torch.train import collate_cross_encoder
+from improving_learned_index_tpu_torch.utils import get_unique_query_terms, merge_document_and_queries
+(d / "f.txt").write_text(format_line([("a", 1.0), ("b", 2.0), ("a|b", 0.5)]) + "\\n")
+assert PairwiseForwardIndex(d / "f.txt").score(0, {"a", "b"}) == 3.5
+cfg = EncoderConfig.tiny(vocab_size=64)
+sd = DeepImpactModel(cfg).state_dict()
+back = hf_deep_impact_to_port(port_deep_impact_to_hf(sd, cfg), cfg)
+assert all((back[k] == v).all() for k, v in sd.items())
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "improving_learned_index_tpu")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path), str(REPO)], capture_output=True, text=True, env=env,
+        cwd=tmp_path, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "ok", out.stderr[-2000:]
