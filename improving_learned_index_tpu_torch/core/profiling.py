@@ -2,26 +2,42 @@
 
 Counterpart of ``improving_learned_index_tpu/core/profiling.py`` on
 ``torch.profiler``: ``trace`` writes a chrome trace (``trace.json``, open it
-in Perfetto or ``chrome://tracing``) for a block, ``annotate`` names a
-region inside one (``record_function``), ``ScheduledTracer`` follows the
-reference's wait/warmup/active schedule (src/llama2/finetune/finetune.py:84-96)
-and ``ThroughputMeter`` counts items/s (reference passages/s logging,
-src/deep_impact/index.py:37).  The card's activity is traced where a CUDA
-device is present.
+in Perfetto or ``chrome://tracing``) for a block, and ``annotate`` names a
+region inside one.  The card's activity is traced where a CUDA device is
+present.
+
+``annotate`` is cheap enough for the hot loops: with no profiler running it
+enters nothing.  A region is a ``record_function`` event, on the same clock
+as the card's activity in the same trace; the program keeps no clock of its
+own.  The port's regions, each on the thread that drives the card:
+
+- search: ``search/stage_inputs``, ``search/topk``, ``search/topk_sync``
+  (one a convergence test of the top-k's search, each a host sync),
+  ``search/result_wait``, ``search/answers``, and ``text/process_query``
+  once a query;
+- index: ``index/next_batch`` (the wait on the tokenizer thread),
+  ``index/encode``, ``index/scores_to_host``, ``index/write``;
+- train: ``train/next_batch``, ``train/put_batch``, ``train/forward``,
+  ``train/backward``, ``train/optimizer``, ``train/step_end``.
+
+No region name starts with ``cu``, which trace readers take for CUDA
+runtime calls.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 from typing import Iterator, Union
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .logging import get_logger
 
 logger = get_logger("profiling", stream=False)
+
+_NO_REGION = contextlib.nullcontext()
 
 
 def _activities():
@@ -51,67 +67,14 @@ def trace(log_dir: Union[str, Path], enabled: bool = True) -> Iterator[None]:
 
 
 def annotate(name: str):
-    """Named region inside a trace (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+    """Named region inside a trace: ``torch.profiler.record_function(name)``
+    while a profiler runs, else one shared no-op context.
 
-
-class ScheduledTracer:
-    """wait/warmup/active/repeat stepping (the reference's torch.profiler
-    schedule, finetune.py:87-90): call ``step()`` once per training step;
-    each active window is written as ``<log_dir>/trace_<step>.json``."""
-
-    def __init__(
-        self,
-        log_dir: Union[str, Path],
-        wait: int = 1,
-        warmup: int = 1,
-        active: int = 2,
-        repeat: int = 1,
-        enabled: bool = True,
-    ):
-        self.log_dir = Path(log_dir)
-        self._prof = None
-        if enabled:
-            from torch.profiler import profile, schedule
-
-            self.log_dir.mkdir(parents=True, exist_ok=True)
-            self._prof = profile(
-                activities=_activities(),
-                schedule=schedule(wait=wait, warmup=warmup, active=active, repeat=repeat),
-                on_trace_ready=self._write,
-            )
-            self._prof.start()
-
-    def _write(self, prof) -> None:
-        prof.export_chrome_trace(str(self.log_dir / f"trace_{prof.step_num}.json"))
-
-    def step(self) -> None:
-        if self._prof is not None:
-            self._prof.step()
-
-    def close(self) -> None:
-        if self._prof is not None:
-            self._prof.stop()
-            self._prof = None
-
-
-class ThroughputMeter:
-    """Rolling items/s counter (reference passages/s logging, index.py:37)."""
-
-    def __init__(self, name: str = "items"):
-        self.name = name
-        self.start = time.time()
-        self.count = 0
-
-    def update(self, n: int) -> None:
-        self.count += n
-
-    @property
-    def rate(self) -> float:
-        elapsed = time.time() - self.start
-        return self.count / elapsed if elapsed > 0 else 0.0
-
-    def log(self) -> str:
-        msg = f"{self.count} {self.name} [{self.rate:.2f} {self.name}/s]"
-        logger.info(msg)
-        return msg
+    The test is torch's process-wide flag, set while any ``torch.profiler``
+    profile is on.  ``torch.autograd._profiler_enabled()`` is thread-local
+    and reads False on every thread, the profiling one too, when a profile
+    traces all threads (``_ExperimentalConfig(profile_all_threads=True)``).
+    So call it only on a thread whose regions are wanted."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_REGION

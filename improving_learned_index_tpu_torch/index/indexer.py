@@ -10,7 +10,10 @@ and the pairwise route: a ``DeepPairwiseImpact`` model encodes through its
 own ``get_impact_scores_batch`` in batches of ``model_batch_size``, so its
 ``term1|term2`` composite postings reach the forward index.  The output is
 the reference text forward index, the binary impact store
-(index/impact_store.py), or both.
+(index/impact_store.py), or both.  The consumer's regions
+(``core.profiling.annotate``), a batch each: ``index/next_batch`` (its wait
+on the producer), ``index/encode``, ``index/scores_to_host`` and
+``index/write`` (the batch's forward-file lines); the producer has none.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 
 from ..core.config import IndexConfig
 from ..core.logging import get_logger
+from ..core.profiling import annotate
 from ..data.datasets import stream_collection
 from ..text.packing import SequencePacker
 from ..text.processor import DocumentEncoding
@@ -57,6 +61,17 @@ def _queue_get(queue: Queue):
     return item
 
 
+def _split_rows(scores, offsets, terms) -> List[Tuple[List[str], np.ndarray]]:
+    """A dispatched batch's (terms, impact row) a document, its scores read
+    to the host (``offsets``: each document's span of a packed batch's flat
+    scores; None: a row a document)."""
+    with annotate("index/scores_to_host"):
+        scores = np.asarray(scores)
+    if offsets is None:
+        return [(doc_terms, scores[i]) for i, doc_terms in enumerate(terms)]
+    return [(doc_terms, scores[offsets[i]:offsets[i + 1]]) for i, doc_terms in enumerate(terms)]
+
+
 def _tokenize_producer(model, docs: Iterator[str], batch_size: int, queue: Queue):
     try:
         batch: List[DocumentEncoding] = []
@@ -66,6 +81,18 @@ def _tokenize_producer(model, docs: Iterator[str], batch_size: int, queue: Queue
                 queue.put(batch)
                 batch = []
         if batch:
+            queue.put(batch)
+        queue.put(None)
+    except BaseException as e:  # noqa: BLE001 -- must reach the consumer
+        queue.put(_ProducerError(e))
+
+
+def _pack_producer(model, packer: SequencePacker, docs: Iterable[str], queue: Queue):
+    try:
+        for doc in docs:
+            for batch in packer.add(model.process_document(doc)):
+                queue.put(batch)
+        for batch in packer.flush():
             queue.put(batch)
         queue.put(None)
     except BaseException as e:  # noqa: BLE001 -- must reach the consumer
@@ -143,88 +170,53 @@ class Indexer:
         Models with composite postings (DeepPairwiseImpact emits
         ``term1|term2`` entries, reference pairwise_impact.py:97-129) go
         through their own ``get_impact_scores_batch``."""
+        for batch in self._encode_batches(documents):
+            yield from batch
+
+    def _encode_batches(self, documents: Iterable[str]) -> Iterator[List[Tuple[List[str], np.ndarray]]]:
+        """Each model batch's [(terms, impact_row), ...], in document
+        order."""
         from ..models.pairwise import DeepPairwiseImpact
 
         if isinstance(self.model, DeepPairwiseImpact):
             docs = iter(documents)
             while batch := list(islice(docs, self.config.model_batch_size)):
-                for pairs in self.model.get_impact_scores_batch(batch):
-                    yield [t for t, _ in pairs], np.asarray([v for _, v in pairs], np.float64)
+                yield [([t for t, _ in pairs], np.asarray([v for _, v in pairs], np.float64))
+                       for pairs in self.model.get_impact_scores_batch(batch)]
             return
 
+        queue: Queue = Queue(maxsize=4)
         if self.config.pack_sequences:
-            yield from self._encode_packed_rows(documents)
-            return
-
-        queue: Queue = Queue(maxsize=4)
-        producer = threading.Thread(
-            target=_tokenize_producer,
-            args=(self.model, iter(documents), self.config.model_batch_size, queue),
-            daemon=True,
-        )
+            packer = SequencePacker(self.config.max_length, self.config.model_batch_size, self.config.max_terms)
+            target, args = _pack_producer, (self.model, packer, documents, queue)
+        else:
+            target, args = _tokenize_producer, (self.model, iter(documents), self.config.model_batch_size, queue)
+        producer = threading.Thread(target=target, args=args, daemon=True)
         producer.start()
         pending: deque = deque()
-
-        def drain(entry):
-            scores, terms = entry
-            scores = np.asarray(scores)
-            for i, doc_terms in enumerate(terms):
-                yield doc_terms, scores[i]
-
         while True:
-            batch = _queue_get(queue)
+            with annotate("index/next_batch"):
+                batch = _queue_get(queue)
             if batch is None:
                 break
-            pending.append(
-                self.model.encode_term_scores(batch, max_terms=self.config.max_terms, materialize=False)
-            )
+            with annotate("index/encode"):
+                pending.append(self._dispatch(batch))
             if len(pending) > 1:
-                yield from drain(pending.popleft())
+                yield _split_rows(*pending.popleft())
         while pending:
-            yield from drain(pending.popleft())
+            yield _split_rows(*pending.popleft())
         producer.join()
 
-    def _encode_packed_rows(self, documents: Iterable[str]) -> Iterator[Tuple[List[str], np.ndarray]]:
-        """Sequence-packed encode: several documents per [max_length] row
-        (text/packing.py), block-diagonal attention on the card, one flat
-        term-score gather per batch.  Yields the same (terms, scores) stream
-        as the unpacked path."""
-        packer = SequencePacker(self.config.max_length, self.config.model_batch_size, self.config.max_terms)
-        queue: Queue = Queue(maxsize=4)
-
-        def produce():
-            try:
-                for doc in documents:
-                    for batch in packer.add(self.model.process_document(doc)):
-                        queue.put(batch)
-                for batch in packer.flush():
-                    queue.put(batch)
-                queue.put(None)
-            except BaseException as e:  # noqa: BLE001 -- must reach the consumer
-                queue.put(_ProducerError(e))
-
-        producer = threading.Thread(target=produce, daemon=True)
-        producer.start()
-        pending: deque = deque()
-
-        def drain(entry):
-            scores, offsets, terms = entry
-            scores = np.asarray(scores)
-            for i, doc_terms in enumerate(terms):
-                yield doc_terms, scores[offsets[i] : offsets[i + 1]]
-
-        while True:
-            batch = _queue_get(queue)
-            if batch is None:
-                break
-            pending.append(
-                (self.model.encode_packed(batch, materialize=False), batch.term_offsets, batch.terms)
-            )
-            if len(pending) > 1:
-                yield from drain(pending.popleft())
-        while pending:
-            yield from drain(pending.popleft())
-        producer.join()
+    def _dispatch(self, batch):
+        """Launch one batch's encode: (scores in flight to the host, each
+        document's score offsets or None, each document's terms).  The
+        packed route (text/packing.py) puts several documents in a row, with
+        block-diagonal attention on the card and one flat term-score gather
+        a batch; the unpacked route one document a row."""
+        if self.config.pack_sequences:
+            return self.model.encode_packed(batch, materialize=False), batch.term_offsets, batch.terms
+        scores, terms = self.model.encode_term_scores(batch, max_terms=self.config.max_terms, materialize=False)
+        return scores, None, terms
 
     def index_to_file(
         self,
@@ -280,21 +272,23 @@ class Indexer:
             else nullcontext(None)
         )
         with out_cm as out, (store if store is not None else nullcontext()):
-            for doc_terms, row in self.encode_document_rows(docs):
-                if out is not None:
-                    out.write(
-                        format_line(
-                            [(t, float(row[j])) for j, t in enumerate(doc_terms)],
-                            self.config.round_decimals,
-                        )
-                        + "\n"
-                    )
-                if store is not None:
-                    store.add_doc_row(doc_terms, row)
-                count += 1
-                if count % log_every == 0:
-                    rate = count / (time.time() - start)
-                    logger.info(f"indexed {count} passages [{rate:.2f} passages/s]")
+            for batch in self._encode_batches(docs):
+                with annotate("index/write"):
+                    for doc_terms, row in batch:
+                        if out is not None:
+                            out.write(
+                                format_line(
+                                    [(t, float(row[j])) for j, t in enumerate(doc_terms)],
+                                    self.config.round_decimals,
+                                )
+                                + "\n"
+                            )
+                        if store is not None:
+                            store.add_doc_row(doc_terms, row)
+                        count += 1
+                        if count % log_every == 0:
+                            rate = count / (time.time() - start)
+                            logger.info(f"indexed {count} passages [{rate:.2f} passages/s]")
         return done + count
 
     def build_inverted(

@@ -26,7 +26,9 @@ Eager PyTorch materializes every intermediate, so the plain passes are
 written to stay at one bool [Q, N] temporary at a time: the plain count
 (``count_ge_plain``) takes one pass per threshold, and the greater/equal
 block counts are two passes instead of one packed sum.  The convergence
-test reads one bool per pass back to the host.
+test reads one bool per pass back to the host, each read inside the region
+``search/topk_sync`` (``core.profiling.annotate``): a trace counts the
+host syncs by those regions.
 
 Zero scores are never selected (s_k >= 1); rows with fewer than k positive
 docs pad with (score 0, doc 0) entries, which callers filter.
@@ -37,10 +39,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.profiling import annotate
 from .count_ge import count_ge, count_ge_plain
 
 _ARITY = 8  # thresholds per search pass + 1, as in the JAX package
 _BLOCK = 256  # selection block width: granularity of the rank-j gather
+
+
+def _searching(lo: torch.Tensor, hi: torch.Tensor) -> bool:
+    """The search's convergence test: a host sync, one a pass and one more
+    at the end."""
+    with annotate("search/topk_sync"):
+        return bool((lo < hi).any())
 
 
 def exact_topk_integer(scores: torch.Tensor, k: int, *, use_kernel=None):
@@ -72,7 +82,7 @@ def exact_topk_integer(scores: torch.Tensor, k: int, *, use_kernel=None):
     hi = scores.amax(dim=1, keepdim=True).clamp_min(1.0)
     frac = torch.arange(1, _ARITY, device=dev, dtype=torch.float32) / _ARITY
     inf = torch.tensor(float("inf"), device=dev)
-    while bool((lo < hi).any()):
+    while _searching(lo, hi):
         width = hi - lo + 1.0
         t = torch.minimum(lo + torch.ceil(frac[None, :] * width), hi)  # [Q, A-1]
         counts = count(scores, t)

@@ -56,6 +56,7 @@ import torch
 
 from ..core.config import SearchConfig
 from ..core.device import device_scope, resolve_device, resolve_use_kernels
+from ..core.profiling import annotate
 from ..index.inverted import InvertedIndexData
 from ..ops import gather_rows, scatter_scores
 from ..ops.exact_topk import _BLOCK, exact_topk_integer
@@ -203,7 +204,9 @@ def put_int32(a, device: torch.device) -> torch.Tensor:
 def topk_to_host(vals: torch.Tensor, idx: torch.Tensor, device: torch.device):
     """Start one host copy of a batch's top-k, [nq, 2, k] int32 (scores
     bit-cast), and return its zero-arg finalizer: per query, the (doc id,
-    score) pairs with score > 0.  Call it under ``device_scope(device)``."""
+    score) pairs with score > 0.  Call it under ``device_scope(device)``.
+    The finalizer's wait for the copy is the region ``search/result_wait``,
+    its building of the answers ``search/answers``."""
     packed = torch.stack([vals.view(torch.int32), idx], dim=1)
     if device.type == "cuda":
         host = packed.to("cpu", non_blocking=True)
@@ -213,16 +216,18 @@ def topk_to_host(vals: torch.Tensor, idx: torch.Tensor, device: torch.device):
         host, done = packed, None
 
     def finalize() -> List[List[Tuple[int, float]]]:
-        if done is not None:
-            done.synchronize()
-        h = host.numpy()
-        top_scores = h[:, 0].view(np.float32)
-        top_docs = h[:, 1]
-        n_pos = (top_scores > 0).sum(axis=1)  # scores descend: a prefix
-        return [
-            list(zip(top_docs[i, : n_pos[i]].tolist(), top_scores[i, : n_pos[i]].tolist()))
-            for i in range(len(h))
-        ]
+        with annotate("search/result_wait"):
+            if done is not None:
+                done.synchronize()
+        with annotate("search/answers"):
+            h = host.numpy()
+            top_scores = h[:, 0].view(np.float32)
+            top_docs = h[:, 1]
+            n_pos = (top_scores > 0).sum(axis=1)  # scores descend: a prefix
+            return [
+                list(zip(top_docs[i, : n_pos[i]].tolist(), top_scores[i, : n_pos[i]].tolist()))
+                for i in range(len(h))
+            ]
 
     return finalize
 
@@ -235,13 +240,15 @@ def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool,
     number of selection blocks the padding stays (its columns score 0, and
     zero is never selected), which spares a copy of the matrix.  Float
     scores: the padding is dropped and a stable descending sort takes the
-    first k, the lower doc id first among ties."""
-    if not integer_scores:
-        vals, idx = torch.sort(scores[:, :num_docs], dim=1, descending=True, stable=True)
-        return vals[:, :k], idx[:, :k].to(torch.int32)
-    if scores.shape[1] % _BLOCK:
-        scores = scores[:, :num_docs]
-    return exact_topk_integer(scores, k, use_kernel=use_kernel)
+    first k, the lower doc id first among ties.  The whole is the region
+    ``search/topk``; ``exact_topk_integer`` is looked up at call time."""
+    with annotate("search/topk"):
+        if not integer_scores:
+            vals, idx = torch.sort(scores[:, :num_docs], dim=1, descending=True, stable=True)
+            return vals[:, :k], idx[:, :k].to(torch.int32)
+        if scores.shape[1] % _BLOCK:
+            scores = scores[:, :num_docs]
+        return exact_topk_integer(scores, k, use_kernel=use_kernel)
 
 
 class HybridSearchEngine:
@@ -383,13 +390,14 @@ class HybridSearchEngine:
         (``gather_rows.group_pairs``, one upload), ``tail`` = the chunk
         table (starts, lengths, rows) of TAIL_CHUNK windows into
         ``doc_ids``/``impacts`` for ``apply_tail_chunks``; each is None when
-        no query term falls in that stage."""
-        heavy_q, heavy_rows, t_q, t_tid = split_terms(self.vocab, self.heavy_row_arr, query_term_sets)
-        heavy = None
-        if len(heavy_q):
-            table = gather_rows.group_pairs(heavy_q, heavy_rows, len(query_term_sets))
-            heavy = put_int32(table, self.device)
-        return heavy, self.tail_input(t_q, t_tid)
+        no query term falls in that stage.  The region ``search/stage_inputs``."""
+        with annotate("search/stage_inputs"):
+            heavy_q, heavy_rows, t_q, t_tid = split_terms(self.vocab, self.heavy_row_arr, query_term_sets)
+            heavy = None
+            if len(heavy_q):
+                table = gather_rows.group_pairs(heavy_q, heavy_rows, len(query_term_sets))
+                heavy = put_int32(table, self.device)
+            return heavy, self.tail_input(t_q, t_tid)
 
     def warmup(self, max_batch: int = 64, top_k: Optional[int] = None) -> int:
         """Load the kernels and score one batch of ``max_batch`` queries,

@@ -26,6 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from ..core.profiling import annotate
 from .normalize import PUNCTUATION, normalize, pretokenize
 from .wordpiece import WordPieceTokenizer, WordPieceVocab
 
@@ -68,6 +69,11 @@ class ImpactTokenizer:
 
     # -- query ------------------------------------------------------------
     def process_query(self, query: str) -> Set[str]:
+        """The query's terms: the region ``text/process_query``."""
+        with annotate("text/process_query"):
+            return self._query_terms(query)
+
+    def _query_terms(self, query: str) -> Set[str]:
         terms = self.segmenter(query)
         return {t for t in terms if t not in PUNCTUATION}
 
@@ -121,7 +127,8 @@ class ImpactTokenizer:
         """Returns (encoded document, bool mask over tokens marking the first
         tokens of document terms that appear in the query) -- the training
         target mask (reference xlmr_original.py:87-112)."""
-        query_terms = self.process_query(query)
+        # a training loader thread calls this: no region
+        query_terms = self._query_terms(query)
         encoded = self.process_document(document, max_length=max_length)
         mask = self.get_query_document_token_mask(
             query_terms, encoded.term_to_token_index, max_length or self.max_length

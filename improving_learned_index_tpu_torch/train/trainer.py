@@ -29,7 +29,7 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -155,6 +155,19 @@ def clip_by_global_norm_(
     return norm
 
 
+def _pulled(batches: Iterable[Dict[str, Any]]) -> Iterator[Dict[str, Any]]:
+    """``batches``, each pull in the region ``train/next_batch`` (the wait
+    on the loader)."""
+    it = iter(batches)
+    end = object()
+    while True:
+        with annotate("train/next_batch"):
+            batch = next(it, end)
+        if batch is end:
+            return
+        yield batch
+
+
 class Trainer:
     """Owns the optimizer/step/checkpoint lifecycle around the module."""
 
@@ -199,13 +212,14 @@ class Trainer:
     # -- device placement -------------------------------------------------------
     def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out = {}
-        for k, v in batch.items():
-            if k == "group_size":
-                continue  # metadata
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
+        with annotate("train/put_batch"):
+            for k, v in batch.items():
+                if k == "group_size":
+                    continue  # metadata
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
         return out
 
     # -- one micro-batch ----------------------------------------------------------
@@ -216,8 +230,9 @@ class Trainer:
             p.grad = None
         with annotate("train/forward"):
             loss = self.loss_fn(batch)
-        loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        with annotate("train/backward"):
+            loss.backward()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         loss = loss.detach()
         if self.world > 1:
             dist.all_reduce(loss)
@@ -297,59 +312,61 @@ class Trainer:
             accum_grads = None
             window = 0
 
-        for i, batch in enumerate(batches):
+        for i, batch in enumerate(_pulled(batches)):
             if i < skip:
                 continue
             if total_steps is not None and micro >= total_steps:
                 break
             loss, grad_norm, grads = self._grad_step(self._put_batch(batch))
-            loss_val = float(loss)
-            train_loss += loss_val
             micro += 1
-
-            stepped = False
-            if accum > 1:
-                grads = [g / accum for g in grads]
-                accum_grads = grads if accum_grads is None else [a + g for a, g in zip(accum_grads, grads)]
-                window += 1
-                if window == accum:
-                    apply_window()
+            # the step's end, from the loss's read (which waits for the step)
+            # to the metrics record; the optimizer's own region nests inside
+            with annotate("train/step_end"):
+                loss_val = float(loss)
+                train_loss += loss_val
+                stepped = False
+                if accum > 1:
+                    grads = [g / accum for g in grads]
+                    accum_grads = grads if accum_grads is None else [a + g for a, g in zip(accum_grads, grads)]
+                    window += 1
+                    if window == accum:
+                        apply_window()
+                        stepped = True
+                else:
+                    # the window is this micro-batch: its norm is the clip's norm
+                    self._apply_grads(grads, grad_norm)
                     stepped = True
-            else:
-                # the window is this micro-batch: its norm is the clip's norm
-                self._apply_grads(grads, grad_norm)
-                stepped = True
 
-            if writer and self.evaluator is not None and i % cfg.eval_every == 0:
-                # The eval is a full training stall; record its cost next to
-                # its results so operators can tune the cadence trade-off.
-                t_eval = time.time()
-                metrics = self.evaluator.evaluate_all(self.model)
-                eval_s = round(time.time() - t_eval, 2)
-                record = {"iteration": i, "metrics": metrics,
-                          "eval_stall_seconds": eval_s}
-                logger.info(f"eval at iteration {i} ({eval_s}s stall): {metrics}")
-                with open(self.checkpoint_dir / "metrics.txt", "a") as f:
-                    f.write(json.dumps(record, default=str) + "\n")
-                if self.metrics_logger is not None:
-                    self.metrics_logger.log(
-                        {"eval": metrics, "eval/stall_seconds": eval_s},
-                        step=self.manager.step,
-                    )
+                if writer and self.evaluator is not None and i % cfg.eval_every == 0:
+                    # The eval is a full training stall; record its cost next to
+                    # its results so operators can tune the cadence trade-off.
+                    t_eval = time.time()
+                    metrics = self.evaluator.evaluate_all(self.model)
+                    eval_s = round(time.time() - t_eval, 2)
+                    record = {"iteration": i, "metrics": metrics,
+                              "eval_stall_seconds": eval_s}
+                    logger.info(f"eval at iteration {i} ({eval_s}s stall): {metrics}")
+                    with open(self.checkpoint_dir / "metrics.txt", "a") as f:
+                        f.write(json.dumps(record, default=str) + "\n")
+                    if self.metrics_logger is not None:
+                        self.metrics_logger.log(
+                            {"eval": metrics, "eval/stall_seconds": eval_s},
+                            step=self.manager.step,
+                        )
 
-            if stepped:
-                self.manager.on_step(*self._state(), metric=loss_val)
-                if writer and self.metrics_logger is not None:
-                    self.metrics_logger.log(
-                        {
-                            "train/loss": loss_val,
-                            "train/avg_loss": train_loss / micro,
-                            "train/grad_norm": float(grad_norm),
-                            "train/lr": cfg.lr,
-                            "train/elapsed_s": time.time() - start,
-                        },
-                        step=self.manager.step,
-                    )
+                if stepped:
+                    self.manager.on_step(*self._state(), metric=loss_val)
+                    if writer and self.metrics_logger is not None:
+                        self.metrics_logger.log(
+                            {
+                                "train/loss": loss_val,
+                                "train/avg_loss": train_loss / micro,
+                                "train/grad_norm": float(grad_norm),
+                                "train/lr": cfg.lr,
+                                "train/elapsed_s": time.time() - start,
+                            },
+                            step=self.manager.step,
+                        )
             if micro % 50 == 0:
                 rate = micro / (time.time() - start)
                 logger.info(

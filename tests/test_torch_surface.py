@@ -32,6 +32,7 @@ FLAX_SETUP = "flax module plumbing: torch modules build their layers in __init__
 ORBAX = "core/async_checkpoint.py:AsyncCheckpointManager"
 MESH = "jax.sharding meshes: the port trains data-parallel, one process a card (parallel/distributed.py)"
 PALLAS_TILES = "Pallas tile geometry for TPU VMEM; the CUDA kernel sets its own tiles in csrc/"
+UNREAD = "read by nothing in the port; its benchmark reads the annotate regions in a torch.profiler trace"
 COUNTERPARTS = {
     # flax-only plumbing
     "cli/common.py:enable_compilation_cache": "JAX's persistent XLA compile cache; torch has no such cache",
@@ -93,6 +94,13 @@ COUNTERPARTS = {
     "search/hybrid_engine.py:partitioned_chunk_table": "the opt-in tail_partitioned route, which lost its own A/B",
     "search/hybrid_engine.py:HybridSearchEngine.recommend_tail_partitioned":
         "the opt-in tail_partitioned route, which lost its own A/B",
+    "core/profiling.py:ScheduledTracer": UNREAD,
+    "core/profiling.py:ScheduledTracer.step": UNREAD,
+    "core/profiling.py:ScheduledTracer.close": UNREAD,
+    "core/profiling.py:ThroughputMeter": UNREAD,
+    "core/profiling.py:ThroughputMeter.update": UNREAD,
+    "core/profiling.py:ThroughputMeter.rate": UNREAD,
+    "core/profiling.py:ThroughputMeter.log": UNREAD,
 }
 
 
