@@ -19,9 +19,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.
-2. Build: the six CUDA kernels (``gather_rows``, ``scatter_scores``,
-   ``short_attention``, ``count_ge``, ``blocked_scoring``,
-   ``flash_attention``) from ``csrc/``,
+2. Build: the seven CUDA kernel sources (``gather_rows``,
+   ``scatter_scores``, ``short_attention``, ``count_ge``,
+   ``blocked_scoring``, ``flash_attention``, ``topk_select``) from ``csrc/``,
    one ``nvcc`` per source, started together, and the native C++ engine
    (``g++``).
 3. Query set-up, then the query kernels against their plain versions: a
@@ -37,13 +37,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
    entry, which the engines call, and its flat entry, whose time the row
    gives, with the tail stage's time by route),
    ``count_ge`` on the batch's score matrix with its first-pass thresholds,
-   and the blocked kernel on the batch's tables in a ``PallasBlockedEngine``
+   ``topk_select`` (the top-k's value histogram, k-th scores and block
+   counts) on the same matrix at k=1000, and the top-k's histogram route
+   against its plain version and the n-ary route (values and doc ids,
+   boundary ties in doc-id order; ms beside two reads of the matrix,
+   ``torch.topk`` the library yardstick), and the blocked kernel on the batch's tables in a ``PallasBlockedEngine``
    over the same index.  Kernel, plain and library-call times (CUDA events)
    are printed beside the least time the card could take.
 4. Query main path: ``cli.rank.main`` ranks every query (k=1000) on the
    card, with the kernels' launch counts set to 0 just before and read just
-   after (``gather_rows``, ``scatter_scores`` and ``count_ge`` must have
-   launched).  Every query has one planted relevant doc holding all its
+   after (``gather_rows``, ``scatter_scores`` and ``topk_select`` must have
+   launched, ``count_ge`` not: each batch's score bound takes the top-k's
+   histogram route).  Every query has one planted relevant doc holding all its
    terms at impact 255, so MRR@10 must be ~1; four sampled queries must
    match an independent numpy scorer rank by rank; ``score_stream``
    (depth 2) over 64-query batches must reproduce the run file and gives
@@ -54,7 +59,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    queries must write the hybrid run file's rows for them byte for byte; ``PallasBlockedEngine.score_batch``
    over two 64-query batches must return the hybrid rows rank by rank, with
    its counts set to 0 just before (the blocked kernel and ``count_ge`` must
-   have launched), and gives its q/s.
+   have launched: this engine hands the top-k no bound, so its n-ary search
+   runs, the real path that keeps ``count_ge`` checked), and gives its q/s.
 6. Encode set-up, then ``short_attention`` against its plain version: a
    seeded synthetic corpus of 32,768 passages (Zipf words from a generated
    word list, ~60 words a passage, some past 256 tokens) and its
@@ -191,7 +197,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    rank by rank; q/s, p50/p99 latency, each shard's batches and each
    daemon's card memory (nvidia-smi) printed; ``{"op": "shutdown"}``
    stops each process with exit code 0.  One card stands in for four hosts
-   here.  ``gather_rows``, ``scatter_scores`` and ``count_ge`` are then
+   here.  ``gather_rows``, ``scatter_scores``, ``count_ge`` and
+   ``topk_select`` are then
    held against their plain versions (exactly) on a served batch of 8 at
    a shard daemon's shape (shard 0's engine built in this process as
    ``cli.serve`` builds it).  Then one ``RetrievalServer`` in process over phase 3's index on
@@ -201,7 +208,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    filtered rows (counted), then the first 64 again with the filtered rows;
    ``torch.cuda.max_memory_allocated`` across the swap within the larger of
    the first build's peak and the serving peak; ``gather_rows``,
-   ``scatter_scores`` and ``count_ge`` must have launched, and equal their
+   ``scatter_scores`` and ``topk_select`` must have launched, and equal their
    plain versions on a served batch of 8 on the server's engine after the
    swap.  The rate before the swap began and after it returned printed
    apart.  Every step's seconds printed.
@@ -212,9 +219,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    memory (torch's counters).  Launch counts set to 0 just before
    ``score_stream`` (depth 2) scores phase 4's 512 queries (k=1000,
    64-query batches) and read just after: every answer equals phase 4's
-   run file rank by rank, ``gather_rows`` and ``scatter_scores`` launch
-   once a shard a batch, ``count_ge`` for each shard's search passes; its
-   q/s beside phase 4's and its peak memory.  The three query kernels
+   run file rank by rank, ``gather_rows``, ``scatter_scores`` and the
+   top-k's histogram launch once a shard a batch, ``count_ge`` never; its
+   q/s beside phase 4's and its peak memory.  The four query kernels
    against their plain versions (exactly) on the first batch's inputs to
    shard 0, at a shard's shape [64, 2,228,224].  Then the data-parallel
    encode: phase 6's corpus again from its seed, BERT-base from phase 7's
@@ -244,7 +251,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    read back equal; ``cli.index --checkpoint`` on it (768 launches, text
    and store outputs) and on the ``.pt``: byte-equal forward indexes, then
    ``cli.quantize``, ``cli.invert`` and ``cli.rank`` (``gather_rows``,
-   ``scatter_scores`` and ``count_ge`` must launch) with byte-equal
+   ``scatter_scores`` and ``topk_select`` must launch) with byte-equal
    indexes and runs; ``cli.convert_to_anserini`` on the text and the store
    gives 32,768 equal JSONL lines.  (4) ``extract_term_pair_attention``
    over 64 passages: every pair the max of both directions of the
@@ -298,7 +305,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    gated-GELU d_ff 2048, vocabulary 250,112, an untied fp32 head; seeded
    fp32 weights made on the card) with a T5-style word tokenizer of phase
    15's 31,996 words.  The T5 route reaches no kernel: the counts of the
-   six are set to 0 when the phase starts and must read 0 at its end.  (1)
+   seven are set to 0 when the phase starts and must read 0 at its end.  (1)
    ``T5QueryGenerator`` at the JAX CLI's defaults (80 sequences, 50 new
    tokens, top-k 50, top-p 0.95, documents within 350 tokens) for 2
    batches of 4 passages (320 decoder rows) with the fp32 tree and its int8
@@ -328,18 +335,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``examples/index_lifecycle_torch.py`` (store, quantize, invert, an
    incremental merge, a deletion, a router over two shard daemons against
    one engine, the serving daemon over ``build_engine(engine="auto")``),
-   each in process with ``--device cuda``, the counts of the six kernels
-   set to 0 just before and read just after: ``count_ge`` must have
-   launched in each; their seconds.
+   each in process with ``--device cuda``, the counts of the seven kernels
+   set to 0 just before and read just after: the exact top-k must have run
+   on the card in each (``topk_select`` in the quickstart's hybrid engine,
+   ``count_ge`` in the lifecycle's device engine); their seconds.
 
-The second-to-last line is the ``kernels`` JSON object (six rows; each
+The second-to-last line is the ``kernels`` JSON object (seven rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
 ``cli.index``, ``cli.train``, ``cli.nano_beir``, ``cli.train`` with eval,
 ``cli.rerank``, ``cli.train --cross_encoder``, ``cli.cross_encoder_rerank``,
 the pairwise routes (0), ``cli.index --store_path`` and its resume;
 ``gather_rows`` over ``cli.rank``, ``cli.nano_beir``'s fp32 rows and the
-in-process ``RetrievalServer``; ``scatter_scores`` and ``count_ge`` over
-their paths and that server too; the shard daemons' launches happen in
+in-process ``RetrievalServer``; ``scatter_scores`` and ``topk_select`` over
+their paths and that server too, ``count_ge`` over ``PallasBlockedEngine``
+and the walkthroughs; the shard daemons' launches happen in
 processes of their own and are not counted; phase 13's sharded engine and
 data-parallel encode add a path each, phase 14 its trainer, its
 ``cli.index`` routes, its term pairs (0) and its ``cli.rank``; row 6,
@@ -791,6 +800,61 @@ def count_row(scores):
     }
 
 
+def topk_row(scores, k: int = 1000):
+    """``topk_select`` against its plain versions on one batch's score
+    matrix (histogram and block maxima, k-th scores, block counts with and
+    without the maxima), and the top-k's histogram route against its plain
+    version and the n-ary route: values and doc ids, exactly.  ``ms`` is the
+    whole histogram route (its three kernels and the selection rank's
+    PyTorch steps), beside two reads of the matrix."""
+    from improving_learned_index_tpu_torch.ops import topk_select as tks
+    from improving_learned_index_tpu_torch.ops.exact_topk import exact_topk_integer
+
+    q, n = scores.shape
+    bound = tks.BINS - 1
+    hist, block_max = tks.value_histogram(scores)
+    want_hist, want_max = tks.value_histogram_plain(scores)
+    s_k = tks.kth_scores(hist, k)
+    want_counts = tks.block_counts_plain(scores, s_k)
+    got = exact_topk_integer(scores, k, max_score=bound)
+    routes = {"plain": exact_topk_integer(scores, k, max_score=bound, use_kernel=False),
+              "nary": exact_topk_integer(scores, k)}
+    torch.cuda.synchronize()
+    checks = {
+        "histogram": torch.equal(hist, want_hist) and torch.equal(block_max, want_max),
+        "kth_scores": torch.equal(s_k, tks.kth_scores_plain(want_hist, k)),
+        "block_counts": all(torch.equal(a, b) for a, b in zip(tks.block_counts(scores, s_k, block_max), want_counts)),
+        "block_counts_unskipped": all(torch.equal(a, b) for a, b in zip(tks.block_counts(scores, s_k), want_counts)),
+        **{f"route_vs_{name}": torch.equal(got[0], v) and torch.equal(got[1], i) for name, (v, i) in routes.items()},
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"topk_select kernels != plain: {checks}")
+    del want_hist, want_max, want_counts, routes
+    b, by = bound_ms(2 * q * n * 4, q * n)
+    return {
+        "name": "topk_select",
+        "route": "cuda",
+        "source": "improving_learned_index_tpu_torch/csrc/topk_select.cu",
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX top-k leaves its selection to XLA "
+                         "(improving_learned_index_tpu/ops/exact_topk.py)",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: exact_topk_integer(scores, k, max_score=bound)),
+        "kernels_ms": {"value_histogram": cuda_ms(lambda: tks.value_histogram(scores)),
+                       "kth_scores": cuda_ms(lambda: tks.kth_scores(hist, k)),
+                       "block_counts": cuda_ms(lambda: tks.block_counts(scores, s_k, block_max))},
+        "plain_ms": cuda_ms(lambda: exact_topk_integer(scores, k, max_score=bound, use_kernel=False),
+                            iters=3, warmup=1),
+        "nary_ms": cuda_ms(lambda: exact_topk_integer(scores, k)),
+        "bound_ms": b,
+        "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1)),
+        "library_note": "torch.topk over the rows (its ties in no stated order; the port never calls it)",
+        "blocks_read": float((block_max >= s_k).float().mean()),
+        "shape": {"scores": [q, n], "k": k},
+    }
+
+
 def flat_postings(args):
     """The postings the blocked kernel adds, as (linear score index int32,
     impact fp32) pairs: the library call's input."""
@@ -933,13 +997,14 @@ def all_kernels():
     from improving_learned_index_tpu_torch.ops import (
         gather_rows, pallas_scoring, scatter_scores, short_attention,
     )
+    from improving_learned_index_tpu_torch.ops import topk_select
     from improving_learned_index_tpu_torch.ops.count_ge import KERNEL as COUNT_GE
 
     return [gather_rows.KERNEL, scatter_scores.KERNEL, short_attention.KERNEL, COUNT_GE,
-            pallas_scoring.KERNEL]
+            pallas_scoring.KERNEL, topk_select.KERNEL]
 
 
-def six_kernels():
+def card_kernels():
     from improving_learned_index_tpu_torch.ops import flash_attention
 
     return all_kernels() + [flash_attention.KERNEL]
@@ -950,7 +1015,7 @@ def build_kernels() -> None:
     from improving_learned_index_tpu_torch.search import native
 
     log("== phase 2: build kernels and the native engine")
-    kernels = six_kernels()
+    kernels = card_kernels()
     t0 = time.perf_counter()
     _kernels.build(kernels)
     for k in kernels:
@@ -1009,6 +1074,7 @@ def run_query(cfg, workdir: Path) -> dict:
     s_row, scores = scatter_row(engine, base, tail)
     del base, heavy, tail
     c_row = count_row(scores)
+    t_row = topk_row(scores)
     del scores
     t0 = time.perf_counter()
     blocked = PallasBlockedEngine(InvertedIndexData.load(index_dir), device=dev)
@@ -1017,7 +1083,7 @@ def run_query(cfg, workdir: Path) -> dict:
         f"built in {time.perf_counter() - t0:.1f} s")
     b_row = blocked_row(blocked, batches[0])
     torch.cuda.empty_cache()
-    for row in (g_row, s_row, c_row, b_row):
+    for row in (g_row, s_row, c_row, b_row, t_row):
         log(f"{row['name']}: equal to plain; {json.dumps(row)}")
     log(f"scatter_scores: {s_row['ms']:.4f} ms; {SCATTER_EARLIER_MS} ms before the chunk "
         "entry, at this shape (NVIDIA H100 80GB HBM3, 700 W)")
@@ -1037,10 +1103,12 @@ def run_query(cfg, workdir: Path) -> dict:
     launches = {k.name: k.launches for k in kernels}
     log(f"cli.rank: {n_queries} queries in {time.perf_counter() - t0:.1f} s "
         f"(index load and engine build included); launches {launches}")
-    for row in (g_row, s_row, c_row):
+    for row in (g_row, s_row, t_row):
         if launches[row["name"]] == 0:
             raise AssertionError(f"query main path never launched {row['name']}")
         row["launches"] = launches[row["name"]]
+    if launches["count_ge"]:
+        raise AssertionError(f"query main path took the n-ary top-k: count_ge launched {launches['count_ge']} times")
 
     metrics = Metrics(run_file, qrels).evaluate()
     log(f"metrics: {json.dumps(metrics)}")
@@ -1080,8 +1148,9 @@ def run_query(cfg, workdir: Path) -> dict:
     torch.cuda.empty_cache()
 
     others = run_other_engines(cfg, workdir, index_dir, vocab, qtext, batches, ranked, blocked, b_row)
+    c_row["launches"] = others["blocked"]["launches"]["count_ge"]  # the n-ary route's real path
     return {
-        "kernels": [g_row, s_row, c_row, b_row],
+        "kernels": [g_row, s_row, c_row, b_row, t_row],
         "mrr10": metrics["MRR@10"],
         "qps": qps,
         "other_engines": others,
@@ -2906,9 +2975,10 @@ def served_batch_rows(engine, sets: list, what: str) -> list:
     s_row, scores = scatter_row(engine, base, tail)
     del base, heavy, tail
     c_row = count_row(scores)
+    t_row = topk_row(scores)
     del scores
-    rows = [g_row, s_row, c_row]
-    log(f"{what}: a served batch of {nq}, n_pad {engine.n_pad}: gather_rows, scatter_scores and count_ge "
+    rows = [g_row, s_row, c_row, t_row]
+    log(f"{what}: a served batch of {nq}, n_pad {engine.n_pad}: gather_rows, scatter_scores, count_ge and topk_select "
         f"equal to plain; " + json.dumps({r["name"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                                                     "max_abs_err": r["max_abs_err"], "shape": r["shape"]}
                                          for r in rows}))
@@ -3212,7 +3282,7 @@ def run_lifecycle(cfg, workdir: Path, inputs) -> dict:
             srv.engine, term_sets, "the in-process server's engine")
     finally:
         srv.stop()
-    for name in ("gather_rows", "scatter_scores", "count_ge"):
+    for name in ("gather_rows", "scatter_scores", "topk_select"):
         if launches[name] == 0:
             raise AssertionError(f"RetrievalServer never launched {name}")
     limit = max(build_peak, swap["serve_peak"])
@@ -3256,6 +3326,7 @@ def run_multidevice(cfg, workdir: Path, inputs, query_qps: float) -> dict:
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
     from improving_learned_index_tpu_torch.models.deep_impact import part_bounds
     from improving_learned_index_tpu_torch.ops import short_attention as sa
+    from improving_learned_index_tpu_torch.ops import topk_select
     from improving_learned_index_tpu_torch.parallel import dryrun_multidevice
     from improving_learned_index_tpu_torch.search import ShardedSearchEngine
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, SequencePacker, WordPieceVocab
@@ -3313,9 +3384,10 @@ def run_multidevice(cfg, workdir: Path, inputs, query_qps: float) -> dict:
     for name in ("gather_rows", "scatter_scores"):
         if launches[name] != per_batch:
             raise AssertionError(f"sharded engine: {name} launched {launches[name]} times, want {per_batch}")
-    if launches["count_ge"] < per_batch:
-        raise AssertionError(f"sharded engine: count_ge launched {launches['count_ge']} times, "
-                             f"fewer than one search pass a shard a batch")
+    histograms = topk_select.KERNEL.calls.get("ili_topk_histogram", 0)
+    if histograms != per_batch or launches["count_ge"]:
+        raise AssertionError(f"sharded engine: {histograms} top-k histograms and {launches['count_ge']} "
+                             f"count_ge launches, want {per_batch} and 0")
     qps = len(inputs.qtext) / dt
     log(f"sharded: all {len(inputs.qtext)} answers equal phase 4's run file rank by rank; pipelined "
         f"{qps:.1f} q/s (phase 4's hybrid engine in this run: {query_qps:.1f} q/s), k={cfg.k}, "
@@ -3331,8 +3403,9 @@ def run_multidevice(cfg, workdir: Path, inputs, query_qps: float) -> dict:
     s_row, scores = scatter_row(shard0, base_scores, tail)
     del base_scores, heavy, tail
     c_row = count_row(scores)
+    t_row = topk_row(scores, cfg.k)
     del scores
-    shard_rows = [g_row, s_row, c_row]
+    shard_rows = [g_row, s_row, c_row, t_row]
     for row in shard_rows:
         log(f"{row['name']} at a shard's shape: equal to plain; ms {row['ms']:.4f}, plain "
             f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}); {json.dumps(row['shape'])}")
@@ -3954,7 +4027,7 @@ def remainder_checks(cfg, workdir: Path, texts: list, gated: list, t_phase: floa
     same_index_files(r_mp / "index", r_pt / "index", "msgpack route vs .pt route")
     if not files_equal(r_mp / "run.tsv", r_pt / "run.tsv"):
         raise AssertionError("cli.rank over the msgpack-built index wrote another run than the .pt route's")
-    for name in ("gather_rows", "scatter_scores", "count_ge"):
+    for name in ("gather_rows", "scatter_scores", "topk_select"):
         if routes["msgpack"][name] == 0:
             raise AssertionError(f"cli.rank (msgpack route): {name} never launched")
     ranked = {}
@@ -5115,7 +5188,7 @@ def run_t5(cfg, workdir: Path) -> dict:
     log("== phase 16: the T5/mT5 route at mT5-base width (generation, greedy, card vs CPU, cli.expand --t5), "
         "cli.expand_precomputed")
     t_phase = time.perf_counter()
-    for k in six_kernels():
+    for k in card_kernels():
         k.calls.clear()
     words = word_tokenizer(workdir, 32000).words
     tok = T5WordTokenizer(words)
@@ -5147,7 +5220,7 @@ def run_t5(cfg, workdir: Path) -> dict:
         t0 = time.perf_counter()
         parts[name] = fn()
         seconds[name] = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in six_kernels()}
+    launches = {k.name: k.launches for k in card_kernels()}
     if any(launches.values()):
         raise AssertionError(f"the T5 route launched kernels: {launches}")
     seconds["phase"] = time.perf_counter() - t_phase
@@ -5163,16 +5236,17 @@ WALKTHROUGHS = ("quickstart_torch.py", "index_lifecycle_torch.py")
 def run_walkthroughs(cfg, workdir: Path) -> dict:
     """Phase 17: the port's two walkthroughs (``examples/``), in process as a
     user runs them, with ``--device`` and a work directory of their own.
-    The counts of the six kernels are set to 0 just before each and read
-    just after; ``count_ge`` must have launched in each (quickstart step 6
-    and the lifecycle's served engine run the exact top-k's search passes).
+    The counts of the seven kernels are set to 0 just before each and read
+    just after; the exact top-k must have run on the card in each
+    (quickstart step 6's hybrid engine takes ``topk_select``, the
+    lifecycle's served device engine ``count_ge``).
     Each walkthrough checks its own results (the hybrid engine against the
     host engine; the router over the shard daemons against one engine)."""
     import runpy
 
     log("== phase 17: the walkthroughs (examples/quickstart_torch.py, examples/index_lifecycle_torch.py)")
     t_phase = time.perf_counter()
-    kernels = six_kernels()
+    kernels = card_kernels()
     out = {"seconds": {}, "launches": {}}
     for name in WALKTHROUGHS:
         main_fn = runpy.run_path(str(REPO / "examples" / name))["main"]
@@ -5185,8 +5259,8 @@ def run_walkthroughs(cfg, workdir: Path) -> dict:
         out["launches"][name] = launches = {k.name: k.launches for k in kernels}
         if rc != 0:
             raise AssertionError(f"{name} returned {rc}")
-        if launches["count_ge"] == 0:
-            raise AssertionError(f"{name}: count_ge launched 0 times")
+        if launches["count_ge"] + launches["topk_select"] == 0:
+            raise AssertionError(f"{name}: neither top-k kernel launched")
         log(f"{name}: {out['seconds'][name]:.2f} s, launches {json.dumps(launches)}")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 17 in {out['phase_s']:.1f} s")
@@ -5250,7 +5324,7 @@ def main() -> int:
     finally:
         for d in (qdir, workdir):
             shutil.rmtree(d, ignore_errors=True)
-    g_row, s_row, c_row, b_row = query["kernels"]
+    g_row, s_row, c_row, b_row, t_row = query["kernels"]
     nano_beir, train_eval = evaluation["main_path"]["launches"], evaluation["train_eval"]["launches"]
     a_row = encode["row"]
     a_row["launches_by_path"] = {"cli.index": a_row["launches"], "cli.train": train["launches"],
@@ -5272,13 +5346,17 @@ def main() -> int:
                                  "RetrievalServer (in-process)": served["gather_rows"],
                                  "ShardedSearchEngine (4 shards)": sharded["gather_rows"],
                                  "cli.rank (msgpack-built index)": rem["gather_rows"]}
-    c_row["launches_by_path"] = {"cli.rank": c_row["launches"],
+    c_row["launches_by_path"] = {"PallasBlockedEngine": c_row["launches"],
                                  "RetrievalServer (in-process)": served["count_ge"],
                                  "ShardedSearchEngine (4 shards)": sharded["count_ge"],
                                  "cli.rank (msgpack-built index)": rem["count_ge"]}
+    t_row["launches_by_path"] = {"cli.rank": t_row["launches"],
+                                 "RetrievalServer (in-process)": served["topk_select"],
+                                 "ShardedSearchEngine (4 shards)": sharded["topk_select"],
+                                 "cli.rank (msgpack-built index)": rem["topk_select"]}
     b_row["launches_by_path"] = {"PallasBlockedEngine": b_row["launches"]}
     f_row = expansion.pop("row")
-    for row in (g_row, s_row, a_row, c_row, b_row, f_row):
+    for row in (g_row, s_row, a_row, c_row, b_row, f_row, t_row):
         for name, counts in walkthroughs["launches"].items():
             row["launches_by_path"][name] = counts[row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
@@ -5294,7 +5372,7 @@ def main() -> int:
     log(json.dumps({"expansion": expansion}))
     log(json.dumps({"t5": t5}))
     log(json.dumps({"walkthroughs": walkthroughs}))
-    print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row, f_row]}))
+    print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row, f_row, t_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,34 +1,43 @@
 """Exact top-k for integer-valued score rows, without a full sort.
 
-Counterpart of ``improving_learned_index_tpu/ops/exact_topk.py``.  The
-search passes count through ``ops.count_ge`` (on the card its hand-written
-kernel, all thresholds of a pass in one read of the row; the JAX package
-keeps its Pallas count opt-in).  The rest is plain PyTorch, as the JAX
-package leaves it to XLA.  Impact scores are sums of 8-bit quantized
-impacts, i.e. exact small integers, which admits an exact selection in a
-few bandwidth passes:
+Counterpart of ``improving_learned_index_tpu/ops/exact_topk.py``.  Impact
+scores are sums of 8-bit quantized impacts, i.e. exact small integers,
+which admits an exact selection in a few bandwidth passes:
 
 1. per row, find the k-th score value ``s_k`` (the largest s with
-   |{score >= s}| >= k) by n-ary search, ``_ARITY - 1`` thresholds per pass,
-   until every row has converged;
+   |{score >= s}| >= k).  Two routes, chosen by what the caller can vouch
+   for:
+
+   - **histogram** (``max_score`` given and below ``topk_select.BINS``):
+     one value histogram a row and a scan of it, on the card
+     (``ops.topk_select``), with no host read;
+   - **n-ary search** (otherwise; the JAX package's route): ``_ARITY - 1``
+     thresholds a pass, counted by ``ops.count_ge`` (on the card its
+     hand-written kernel, all thresholds of a pass in one read of the row),
+     until every row has converged.  The convergence test reads one bool a
+     pass back to the host, each read inside the region
+     ``search/topk_sync`` (``core.profiling.annotate``): a trace counts the
+     host syncs by those regions;
+
 2. the selected set is every doc with score > s_k, plus the first (k - m)
    docs with score == s_k in doc-id order (the reference heapq.nlargest also
    picks a subset of boundary ties, inverted_index.py:62).  Both collapse
    into one non-decreasing selection rank ``sel(i)``; the j-th selected doc
    is the first position where sel >= j;
-3. ``sel`` is never built at full width: per-256-doc-block counts, a tiny
-   [Q, N/256] scan, a batched searchsorted for each rank's owning block, and
-   a local scan inside the gathered [Q, k, 256] blocks;
+3. ``sel`` is never built at full width: per-256-doc-block int32 counts
+   (``topk_select.block_counts``; after the histogram it reads only the
+   blocks whose maximum reaches s_k), a tiny [Q, N/256] scan, a batched
+   searchsorted for each rank's owning block, and a local scan inside the
+   gathered [Q, k, 256] blocks;
 4. a stable descending sort of the [Q, k] candidates orders them by score,
    so boundary ties stay in doc-id order.
 
-Eager PyTorch materializes every intermediate, so the plain passes are
-written to stay at one bool [Q, N] temporary at a time: the plain count
-(``count_ge_plain``) takes one pass per threshold, and the greater/equal
-block counts are two passes instead of one packed sum.  The convergence
-test reads one bool per pass back to the host, each read inside the region
-``search/topk_sync`` (``core.profiling.annotate``): a trace counts the
-host syncs by those regions.
+Both routes give the same ``s_k``, so the same answer byte for byte.  Of
+the plain versions (the CPU's, and the card's with ``use_kernel=False``),
+the search's count and the block counts stay at one bool [Q, N] temporary
+at a time: the plain count (``count_ge_plain``) takes one pass per
+threshold, and the greater/equal block counts are two passes instead of
+one packed sum.
 
 Zero scores are never selected (s_k >= 1); rows with fewer than k positive
 docs pad with (score 0, doc 0) entries, which callers filter.
@@ -37,13 +46,13 @@ docs pad with (score 0, doc 0) entries, which callers filter.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..core.profiling import annotate
+from . import topk_select
 from .count_ge import count_ge, count_ge_plain
+from .topk_select import BINS, BLOCK as _BLOCK
 
 _ARITY = 8  # thresholds per search pass + 1, as in the JAX package
-_BLOCK = 256  # selection block width: granularity of the rank-j gather
 
 
 def _searching(lo: torch.Tensor, hi: torch.Tensor) -> bool:
@@ -53,31 +62,10 @@ def _searching(lo: torch.Tensor, hi: torch.Tensor) -> bool:
         return bool((lo < hi).any())
 
 
-def exact_topk_integer(scores: torch.Tensor, k: int, *, use_kernel=None):
-    """Exact top-k over integer-valued non-negative fp32 scores.
-
-    Args:
-        scores: [Q, N] float32, integer-valued, >= 0.
-        k: number of results per row.
-        use_kernel: count the search passes with the ``count_ge`` kernel.
-            None: the kernel on CUDA, the plain count on the CPU; False on
-            the card runs the plain count, for cross-checks only; True on
-            the CPU raises.
-    Returns:
-        (values [Q, min(k, N)] float32 desc-sorted with ties in doc-id
-        order, indices [Q, min(k, N)] int32).  Rows with fewer than k
-        positive scores pad with value 0 and index 0.
-    """
-    q, n = scores.shape
-    k = min(k, n)
-    dev = scores.device
-    if use_kernel is None:
-        use_kernel = dev.type == "cuda"
-    if use_kernel and dev.type != "cuda":
-        raise ValueError("use_kernel=True needs CUDA tensors")
-    count = count_ge if use_kernel else count_ge_plain
-
-    # -- 1. n-ary search for s_k per row over [1, row_max] ---------------------
+def _search(scores: torch.Tensor, k: int, count) -> torch.Tensor:
+    """The n-ary search for each row's s_k over [1, row_max],
+    [Q, 1] fp32; if a row has < k positives, its s_k is 1."""
+    q, dev = scores.shape[0], scores.device
     lo = torch.ones(q, 1, device=dev)
     hi = scores.amax(dim=1, keepdim=True).clamp_min(1.0)
     frac = torch.arange(1, _ARITY, device=dev, dtype=torch.float32) / _ARITY
@@ -90,29 +78,69 @@ def exact_topk_integer(scores: torch.Tensor, k: int, *, use_kernel=None):
         new_lo = torch.where(ok, t, lo).amax(dim=1, keepdim=True)
         new_hi = torch.minimum(torch.where(ok, inf, t).amin(dim=1, keepdim=True) - 1.0, hi)
         lo, hi = new_lo, new_hi
-    s_k = lo  # [Q, 1]; if the row has < k positives, s_k == 1
+    return lo
 
-    # -- 2. block-level selection-rank table -----------------------------------
-    nb = -(-n // _BLOCK)
-    blocks = F.pad(scores, (0, nb * _BLOCK - n)).view(q, nb, _BLOCK)
+
+def exact_topk_integer(scores: torch.Tensor, k: int, *, use_kernel=None, max_score=None):
+    """Exact top-k over integer-valued non-negative fp32 scores.
+
+    Args:
+        scores: [Q, N] float32, integer-valued, >= 0.
+        k: number of results per row.
+        use_kernel: run the hand-written kernels (``count_ge``,
+            ``topk_select``).  None: the kernels on CUDA, the plain versions
+            on the CPU; False on the card runs the plain versions, for
+            cross-checks only; True on the CPU raises.
+        max_score: a bound the caller guarantees on every score, or None.
+            Below ``topk_select.BINS`` the k-th scores come from a value
+            histogram with no host read; otherwise from the n-ary search.
+    Returns:
+        (values [Q, min(k, N)] float32 desc-sorted with ties in doc-id
+        order, indices [Q, min(k, N)] int32).  Rows with fewer than k
+        positive scores pad with value 0 and index 0.
+    """
+    q, n = scores.shape
+    k = min(k, n)
+    dev = scores.device
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
+    if use_kernel and dev.type != "cuda":
+        raise ValueError("use_kernel=True needs CUDA tensors")
+
+    # -- 1. the k-th score s_k of each row, [Q, 1] -----------------------------
+    if max_score is not None and max_score < BINS:
+        if use_kernel:
+            hist, block_max = topk_select.value_histogram(scores)
+            s_k = topk_select.kth_scores(hist, k)
+        else:
+            hist, block_max = topk_select.value_histogram_plain(scores)
+            s_k = topk_select.kth_scores_plain(hist, k)
+    else:
+        s_k, block_max = _search(scores, k, count_ge if use_kernel else count_ge_plain), None
+
+    # -- 2. block-level selection-rank table (int32) ---------------------------
+    counts = topk_select.block_counts if use_kernel else topk_select.block_counts_plain
+    blk_hi, blk_eq = counts(scores, s_k, block_max)  # [Q, nb]
+    nb = blk_hi.shape[1]
     s_k3 = s_k[:, :, None]
-    blk_hi = (blocks > s_k3).sum(dim=2)  # [Q, nb] int64
-    blk_eq = (blocks == s_k3).sum(dim=2)
-    cum_hi = blk_hi.cumsum(dim=1)
-    cum_eq = blk_eq.cumsum(dim=1)
+    cum_hi = blk_hi.cumsum(dim=1, dtype=torch.int32)
+    cum_eq = blk_eq.cumsum(dim=1, dtype=torch.int32)
     m = cum_hi[:, -1:]  # sure-selections per row (< k by construction)
     cap = (k - m).clamp_min(0)  # boundary-tie quota
     sel_end = cum_hi + torch.minimum(cum_eq, cap)  # sel at each block's last doc
     total = sel_end[:, -1:]  # min(k, positives at or above s_k)
 
     # -- 3. rank j -> owning block -> exact position ---------------------------
-    targets = torch.arange(1, k + 1, device=dev).expand(q, k).contiguous()
+    targets = torch.arange(1, k + 1, device=dev, dtype=torch.int32).expand(q, k).contiguous()
     blk = torch.searchsorted(sel_end, targets).clamp_max(nb - 1)  # [Q, k]
     pre_hi = torch.gather(cum_hi - blk_hi, 1, blk)
     pre_eq = torch.gather(cum_eq - blk_eq, 1, blk)
-    seg = blocks[torch.arange(q, device=dev)[:, None], blk]  # [Q, k, BLOCK]
-    local_hi = (seg > s_k3).cumsum(dim=2)
-    local_eq = (seg == s_k3).cumsum(dim=2)
+    cols = blk[:, :, None] * _BLOCK + torch.arange(_BLOCK, device=dev)  # [Q, k, BLOCK]
+    seg = torch.gather(scores, 1, cols.view(q, -1).clamp_max(n - 1)).view(q, k, _BLOCK)
+    if n % _BLOCK:  # the ragged last block's columns past n score 0
+        seg = torch.where(cols < n, seg, 0.0)
+    local_hi = (seg > s_k3).cumsum(dim=2, dtype=torch.int32)
+    local_eq = (seg == s_k3).cumsum(dim=2, dtype=torch.int32)
     sel_local = (
         pre_hi[:, :, None]
         + local_hi

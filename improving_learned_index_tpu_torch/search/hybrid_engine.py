@@ -15,8 +15,12 @@ replacement for the reference's per-query Python postings loop
   posting ranges goes to the card, and ``ops.scatter_scores.apply_tail_chunks``
   reads it and the tail postings in place and adds them into the score
   matrix.
-- **Exact top-k without sorting** (``ops.exact_topk``, its search passes
-  counted by ``ops.count_ge``): boundary ties resolve in doc-id order.
+- **Exact top-k without sorting** (``ops.exact_topk``): boundary ties
+  resolve in doc-id order.  Each batch hands it a bound on its scores
+  (``score_bound``: the most one term adds to one doc, times the longest
+  query's term count), so the k-th scores come from a value histogram on
+  the card (``ops.topk_select``) with no host read; a batch whose bound
+  reaches ``topk_select.BINS`` takes the n-ary search (``ops.count_ge``).
 - **Float mode** (``integer_scores=False``, built by ``from_term_impacts``
   from encoder output: SparseSearch's in-memory index of large eval
   corpora).  Impacts stay fp32 from the posting arrays through the dense
@@ -27,7 +31,7 @@ replacement for the reference's per-query Python postings loop
   on the order of the adds in the last ulps; the kernels add in another
   order than XLA does.
 
-On CUDA tensors the two stages and the top-k's counts always launch the
+On CUDA tensors the two stages and the top-k's passes always launch the
 hand-written kernels (``csrc/``); on the CPU, and on the card with
 ``use_kernels=False`` (for cross-checks only), they run the kernels' plain
 PyTorch versions.  The
@@ -60,6 +64,8 @@ from ..core.profiling import annotate
 from ..index.inverted import InvertedIndexData
 from ..ops import gather_rows, scatter_scores
 from ..ops.exact_topk import _BLOCK, exact_topk_integer
+
+_REPEAT_CHUNK = 1 << 25  # postings a sort of ``max_repeats`` (~1.5 GB of temporaries)
 
 TAIL_CHUNK = 512
 # n_pad rule of the JAX engine: from this corpus size the doc axis pads to a
@@ -152,6 +158,26 @@ def build_dense_rows(
     return dense
 
 
+def max_repeats(doc_ids: torch.Tensor, lengths: np.ndarray, chunk: int = _REPEAT_CHUNK) -> int:
+    """The most times one list holds one doc, over the lists laid end to
+    end in ``doc_ids`` (int32, on any device) with ``lengths``: 1 for lists
+    of distinct docs, 0 for no postings.  The lists are sorted on their
+    device, about ``chunk`` postings at a time (a longer list alone)."""
+    ends = np.cumsum(lengths)
+    dev = doc_ids.device
+    most, t0, p0 = 0, 0, 0
+    while t0 < len(lengths):
+        t1 = max(t0 + 1, int(np.searchsorted(ends, p0 + chunk, side="right")))
+        p1 = int(ends[t1 - 1])
+        if p1 > p0:
+            lens = torch.from_numpy(np.asarray(lengths[t0:t1], dtype=np.int64)).to(dev)
+            lists = torch.repeat_interleave(torch.arange(t1 - t0, device=dev), lens, output_size=p1 - p0)
+            keys = torch.sort((lists << 32) | doc_ids[p0:p1].long()).values
+            most = max(most, int(torch.unique_consecutive(keys, return_counts=True)[1].max()))
+        t0, p0 = t1, p1
+    return most
+
+
 def padded_width(num_docs: int) -> int:
     """The doc axis's padded width: whole 65536-doc tiles from 2**19 docs,
     else a multiple of 128 (the JAX engines' rule)."""
@@ -233,12 +259,13 @@ def topk_to_host(vals: torch.Tensor, idx: torch.Tensor, device: torch.device):
 
 
 def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool,
-                 integer_scores: bool):
+                 integer_scores: bool, max_score: Optional[float] = None):
     """Exact top-k over the real docs, (values, int32 doc ids).
 
     Integer scores: ``exact_topk_integer``; when the padded width is a whole
     number of selection blocks the padding stays (its columns score 0, and
-    zero is never selected), which spares a copy of the matrix.  Float
+    zero is never selected), which spares a copy of the matrix;
+    ``max_score`` is the caller's bound on the scores.  Float
     scores: the padding is dropped and a stable descending sort takes the
     first k, the lower doc id first among ties.  The whole is the region
     ``search/topk``; ``exact_topk_integer`` is looked up at call time."""
@@ -248,7 +275,7 @@ def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool,
             return vals[:, :k], idx[:, :k].to(torch.int32)
         if scores.shape[1] % _BLOCK:
             scores = scores[:, :num_docs]
-        return exact_topk_integer(scores, k, use_kernel=use_kernel)
+        return exact_topk_integer(scores, k, use_kernel=use_kernel, max_score=max_score)
 
 
 class HybridSearchEngine:
@@ -340,6 +367,14 @@ class HybridSearchEngine:
             t_docs, t_vals = doc_ids, impacts
         self.doc_ids = torch.from_numpy(t_docs.astype(np.int32)).to(dev)
         self.impacts = torch.from_numpy(np.ascontiguousarray(t_vals)).to(dev).float()
+        # the most one term adds to one doc's score: a dense row's largest
+        # cell, or the largest tail impact times the most postings a tail
+        # list holds for one doc; None for float scores (no bound is needed)
+        self.term_score_max = None
+        if integer_scores:
+            heavy_max = float(self.dense.max()) if self.t_heavy else 0.0
+            tail_max = float(self.impacts.max()) * max_repeats(self.doc_ids, tail_len) if len(t_docs) else 0.0
+            self.term_score_max = max(heavy_max, tail_max)
         self._released = False
 
     @classmethod
@@ -424,10 +459,19 @@ class HybridSearchEngine:
         self.doc_ids = None
         self.impacts = None
 
-    def topk_from_stages(self, heavy, tail, nq: int, k: int):
+    def score_bound(self, query_term_sets: Sequence[Set[str]]) -> Optional[float]:
+        """A bound on every score of a (non-empty) batch: ``term_score_max``
+        for each term of its longest query (an unknown term adds nothing);
+        None for float scores."""
+        if self.term_score_max is None:
+            return None
+        return self.term_score_max * max(map(len, query_term_sets))
+
+    def topk_from_stages(self, heavy, tail, nq: int, k: int, max_score: Optional[float] = None):
         """The batch's exact top-k (values, int32 doc ids), [nq, k], from
         its staged inputs (``stage_inputs``; at least one not None): the
-        heavy stage, the tail stage, the top-k.  Call it under
+        heavy stage, the tail stage, the top-k, which takes the batch's
+        ``score_bound`` as ``max_score``.  Call it under
         ``device_scope(self.device)``."""
         if heavy is not None:
             scores = self._accumulate_grouped(self.dense, heavy, nq)
@@ -435,7 +479,7 @@ class HybridSearchEngine:
             scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=self.device)
         if tail is not None:
             scores = self._apply_tail_chunks(scores, self.doc_ids, self.impacts, *tail, TAIL_CHUNK)
-        return _finish_topk(scores, self.num_docs, k, self.use_kernels, self.integer_scores)
+        return _finish_topk(scores, self.num_docs, k, self.use_kernels, self.integer_scores, max_score)
 
     def score_batch_async(
         self,
@@ -446,8 +490,9 @@ class HybridSearchEngine:
 
         The result copy to the host is asynchronous: launch batch i+1 before
         finalizing batch i and the host prep of one overlaps the device work
-        of the other.  (The top-k's convergence test still reads a flag back
-        per search pass.)
+        of the other.  (Only a batch whose ``score_bound`` reaches
+        ``topk_select.BINS`` reads flags back: the n-ary search's, one a
+        pass.)
         """
         if self._released:
             raise RuntimeError("engine released")
@@ -463,7 +508,8 @@ class HybridSearchEngine:
         # the engine's own device, not the calling thread's current one (a
         # serving daemon's batch thread calls this)
         with device_scope(self.device):
-            return topk_to_host(*self.topk_from_stages(heavy, tail, nq, k), self.device)
+            top = self.topk_from_stages(heavy, tail, nq, k, max_score=self.score_bound(query_term_sets))
+            return topk_to_host(*top, self.device)
 
     def score_batch(
         self,

@@ -163,8 +163,9 @@ class ShardedSearchEngine:
     ):
         """Launch every shard's stages and top-k and the merge; returns a
         zero-arg finalizer (the hybrid engine's pipelined pattern).  Each
-        shard's top-k reads a flag back per search pass, so the shards'
-        launches follow each other on the host."""
+        shard's top-k takes that shard's ``score_bound``; where the bound
+        sends it to the n-ary search, it reads a flag back per pass, and the
+        shards' launches follow each other on the host."""
         if self._released:
             raise RuntimeError("engine released")
         if top_k is None:
@@ -196,7 +197,8 @@ class ShardedSearchEngine:
                 ids_all.append(torch.zeros(nq, k_local, dtype=torch.int32, device=dev0))
                 continue
             with device_scope(dev):
-                vals, idx = shard.topk_from_stages(heavy, tail, nq, k_local)
+                vals, idx = shard.topk_from_stages(heavy, tail, nq, k_local,
+                                                   max_score=shard.score_bound(query_term_sets))
                 gidx = torch.where(vals > 0, idx + lo, 0).to(torch.int32)
             vals_all.append(vals.to(dev0))
             ids_all.append(gidx.to(dev0))

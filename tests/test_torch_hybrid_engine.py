@@ -11,6 +11,7 @@ from improving_learned_index_tpu.index.inverted import InvertedIndexData as JaxI
 from improving_learned_index_tpu.search import hybrid_engine as jax_hybrid
 from improving_learned_index_tpu.search.hybrid_engine import HybridSearchEngine as JaxEngine
 from improving_learned_index_tpu_torch.index.inverted import index_from_numpy
+from improving_learned_index_tpu_torch.ops import topk_select
 from improving_learned_index_tpu_torch.search.hybrid_engine import HybridSearchEngine
 
 TILE = 1 << 16
@@ -236,3 +237,81 @@ def test_warmup_release_and_device_rules():
         eng.score_batch([{"t0"}], 5)
     with pytest.raises(ValueError):
         _port(jidx, use_kernels=True)  # no kernels on the CPU
+
+
+def _repeating_index(rng, num_docs=3000, n_terms=40):
+    """A uint8 index whose lists may hold a doc more than once (a term's
+    cell then sums past 255), and its cells as a numpy [n_terms, num_docs]
+    matrix."""
+    offsets, doc_ids, impacts = [0], [], []
+    cells = np.zeros((n_terms, num_docs), np.int64)
+    for t in range(n_terms):
+        n = int(rng.integers(800, 2500)) if t < 6 else int(rng.integers(1, 150))
+        d = rng.integers(0, num_docs, n)
+        v = rng.integers(1, 256, n)
+        np.add.at(cells[t], d, v)
+        offsets.append(offsets[-1] + n)
+        doc_ids.append(d)
+        impacts.append(v)
+    idx = index_from_numpy([f"t{t}" for t in range(n_terms)], np.asarray(offsets, np.int64),
+                           np.concatenate(doc_ids).astype(np.uint32),
+                           np.concatenate(impacts).astype(np.uint8), num_docs=num_docs)
+    return idx, cells
+
+
+def test_max_repeats():
+    from improving_learned_index_tpu_torch.search.hybrid_engine import max_repeats
+
+    docs = torch.tensor([1, 2, 3, 5, 5, 2, 5, 9, 9], dtype=torch.int32)
+    assert max_repeats(docs, np.array([3, 0, 4, 2])) == 3
+    assert max_repeats(docs, np.array([3, 0, 4, 2]), chunk=2) == 3  # a group a list
+    assert max_repeats(docs[:3], np.array([3])) == 1
+    assert max_repeats(docs[:0], np.array([0, 0])) == 0
+
+
+@pytest.mark.parametrize("heavy_min", [1, 600, 10**9])
+def test_score_bound_holds_and_both_routes_agree(monkeypatch, heavy_min):
+    """On a uint8 index with repeated docs in its lists, the bound the
+    engine hands its top-k is at least every query's largest score, for
+    queries of 1-16 terms with repeated and unknown terms; the histogram
+    route (the bound) and the n-ary route (none) give byte-equal answers,
+    and both the numpy scorer's ranking."""
+    from improving_learned_index_tpu_torch.ops.exact_topk import exact_topk_integer
+    from improving_learned_index_tpu_torch.search import hybrid_engine
+
+    rng = np.random.default_rng(11)
+    idx, cells = _repeating_index(rng)
+    eng = HybridSearchEngine(idx, heavy_min=heavy_min, device="cpu")
+    assert eng.term_score_max >= cells.max()
+    batch = []
+    for n in range(1, 17):
+        terms = [f"t{t}" for t in rng.choice(40, n, replace=True, p=None)] + ["zz"] * int(n % 3 == 0)
+        batch.append(set(terms))
+        batch.append(terms)  # a list: its repeated terms count once a repeat
+    scores = np.zeros((len(batch), cells.shape[1]), np.int64)
+    for i, q in enumerate(batch):
+        for term in q:
+            if term != "zz":
+                scores[i] += cells[int(term[1:])]
+    assert eng.score_bound(batch) >= scores.max()
+    for q, row in zip(batch, scores):
+        assert eng.score_bound([q]) >= row.max()
+
+    bounds = []
+
+    def nary(s, k, **kw):
+        bounds.append(kw.pop("max_score"))
+        return exact_topk_integer(s, k, **kw)
+
+    # the short queries' batch fits the histogram (repeats make a term's
+    # cell up to a few times 255); the whole batch's bound need not
+    short = [i for i, q in enumerate(batch) if len(q) <= 4]
+    assert eng.score_bound([batch[i] for i in short]) < topk_select.BINS
+    got = eng.score_batch(batch, 50)
+    got_short = eng.score_batch([batch[i] for i in short], 50)
+    monkeypatch.setattr(hybrid_engine, "exact_topk_integer", nary)
+    assert eng.score_batch([batch[i] for i in short], 50) == got_short == [got[i] for i in short]
+    assert bounds == [eng.score_bound([batch[i] for i in short])]
+    for row, answer in zip(scores, got):
+        order = np.lexsort((np.arange(len(row)), -row))[:50]
+        assert answer == [(int(d), float(row[d])) for d in order if row[d] > 0]

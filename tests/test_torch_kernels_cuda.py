@@ -42,6 +42,8 @@ from improving_learned_index_tpu_torch.ops import flash_attention as fa
 from improving_learned_index_tpu_torch.ops import short_attention as sa
 from improving_learned_index_tpu_torch.ops.count_ge import KERNEL as COUNT_KERNEL
 from improving_learned_index_tpu_torch.ops.count_ge import count_ge, count_ge_plain
+from improving_learned_index_tpu_torch.ops import topk_select as tks
+from improving_learned_index_tpu_torch.ops.exact_topk import exact_topk_integer
 from improving_learned_index_tpu_torch.search.dense_engine import DenseSearchEngine
 from improving_learned_index_tpu_torch.search.device_engine import DeviceSearchEngine
 from improving_learned_index_tpu_torch.search.hybrid_engine import HybridSearchEngine
@@ -243,9 +245,10 @@ def test_engine_kernels_equal_plain_and_cpu(cuda):
     )
     batch = [{f"t{i}" for i in rng.choice(n_terms, 4, replace=False)} for _ in range(62)]
     batch += [set(), {"t0"}, {"t30"}, {"t31", "zz"}, {"zz"}]
-    g0, s0, c0 = gr.KERNEL.launches, ss.KERNEL.launches, COUNT_KERNEL.launches
+    g0, s0, c0, t0 = gr.KERNEL.launches, ss.KERNEL.launches, COUNT_KERNEL.launches, tks.KERNEL.launches
     got = HybridSearchEngine(idx, device="cuda").score_batch(batch, 50)
-    assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and COUNT_KERNEL.launches > c0
+    assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and tks.KERNEL.launches > t0
+    assert COUNT_KERNEL.launches == c0  # the batch's bound takes the histogram route
     assert got == HybridSearchEngine(idx, device="cuda", use_kernels=False).score_batch(batch, 50)
     assert got == HybridSearchEngine(idx, device="cpu").score_batch(batch, 50)
 
@@ -539,6 +542,40 @@ def test_count_ge_kernel_equals_plain(cuda, layout):
     assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "strided_odd", "unaligned", "one_row", "ties", "top_bin"])
+def test_topk_select_kernels_equal_plain(cuda, layout):
+    """The histogram, the k-th scores and both block counts (with and
+    without the block maxima) equal their plain versions; the histogram
+    route of ``exact_topk_integer`` equals its plain version and the n-ary
+    route, values and doc ids."""
+    g, dev = cuda, "cuda"
+    wide = torch.randint(0, 3000, (67, 3 * 65536 + 1024), generator=g, device=dev).float()
+    scores = {"contiguous": wide, "strided_odd": wide[:, : 2 * 65536 + 1001],
+              "unaligned": wide[:, 1 : 65536 + 7], "one_row": wide[:1, :100_001],
+              "ties": torch.randint(0, 4, (9, 70_000), generator=g, device=dev).float(),
+              "top_bin": wide.clamp(max=tks.BINS - 1).index_fill_(1, torch.tensor([5, 777], device=dev),
+                                                                   float(tks.BINS - 1))}[layout]
+    k = 5000 if layout == "ties" else 1000
+    before = dict(tks.KERNEL.calls)
+    hist, block_max = tks.value_histogram(scores)
+    want_hist, want_max = tks.value_histogram_plain(scores)
+    s_k = tks.kth_scores(hist, k)
+    counts = [tks.block_counts(scores, s_k, block_max), tks.block_counts(scores, s_k)]
+    want_counts = tks.block_counts_plain(scores, s_k)
+    torch.cuda.synchronize()
+    assert {f: tks.KERNEL.calls.get(f, 0) - before.get(f, 0) for f in tks.KERNEL.functions} == {
+        "ili_topk_histogram": 1, "ili_topk_kth": 1, "ili_topk_block_counts": 2}
+    assert torch.equal(hist, want_hist) and torch.equal(block_max, want_max)
+    assert torch.equal(s_k, tks.kth_scores_plain(want_hist, k))
+    for got in counts:
+        assert all(torch.equal(a, b) for a, b in zip(got, want_counts))
+    v, i = exact_topk_integer(scores, k, max_score=tks.BINS - 1)
+    for other in (exact_topk_integer(scores, k, max_score=tks.BINS - 1, use_kernel=False),
+                  exact_topk_integer(scores, k)):
+        assert torch.equal(v, other[0]) and torch.equal(i, other[1])
+
+
 def _gap_and_edge_index():
     """Heavy terms with empty blocks (unaligned and aligned starts, so the
     tables hold zero-width chunks) and docs on every block edge, tail terms,
@@ -757,7 +794,7 @@ def test_retrieval_server_on_card_answers_as_cpu(cuda):
         rows = HybridSearchEngine(index, heavy_min=256, device="cpu").score_batch([set(q) for q in queries], 50)
         return [[[int(d), float(s)] for d, s in r] for r in rows]
 
-    g0, s0, c0 = gr.KERNEL.launches, ss.KERNEL.launches, COUNT_KERNEL.launches
+    g0, s0, c0 = gr.KERNEL.launches, ss.KERNEL.launches, tks.KERNEL.launches
     srv = RetrievalServer(HybridSearchEngine(idx, heavy_min=256, device="cuda"), top_k=50, max_batch=16,
                           max_wait_ms=1.0)
     assert srv.engine.t_heavy > 0 and srv.engine.doc_ids.numel() > 0
@@ -768,7 +805,7 @@ def test_retrieval_server_on_card_answers_as_cpu(cuda):
         assert ask(srv) == want(filtered)
     finally:
         srv.stop()
-    assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and COUNT_KERNEL.launches > c0
+    assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and tks.KERNEL.launches > c0
 
 
 def _zipf_index(num_docs, n_terms=200, seed=5):
@@ -787,7 +824,7 @@ def _zipf_index(num_docs, n_terms=200, seed=5):
 def test_sharded_engine_on_card_equals_hybrid(cuda):
     """Four shards on one card: the single hybrid engine's ranked lists,
     ``use_kernels=False``'s and the CPU shards'; each shard launches the
-    heavy and the tail kernel once a batch, and its top-k's counts."""
+    heavy and the tail kernel once a batch, and its top-k's histogram."""
     from improving_learned_index_tpu_torch.search import ShardedSearchEngine
 
     idx, rng = _zipf_index(20_000)
@@ -796,10 +833,11 @@ def test_sharded_engine_on_card_equals_hybrid(cuda):
     want = HybridSearchEngine(idx, heavy_min=256, device="cuda").score_batch(batch, 100)
     eng = ShardedSearchEngine(idx, ["cuda:0"] * 4, heavy_min=256)
     assert eng.t_heavy > 0 and eng.use_kernels and all(s.doc_ids.numel() > 0 for s in eng.shards)
-    g0, s0, c0 = gr.KERNEL.launches, ss.KERNEL.launches, COUNT_KERNEL.launches
+    g0, s0 = gr.KERNEL.launches, ss.KERNEL.launches
+    h0, c0 = tks.KERNEL.calls.get("ili_topk_histogram", 0), COUNT_KERNEL.launches
     got = eng.score_batch(batch, 100)
     assert gr.KERNEL.launches - g0 == 4 and ss.KERNEL.launches - s0 == 4
-    assert COUNT_KERNEL.launches - c0 >= 4
+    assert tks.KERNEL.calls["ili_topk_histogram"] - h0 == 4 and COUNT_KERNEL.launches == c0
     assert got == want
     assert got == ShardedSearchEngine(idx, ["cuda:0"] * 4, heavy_min=256, use_kernels=False).score_batch(batch, 100)
     assert got == ShardedSearchEngine(idx, ["cpu"] * 4, heavy_min=256).score_batch(batch, 100)
@@ -1160,7 +1198,7 @@ def test_t5_greedy_on_card_equals_cpu(cuda):
                      params=tree_to(params, "cuda"))
     assert (card.cpu() - cpu).abs().max() <= 1e-4
     sampler = T5Sampler(cfg, GenerationConfig(max_new_tokens=8, do_sample=False))
-    counters = (fa.KERNEL, sa.KERNEL, gr.KERNEL, ss.KERNEL, ps.KERNEL, COUNT_KERNEL)
+    counters = (fa.KERNEL, sa.KERNEL, gr.KERNEL, ss.KERNEL, ps.KERNEL, COUNT_KERNEL, tks.KERNEL)
     before = [k.launches for k in counters]
     for tree in (params, quantize_params_int8(params)):
         want = sampler.generate(tree, ids, mask, num_return_sequences=2)

@@ -17,7 +17,7 @@ from improving_learned_index_tpu_torch.index.forward_index import format_line
 from improving_learned_index_tpu_torch.index.indexer import Indexer
 from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
 from improving_learned_index_tpu_torch.models import DeepImpact
-from improving_learned_index_tpu_torch.ops import exact_topk
+from improving_learned_index_tpu_torch.ops import exact_topk, topk_select
 from improving_learned_index_tpu_torch.parallel.dataloader import BatchLoader
 from improving_learned_index_tpu_torch.search.hybrid_engine import HybridSearchEngine
 from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
@@ -88,21 +88,28 @@ def query_texts(n, seed):
 @pytest.mark.parametrize("all_threads", [False, True])
 def test_search_regions_once_a_batch(engine, tokenizer, all_threads, monkeypatch):
     """``score_stream`` emits each ``search/*`` region once a batch and
-    ``text/process_query`` once a query; ``search/topk_sync`` once each time
-    the top-k's search tests its condition: once a pass (a count) and once
-    more at the end of each call."""
-    passes, calls = [0], [0]
+    ``text/process_query`` once a query.  The engine bounds each batch's
+    scores, so the top-k takes its histogram route (one histogram a call):
+    no search pass, so no ``search/topk_sync`` (the n-ary search's regions
+    are counted by ``test_topk_sync_counts_the_loop_tests``)."""
+    passes, calls, hists = [0], [0], [0]
     inner_count, inner_topk = exact_topk.count_ge_plain, exact_topk.exact_topk_integer
+    inner_hist = topk_select.value_histogram_plain
 
     def count_ge_plain(*args):
         passes[0] += 1
         return inner_count(*args)
+
+    def value_histogram_plain(*args):
+        hists[0] += 1
+        return inner_hist(*args)
 
     def exact_topk_integer(*args, **kwargs):
         calls[0] += 1
         return inner_topk(*args, **kwargs)
 
     monkeypatch.setattr(exact_topk, "count_ge_plain", count_ge_plain)
+    monkeypatch.setattr(topk_select, "value_histogram_plain", value_histogram_plain)
     from improving_learned_index_tpu_torch.search import hybrid_engine
 
     monkeypatch.setattr(hybrid_engine, "exact_topk_integer", exact_topk_integer)
@@ -114,10 +121,10 @@ def test_search_regions_once_a_batch(engine, tokenizer, all_threads, monkeypatch
 
     out, regions = profiled(run, all_threads)
     counts = Counter(name for name, _ in regions)
-    assert len(out) == 5 and calls[0] == 5 and passes[0] >= 5
+    assert len(out) == 5 and calls[0] == 5 and hists[0] == 5 and passes[0] == 0
     assert {name: counts[name] for name in SEARCH} == dict.fromkeys(SEARCH, 5)
     assert counts["text/process_query"] == len(texts)
-    assert counts["search/topk_sync"] == passes[0] + calls[0]
+    assert counts["search/topk_sync"] == 0
     assert len({thread for _, thread in regions}) == 1
     assert out == [engine.score_batch([tokenizer.process_query(x) for x in texts[i:i + nq]], 25)
                    for i in range(0, len(texts), nq)]
