@@ -271,9 +271,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    packed segments; kernel, twin and SDPA (timed only) milliseconds beside
    the bound; the tile pairs the kernels computed, by their own count, equal
    to the tile rule's, and their share.  (2)
-   BERT-base with ``use_flash_attention`` at S=512 (phase 7's trunk) through
-   ``DeepImpact.get_impact_scores_batch`` over 64 passages: 12 forward
-   launches, impacts within phase 7's rule of ``use_kernels=False``.  (3)
+   BERT-base at S=512 (phase 7's trunk), whose default route there is
+   flash attention, through ``DeepImpact.get_impact_scores_batch`` over 64
+   passages: 12 forward launches, impacts within phase 7's rule of
+   ``use_kernels=False``.  (3)
    Llama-2-7B (``LlamaConfig.llama2_7b``, seeded bf16 weights made on the
    card) with a word tokenizer of phase 6's 31,996 most frequent words:
    ``QueryGenerator`` at the JAX CLI's defaults (80 sequences, 50 new
@@ -4615,17 +4616,21 @@ def cli_chain(cfg, workdir: Path, tok, passages) -> dict:
 
 
 def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
-    """The encoder's flash route: BERT-base (phase 7's seeded trunk) with
-    ``use_flash_attention`` at S=512, where short attention does not apply,
-    through ``DeepImpact.get_impact_scores_batch`` ([64, 12, 512, 64] a
-    layer): 12 forward launches a batch, impacts within phase 7's rule of
-    the ``use_kernels=False`` route."""
+    """The encoder's flash route: BERT-base (phase 7's seeded trunk) at
+    S=512, where short attention does not apply and the default route is
+    flash attention, through ``DeepImpact.get_impact_scores_batch``
+    ([64, 12, 512, 64] a layer): 12 forward launches a batch, impacts
+    within phase 7's rule of the ``use_kernels=False`` route."""
     from improving_learned_index_tpu_torch.core.config import EncoderConfig
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
+    from improving_learned_index_tpu_torch.models.encoder import attention_route
     from improving_learned_index_tpu_torch.ops import flash_attention as fa
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
 
-    config = EncoderConfig.bert_base(use_flash_attention=True)
+    config = EncoderConfig.bert_base()
+    route = attention_route(config, 512, torch.device(cfg.device))
+    if route != "flash":
+        raise AssertionError(f"BERT-base at S=512 takes the {route} route by default")
     tok = ImpactTokenizer(WordPieceVocab.load(workdir / "vocab.txt"), 512)
     sd = load_hf_checkpoint(workdir / "bert", config)
     docs = passages[: cfg.enc_docs]
@@ -4678,7 +4683,7 @@ def run_expansion(cfg, workdir: Path) -> dict:
     torch.cuda.empty_cache()
     chain = cli_chain(cfg, workdir, tok, passages)
     row["launches_by_path"] = {"7B QLoRA fine-tune (int8 + trl_4bit steps)": finetune.pop("launches"),
-                               "DeepImpact S=512 encode (use_flash_attention)": encoder["launches"],
+                               "DeepImpact S=512 encode (the default route)": encoder["launches"],
                                "7B generation (cache route)": generation["flash_launches"]}
     row["launches"] = sum(row["launches_by_path"].values())
     seconds = time.perf_counter() - t_phase

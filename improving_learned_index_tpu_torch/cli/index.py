@@ -10,8 +10,10 @@
 beside or instead of the text forward index; ``cli.quantize`` and
 ``cli.invert`` take it as their input.
 
-The short-attention kernel runs at ``--max_length`` 128 or 256 (the default
-is 512, where the plain attention route runs, as in the JAX package).
+The short-attention kernel runs at ``--max_length`` 128 or 256; at the
+default 512 (``--model_kind xlmr``'s length) and other multiples of 128 the
+flash-attention kernel runs (``models/encoder.attention_route``), where the
+JAX package runs its plain attention route off the TPU.
 ``--model_kind pairwise`` writes ``term1|term2`` composite postings too; its
 pair head reads attention maps, so it runs the plain attention route at
 every length, as the JAX package does.

@@ -83,10 +83,12 @@ class EncoderConfig:
     # [S, S] logits out of device memory; otherwise plain torch attention.
     # The backward recomputes through the JAX package's XLA-route math.
     use_short_attention: bool = True
-    # The JAX package's library flash-attention route (off by default): where
-    # short attention does not apply and S % 128 == 0, ops.flash_attention
-    # (csrc/flash_attention.cu on the card, head dim 64 or 128).
-    use_flash_attention: bool = False
+    # Flash attention (ops/flash_attention.py) where short attention does not
+    # apply and S % 128 == 0: csrc/flash_attention.cu on the card where the
+    # head dim is 64 or 128, its plain twin on the CPU.  On by default here
+    # (the JAX package's default is off, and configs built from its fields
+    # carry that off): False keeps such shapes on the plain route.
+    use_flash_attention: bool = True
 
     @staticmethod
     def tiny(vocab_size: int = 512, impact_activation: str = "relu") -> "EncoderConfig":

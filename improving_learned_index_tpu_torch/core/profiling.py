@@ -18,7 +18,10 @@ own.  The port's regions, each on the thread that drives the card:
 - index: ``index/next_batch`` (the wait on the tokenizer thread),
   ``index/encode``, ``index/scores_to_host``, ``index/write``;
 - train: ``train/next_batch``, ``train/put_batch``, ``train/forward``,
-  ``train/backward``, ``train/optimizer``, ``train/step_end``.
+  ``train/backward``, ``train/optimizer``, ``train/step_end``;
+- encoder: one region a ``TransformerEncoder`` forward, named by its
+  attention route: ``encoder/route_short``, ``encoder/route_flash`` or
+  ``encoder/route_plain`` (inside ``index/encode`` or ``train/forward``).
 
 No region name starts with ``cu``, which trace readers take for CUDA
 runtime calls.

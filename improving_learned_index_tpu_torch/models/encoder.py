@@ -17,23 +17,26 @@ Precision is the JAX package's, written as explicit casts (no autocast):
 - the last hidden state is cast to fp32 and the impact head is an fp32
   Linear.
 
-Attention takes one of three routes, as in the JAX package.  With a mask,
-``use_short_attention``, S <= 256, S % 128 == 0 and head dim % 8 == 0 it
-calls ``ops.short_attention`` (the hand-written kernel on the card, its
-plain version on the CPU or with ``use_kernels=False``, with -1e9 masking
-and ``* sm_scale``; both forwards share the JAX ``custom_vjp``'s backward,
-a recompute through the XLA route's bf16 math).  Where that route does not
-apply, ``use_flash_attention`` is set and S % 128 == 0 (the JAX package's
-library flash route, ``models/encoder.py:112-125``), it calls
+Attention takes one of three routes, chosen from the shape in
+``attention_route``.  With a mask, ``use_short_attention``, S <= 256,
+S % 128 == 0 and head dim % 8 == 0 it calls ``ops.short_attention`` (the
+hand-written kernel on the card, its plain version on the CPU or with
+``use_kernels=False``, with -1e9 masking and ``* sm_scale``; both forwards
+share the JAX ``custom_vjp``'s backward, a recompute through the XLA
+route's bf16 math).  Where that route does not apply, S % 128 == 0 and
+``use_flash_attention`` is set (the default), it calls
 ``ops.flash_attention`` non-causal with the mask (padding mask, or packed
-segment ids) as segment ids: the hand-written kernel on the card (head dim
-64 or 128), the twin on the CPU or with ``use_kernels=False``, its backward
-the library's; padding queries attend the padding keys there, so only the
-real tokens' outputs equal the other routes'.  Otherwise
-it runs the JAX package's XLA-path math in plain torch ops: logits in the
-compute dtype cast to fp32, ``/ sqrt(hd)``, ``finfo(fp32).min`` masking, an
-fp32 softmax cast back.  That route is not a Pallas kernel in the JAX
-package either.
+segment ids) as segment ids: the hand-written kernel on the card where the
+head dim is 64 or 128, the twin on the CPU or with ``use_kernels=False``,
+its backward the library's; padding queries attend the padding keys there,
+so only the real tokens' outputs equal the other routes'.  So an encoder at
+S=512 (XLM-R's ``max_length``) reaches ``csrc/flash_attention.cu`` on the
+card.  Otherwise it runs the JAX package's XLA-path math in plain torch
+ops: logits in the compute dtype cast to fp32, ``/ sqrt(hd)``,
+``finfo(fp32).min`` masking, an fp32 softmax cast back.  That route is not
+a Pallas kernel in the JAX package either.  Each forward is one
+``core.profiling.annotate`` region named by its route:
+``encoder/route_short``, ``encoder/route_flash`` or ``encoder/route_plain``.
 
 ``output_attentions=True`` takes the plain route at every S, as the JAX
 package turns its kernels off when the maps are asked for, and returns each
@@ -58,7 +61,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import EncoderConfig
-from ..ops.flash_attention import flash_attention
+from ..core.profiling import annotate
+from ..ops.flash_attention import KERNEL_DIMS, flash_attention
 from ..ops.short_attention import can_use_short_attention, short_attention
 
 
@@ -92,6 +96,23 @@ def make_packed_position_ids(segment_ids: torch.Tensor, config: EncoderConfig) -
     if config.position_offset == 0:
         return within
     return torch.where(segment_ids > 0, within + 1 + config.pad_token_id, config.pad_token_id)
+
+
+def attention_route(config: EncoderConfig, seq: int, device: torch.device, use_kernels: bool = True,
+                    output_attentions: bool = False) -> str:
+    """``short``, ``flash`` or ``plain``: the attention route of a forward at
+    sequence length ``seq`` on ``device`` (see the module docstring).  The
+    flash kernel launches on CUDA with ``use_kernels``, where it takes head
+    dim 64 or 128 only; elsewhere the twin takes any."""
+    hd = config.hidden_size // config.num_heads
+    if output_attentions:
+        return "plain"
+    if config.use_short_attention and can_use_short_attention(seq, hd):
+        return "short"
+    kernel = device.type == "cuda" and use_kernels
+    if config.use_flash_attention and seq % 128 == 0 and (hd in KERNEL_DIMS or not kernel):
+        return "flash"
+    return "plain"
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -198,6 +219,12 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, input_ids, attention_mask, type_ids=None, segment_ids=None, use_kernels=True,
                 output_attentions=False):
+        route = attention_route(self.config, input_ids.shape[1], input_ids.device, use_kernels, output_attentions)
+        with annotate(f"encoder/route_{route}"):
+            return self._forward(input_ids, attention_mask, type_ids, segment_ids, use_kernels, output_attentions,
+                                 route)
+
+    def _forward(self, input_ids, attention_mask, type_ids, segment_ids, use_kernels, output_attentions, route):
         c = self.config
         if type_ids is None:
             type_ids = torch.zeros_like(input_ids)
@@ -214,10 +241,7 @@ class TransformerEncoder(nn.Module):
             x = self.embeddings(input_ids, type_ids)
             kernel_mask = attention_mask
         bias = None
-        seq = input_ids.shape[1]
-        short = c.use_short_attention and can_use_short_attention(seq, c.hidden_size // c.num_heads)
-        flash = not short and c.use_flash_attention and seq % 128 == 0
-        if output_attentions or not (short or flash):
+        if route == "plain":
             if packed:
                 allowed = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
             else:
@@ -226,7 +250,7 @@ class TransformerEncoder(nn.Module):
         kernel_mask = kernel_mask.to(torch.int32)
         maps = []
         for layer in self.layers:
-            x, probs = layer(x, bias, kernel_mask, packed, use_kernels, flash and bias is None)
+            x, probs = layer(x, bias, kernel_mask, packed, use_kernels, route == "flash")
             if output_attentions:
                 maps.append(probs.float().mean(dim=1))
         if output_attentions:

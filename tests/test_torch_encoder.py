@@ -178,9 +178,10 @@ def test_seeded_head_and_local_checkpoint_match_jax(tmp_path):
 
 def test_kernel_route_selection_matches_jax():
     """The port takes the short-attention route exactly where the JAX
-    package does: use_short_attention off means the plain route, equal to
-    flax with its kernel off (fp32, tight)."""
-    jm, params, tm, tc = _models(dtype="float32", use_short_attention=False)
+    package does: use_short_attention off (and the flash route, on by
+    default in the port, off) means the plain route, equal to flax with its
+    kernels off (fp32, tight)."""
+    jm, params, tm, tc = _models(dtype="float32", use_short_attention=False, use_flash_attention=False)
     ids, mask, _, _ = _batch(128, tc.pad_token_id)
     got, want = _run_both(jm, params, tm, ids, mask)
     real = mask.astype(bool)

@@ -1118,6 +1118,43 @@ def test_flash_autograd_launches_kernels_and_refuses_other_shapes(cuda):
         fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,maps,route", [(512, False, "flash"), (256, False, "short"), (512, True, "plain")])
+def test_encoder_route_on_the_card(cuda, seq, maps, route):
+    """An XLM-R-geometry trunk (two layers, 12 heads of 64, bf16) on packed
+    rows: at S=512 its default route launches ``ili_flash_fwd`` once a
+    layer, at S=256 the short-attention kernel, and with attention maps
+    neither; the hidden state within 2e-2 of the largest entry of the
+    ``use_kernels=False`` route's (bf16 states, probabilities rounded to
+    bf16 against another running maximum in each kernel)."""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models.encoder import TransformerEncoder, attention_route, init_weights
+
+    config = EncoderConfig.xlmr_base(vocab_size=1000, num_layers=2)
+    assert attention_route(config, seq, torch.device("cuda"), output_attentions=maps) == route
+    trunk = TransformerEncoder(config)
+    init_weights(trunk, torch.Generator().manual_seed(0))
+    trunk = trunk.cuda().eval()
+    seg = torch.zeros(4, seq, dtype=torch.int32)
+    seg[0, :seq // 3], seg[0, seq // 3:seq - 40] = 1, 2
+    seg[1, :], seg[2, :200] = 1, 1
+    seg[3, :7], seg[3, 7:90], seg[3, 90:seq - 9] = 1, 2, 3
+    ids = torch.randint(4, 1000, seg.shape, generator=torch.Generator().manual_seed(1))
+    ids[seg == 0] = config.pad_token_id
+    ids, seg = ids.cuda(), seg.cuda()
+    counters = {"flash": fa.KERNEL, "short": sa.KERNEL}
+    before = {name: k.launches for name, k in counters.items()}
+    with torch.no_grad():
+        got = trunk(ids, (seg > 0).int(), segment_ids=seg, output_attentions=maps)
+        want = trunk(ids, (seg > 0).int(), segment_ids=seg, use_kernels=False, output_attentions=maps)
+    if maps:
+        got, want = got[0], want[0]
+    launched = {name: k.launches - before[name] for name, k in counters.items()}
+    assert launched == {name: config.num_layers * (name == route) for name in counters}
+    real = seg > 0
+    assert (got[real] - want[real]).abs().max() <= 2e-2 * want[real].abs().max()
+
 @pytest.mark.cuda
 def test_llama_flash_forward_and_finetune_step_equal_twin_route(cuda):
     """A 2-layer Llama at head dim 128 (rep 2), bf16: the cache-less forward

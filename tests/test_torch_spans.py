@@ -204,3 +204,45 @@ def test_train_regions_once_a_step(tokenizer, tmp_path, all_threads):
     assert {name: counts[name] for name in TRAIN[1:]} == dict.fromkeys(TRAIN[1:], steps)
     assert "text/process_query" not in counts
     assert len({thread for _, thread in regions}) == 1
+
+
+@pytest.mark.parametrize("seq,maps,route", [(512, False, "flash"), (256, False, "short"), (512, True, "plain"),
+                                            (96, False, "plain")])
+@pytest.mark.parametrize("all_threads", [False, True])
+def test_encoder_forward_opens_one_route_region(seq, maps, route, all_threads, monkeypatch):
+    """Each ``TransformerEncoder`` forward opens exactly one
+    ``encoder/route_*`` region, named by the route it took, on the calling
+    thread; with no profiler running the region is the shared no-op."""
+    from improving_learned_index_tpu_torch.core import profiling
+    from improving_learned_index_tpu_torch.models import encoder as enc
+
+    trunk = enc.TransformerEncoder(dataclasses.replace(EncoderConfig.tiny(vocab_size=64), dtype="float32",
+                                                       max_position_embeddings=512)).eval()
+    ids = torch.randint(2, 64, (2, seq))
+    mask = torch.ones_like(ids)
+    mask[0, seq // 2:] = 0
+
+    def forwards():
+        with torch.no_grad():
+            for _ in range(3):
+                trunk(ids, mask, output_attentions=maps)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    extra = {}
+    if all_threads:
+        from torch._C._profiler import _ExperimentalConfig
+
+        extra = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
+    with profile(activities=[ProfilerActivity.CPU], **extra) as prof:
+        forwards()
+    regions = [(e.name, e.thread) for e in prof.events() if e.name.startswith("encoder/")]
+    assert [name for name, _ in regions] == [f"encoder/route_{route}"] * 3
+    assert len({thread for _, thread in regions}) == 1
+
+    opened = []
+    inner = enc.annotate
+    monkeypatch.setattr(enc, "annotate", lambda name: opened.append((name, inner(name))) or opened[-1][1])
+    forwards()
+    assert [name for name, _ in opened] == [f"encoder/route_{route}"] * 3
+    assert all(region is profiling._NO_REGION for _, region in opened)
