@@ -19,9 +19,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.
-2. Build: the seven CUDA kernel sources (``gather_rows``,
+2. Build: the eight CUDA kernel sources (``gather_rows``,
    ``scatter_scores``, ``short_attention``, ``count_ge``,
-   ``blocked_scoring``, ``flash_attention``, ``topk_select``) from ``csrc/``,
+   ``blocked_scoring``, ``flash_attention``, ``topk_select``,
+   ``encoder_epilogue``) from ``csrc/``,
    one ``nvcc`` per source, started together, and the native C++ engine
    (``g++``).
 3. Query set-up, then the query kernels against their plain versions: a
@@ -68,12 +69,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
    S=256, D=64 bf16 on seeded inputs, once with the padding mask of the
    first real batch and once with the packed segment ids of the corpus's
    first ``SequencePacker`` batch, and must agree within two bf16 ulps of
-   the largest output.
+   the largest output.  The encoder layer's epilogue kernels
+   (``encoder_epilogue``: the q, k and v bias adds, bias + GELU, bias +
+   residual + LayerNorm) against their twins on seeded card tensors at the
+   XLM-R encode cell's [64 x 512, 768] and the BERT cell's [512 x 256,
+   768] (the FFN 4 x 768): within 1 bf16 ulp of each output, the
+   LayerNorm's besides within what the order of its fp32 sums may move an
+   output by; kernel and twin ms beside the bound (a layer's 40 x 768
+   bytes a token row at HBM bandwidth).
 7. Encode main path: ``cli.index`` (BERT-base, seeded random init,
    ``--max_length 256 --model_batch_size 512``) -> ``cli.quantize`` ->
    ``cli.invert`` -> ``cli.rank``, with the launch counts set to 0 just
    before ``cli.index`` and read just after: ``short_attention`` must have
-   launched 12 times per batch.  Checks: on 512 passages the kernel route
+   launched 12 times per batch, and ``encoder_epilogue`` 12 x (one
+   ``ili_bias_add``, one ``ili_bias_gelu``, two
+   ``ili_bias_residual_layernorm``) a batch, also under ``--pack``.
+   Checks: on 512 passages the kernel route
    equals ``use_kernels=False`` (term lists identical, impacts within a
    stated tolerance) and the CLI's forward index; the inverted index equals
    a numpy inversion of the quantized file; four ranked queries equal the
@@ -92,7 +103,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    attention backward's recompute, the clipped AdamW step).  Check 2:
    ``cli.train`` (packed, its default) for 12 steps with launch counts set
    to 0 just before and read just after: ``short_attention`` must have
-   launched 12 x 12 times (the backward launches none); every logged loss
+   launched 12 x 12 times (the backward launches none), ``encoder_epilogue``
+   none (training's forwards run under autograd); every logged loss
    finite; snapshots at steps 6 and 12, latest and final, with their step.
    Check 3: ``cli.train --no_pack`` for 4 steps.  Steady steps/s and docs/s
    (the first 2 steps and the steps that wrote checkpoints left out) and
@@ -273,7 +285,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    to the tile rule's, and their share.  (2)
    BERT-base at S=512 (phase 7's trunk), whose default route there is
    flash attention, through ``DeepImpact.get_impact_scores_batch`` over 64
-   passages: 12 forward launches, impacts within phase 7's rule of
+   passages: 12 forward launches and 48 ``encoder_epilogue`` launches,
+   impacts within phase 7's rule of
    ``use_kernels=False``.  (3)
    Llama-2-7B (``LlamaConfig.llama2_7b``, seeded bf16 weights made on the
    card) with a word tokenizer of phase 6's 31,996 most frequent words:
@@ -306,7 +319,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    gated-GELU d_ff 2048, vocabulary 250,112, an untied fp32 head; seeded
    fp32 weights made on the card) with a T5-style word tokenizer of phase
    15's 31,996 words.  The T5 route reaches no kernel: the counts of the
-   seven are set to 0 when the phase starts and must read 0 at its end.  (1)
+   eight are set to 0 when the phase starts and must read 0 at its end.  (1)
    ``T5QueryGenerator`` at the JAX CLI's defaults (80 sequences, 50 new
    tokens, top-k 50, top-p 0.95, documents within 350 tokens) for 2
    batches of 4 passages (320 decoder rows) with the fp32 tree and its int8
@@ -336,12 +349,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``examples/index_lifecycle_torch.py`` (store, quantize, invert, an
    incremental merge, a deletion, a router over two shard daemons against
    one engine, the serving daemon over ``build_engine(engine="auto")``),
-   each in process with ``--device cuda``, the counts of the seven kernels
+   each in process with ``--device cuda``, the counts of the eight kernels
    set to 0 just before and read just after: the exact top-k must have run
    on the card in each (``topk_select`` in the quickstart's hybrid engine,
    ``count_ge`` in the lifecycle's device engine); their seconds.
 
-The second-to-last line is the ``kernels`` JSON object (seven rows; each
+The second-to-last line is the ``kernels`` JSON object (eight rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
 ``cli.index``, ``cli.train``, ``cli.nano_beir``, ``cli.train`` with eval,
 ``cli.rerank``, ``cli.train --cross_encoder``, ``cli.cross_encoder_rerank``,
@@ -355,7 +368,9 @@ data-parallel encode add a path each, phase 14 its trainer, its
 ``cli.index`` routes, its term pairs (0) and its ``cli.rank``; row 6,
 ``flash_attention``, counts forward and backward launches over phase 15's
 7B fine-tune steps and the S=512 encode, and the 7B
-generation, which runs the cache route and launches none; every row also
+generation, which runs the cache route and launches none; row 8,
+``encoder_epilogue``, over ``cli.index``, ``cli.index --pack``,
+``cli.train`` (0) and the S=512 encode; every row also
 counts phase 17's two walkthroughs), the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -1006,9 +1021,9 @@ def all_kernels():
 
 
 def card_kernels():
-    from improving_learned_index_tpu_torch.ops import flash_attention
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue, flash_attention
 
-    return all_kernels() + [flash_attention.KERNEL]
+    return all_kernels() + [flash_attention.KERNEL, encoder_epilogue.KERNEL]
 
 
 def build_kernels() -> None:
@@ -1389,6 +1404,119 @@ def attention_row(q, k, v, pad_mask, seg_ids) -> dict:
     return row
 
 
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| in bf16 ulps of the larger of the two magnitudes."""
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return (got.float() - want.float()).abs() / ulp
+
+
+def layernorm_order_slack(h, bias, x, weight, norm_bias, eps: float, want: torch.Tensor) -> torch.Tensor:
+    """What the order of a LayerNorm's fp32 sums may move an output by, in
+    bf16 ulps of the output: 2^-18 (64 fp32 ulps) of its terms' magnitude,
+    |weight| * rstd * (|s| + the row's mean |s|) + |norm_bias|.  Where the
+    two terms nearly cancel, an output is far smaller than they are, and a
+    change in the mean's last fp32 bit is many bf16 ulps of it."""
+    s = (x + (h + bias.to(h.dtype))).double()
+    rstd = (s.var(-1, unbiased=False, keepdim=True) + eps).rsqrt()
+    terms = weight.double().abs() * rstd * (s.abs() + s.abs().mean(-1, keepdim=True)) + norm_bias.double().abs()
+    big = want.double().abs()
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return 2.0 ** -18 * terms / ulp
+
+
+def epilogue_layer(rows: int, width: int, eps: float, seed: int) -> dict:
+    """One encoder layer's epilogue entries (``ops.encoder_epilogue``) at
+    [rows, width], the FFN 4 x width, on seeded card tensors: each kernel
+    against its twin (``bias_add`` and ``bias_gelu`` within 1 bf16 ulp,
+    ``bias_residual_layernorm`` within 1 ulp plus ``layernorm_order_slack``;
+    else AssertionError), then the kernel's and the twin's ms beside the
+    bound, the entry's bytes once at HBM bandwidth.  ``layer`` sums a
+    layer's four launches (the LayerNorm entry twice): 40 x width bytes a
+    token row."""
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def bf16(n, scale=1.0):
+        return (torch.randn(rows, n, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    def fp32(n, scale=0.5, shift=0.0):
+        return torch.randn(n, generator=g, device="cuda") * scale + shift
+
+    ys, bs = [bf16(width) for _ in range(3)], [fp32(width) for _ in range(3)]
+    h, hb = bf16(4 * width, 2.0), fp32(4 * width)
+    h2, b2, x = bf16(width), fp32(width), bf16(width, 4.0)
+    w, nb = fp32(width, 0.2, 1.0), fp32(width, 0.2)
+    want = [epi.bias_add_plain(y, b) for y, b in zip(ys, bs)]
+    got = epi.bias_add(*(y.clone() for y in ys), *bs)
+    ulps = {"bias_add": max(float(bf16_ulps(a, b).max()) for a, b in zip(got, want)),
+            "bias_gelu": float(bf16_ulps(epi.bias_gelu(h, hb), epi.bias_gelu_plain(h, hb)).max())}
+    del got, want
+    ln_got = epi.bias_residual_layernorm(h2, b2, x, w, nb, eps)
+    ln_want = epi.bias_residual_layernorm_plain(h2, b2, x, w, nb, eps)
+    gaps = bf16_ulps(ln_got, ln_want)
+    past = gaps > 1.0 + layernorm_order_slack(h2, b2, x, w, nb, eps, ln_want)
+    ulps["bias_residual_layernorm"] = float(gaps.max())
+    if ulps["bias_add"] > 1.0 or ulps["bias_gelu"] > 1.0 or bool(past.any()):
+        raise AssertionError(f"encoder_epilogue at [{rows}, {width}]: {ulps} bf16 ulps from the twins, "
+                             f"{int(past.sum())} LayerNorm outputs past 1 ulp and the order slack")
+    out = {"rows": rows, "width": width, "eps": eps, "max_ulps": ulps,
+           "layernorm_share_past_1_ulp": float((gaps > 1.0).double().mean()), "entries": {}}
+    del ln_got, ln_want, gaps, past
+    for name, kernel, plain, bytes_a_row in (
+            ("bias_add", lambda: epi.bias_add(*ys, *bs), lambda: [epi.bias_add_plain(y, b) for y, b in zip(ys, bs)],
+             12 * width),
+            ("bias_residual_layernorm", lambda: epi.bias_residual_layernorm(h2, b2, x, w, nb, eps),
+             lambda: epi.bias_residual_layernorm_plain(h2, b2, x, w, nb, eps), 6 * width),
+            ("bias_gelu", lambda: epi.bias_gelu(h, hb), lambda: epi.bias_gelu_plain(h, hb), 16 * width)):
+        out["entries"][name] = {"ms": cuda_ms(kernel, iters=20), "plain_ms": cuda_ms(plain, iters=20),
+                                "bound_ms": bound_ms(rows * bytes_a_row, 0)[0]}
+    e = out["entries"]
+    out["layer"] = {k: sum(e[n][k] * (2 if n == "bias_residual_layernorm" else 1) for n in e)
+                    for k in ("ms", "plain_ms", "bound_ms")}
+    return out
+
+
+def epilogue_row(seed: int) -> dict:
+    """Row 8: a layer's epilogue at the XLM-R encode cell's [64 x 512, 768]
+    (``ms``, ``plain_ms``, ``bound_ms``) and the BERT cell's [512 x 256,
+    768]; launches are filled in by the paths that count them."""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+
+    xlmr = epilogue_layer(64 * 512, 768, EncoderConfig.xlmr_base().layer_norm_eps, seed)
+    bert = epilogue_layer(512 * 256, 768, EncoderConfig.bert_base().layer_norm_eps, seed + 1)
+    return {
+        "name": "encoder_epilogue",
+        "route": "cuda",
+        "source": "improving_learned_index_tpu_torch/csrc/encoder_epilogue.cu",
+        "replaces": "none: XLA fused this in the JAX package",
+        "max_ulps": {k: max(xlmr["max_ulps"][k], bert["max_ulps"][k]) for k in xlmr["max_ulps"]},
+        "ms": xlmr["layer"]["ms"],
+        "plain_ms": xlmr["layer"]["plain_ms"],
+        "bound_ms": xlmr["layer"]["bound_ms"],
+        "bound_by": "bytes",
+        "note": "ms, plain_ms and bound_ms: one layer's four launches at [64 x 512, 768]",
+        "shapes": {"xlmr": xlmr, "bert": bert},
+    }
+
+
+def epilogue_launches(forwards: int, layers: int, what: str) -> int:
+    """``encoder_epilogue.KERNEL.calls`` since it was last cleared: one
+    ``ili_bias_add``, one ``ili_bias_gelu`` and two
+    ``ili_bias_residual_layernorm`` a layer of each forward without grad
+    (``forwards`` of them), else AssertionError.  Returns their sum."""
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+
+    per_layer = {"ili_bias_add": 1, "ili_bias_gelu": 1, "ili_bias_residual_layernorm": 2}
+    got = {fn: epi.KERNEL.calls.get(fn, 0) for fn in per_layer}
+    if got != {fn: n * layers * forwards for fn, n in per_layer.items()} or epi.KERNEL.launches != sum(got.values()):
+        raise AssertionError(f"{what}: encoder_epilogue launched {dict(epi.KERNEL.calls)}, want {per_layer} "
+                             f"x {layers} layers x {forwards} forwards")
+    return epi.KERNEL.launches
+
+
 def steady_docs_per_s(indexer, docs, first_batch_docs: int) -> dict:
     """Encode ``docs`` through ``Indexer.encode_document_rows``.  Steady
     docs/s counts the documents after the first batch over the time from the
@@ -1415,6 +1543,7 @@ def run_encode(cfg, workdir: Path) -> dict:
     from improving_learned_index_tpu_torch.index.indexer import Indexer
     from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
     from improving_learned_index_tpu_torch.ops import short_attention as sa
     from improving_learned_index_tpu_torch.search.dense_engine import DenseSearchEngine
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, SequencePacker, WordPieceVocab
@@ -1433,7 +1562,7 @@ def run_encode(cfg, workdir: Path) -> dict:
         timings[name] = time.perf_counter() - t0
         return out
 
-    log("== phase 6: synthetic corpus, vocab, short_attention against its plain version")
+    log("== phase 6: synthetic corpus, vocab, short_attention and encoder_epilogue against their plain versions")
     passages = timed("corpus_s", lambda: make_passages(cfg))
     coll = workdir / "collection.tsv"
     coll.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages)), encoding="utf-8")
@@ -1462,6 +1591,9 @@ def run_encode(cfg, workdir: Path) -> dict:
     a_row = attention_row(q, k, v, pad_mask, seg_ids)
     del q, k, v
     log(f"short_attention: within tolerance of plain; {json.dumps(a_row)}")
+    e_row = epilogue_row(cfg.seed + 3)
+    log(f"encoder_epilogue: within 1 bf16 ulp of its twins (the LayerNorm's order slack besides); "
+        f"{json.dumps(e_row)}")
 
     log("== phase 7: encode main path (cli.index -> quantize -> invert -> rank on the card)")
     fwd, qfwd, idx = workdir / "forward.txt", workdir / "forward.q.txt", workdir / "index"
@@ -1470,15 +1602,17 @@ def run_encode(cfg, workdir: Path) -> dict:
     common = ["--collection_path", str(coll), "--vocab_path", str(vocab_path),
               "--max_length", str(cfg.max_length), "--model_batch_size", str(cfg.batch),
               "--hf_name", str(bert), "--device", cfg.device]
-    for kern in kernels:
+    for kern in kernels + [epi.KERNEL]:
         kern.calls.clear()
     timed("cli_index_s", lambda: index_main(common + ["--output_file_path", str(fwd)]))
-    launches = {kern.name: kern.launches for kern in kernels}
+    launches = {kern.name: kern.launches for kern in kernels + [epi.KERNEL]}
     log(f"cli.index: {len(passages)} passages in {timings['cli_index_s']:.1f} s; launches {launches}")
     want = config.num_layers * corpus["batches"]
     if launches["short_attention"] != want:
         raise AssertionError(f"short_attention launched {launches['short_attention']} times, want {want}")
     a_row["launches"] = launches["short_attention"]
+    e_row["launches_by_path"] = {"cli.index": epilogue_launches(corpus["batches"], config.num_layers,
+                                                                "cli.index")}
 
     timed("cli_quantize_s", lambda: quantize_main(["-i", str(fwd), "-o", str(qfwd)]))
     timed("cli_invert_s", lambda: invert_main(["-i", str(qfwd), "-o", str(idx)]))
@@ -1562,13 +1696,15 @@ def run_encode(cfg, workdir: Path) -> dict:
     del dense
 
     fwd_p = workdir / "forward.packed.txt"
-    for kern in kernels:
+    for kern in kernels + [epi.KERNEL]:
         kern.calls.clear()
     timed("cli_index_packed_s", lambda: index_main(common + ["--output_file_path", str(fwd_p), "--pack"]))
     packed_launches = sa.KERNEL.launches
     if packed_launches != config.num_layers * corpus["packed_batches"]:
         raise AssertionError(f"packed: short_attention launched {packed_launches} times, "
                              f"want {config.num_layers * corpus['packed_batches']}")
+    e_row["launches_by_path"]["cli.index --pack"] = epilogue_launches(corpus["packed_batches"], config.num_layers,
+                                                                      "cli.index --pack")
     # other rows, other batch composition: the same bf16 argument, plus
     # the two files' round(v, 3)
     err_packed = impacts_close(parse_forward(fwd_p), fwd_docs, tol[0] + 1e-3, tol[1] + 5e-4,
@@ -1600,6 +1736,7 @@ def run_encode(cfg, workdir: Path) -> dict:
     log(json.dumps({"encode_profile": profiles}))
     return {
         "row": a_row,
+        "epilogue_row": e_row,
         "passages": passages,
         "corpus": corpus,
         "timings_s": timings,
@@ -1690,6 +1827,7 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     from improving_learned_index_tpu_torch.core.config import EncoderConfig, TrainConfig
     from improving_learned_index_tpu_torch.data.datasets import MSMarcoTriples
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
     from improving_learned_index_tpu_torch.ops import short_attention as sa
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
     from improving_learned_index_tpu_torch.train import COLLATES, Trainer
@@ -1742,7 +1880,7 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
               "--batch_size", str(cfg.groups), "--no_beir_eval", "--device", cfg.device]
     ck = workdir / "ckpt"
     torch.cuda.reset_peak_memory_stats()
-    for kern in kernels:
+    for kern in kernels + [epi.KERNEL]:
         kern.calls.clear()
     t0 = time.perf_counter()
     train_main(common + ["--checkpoint_dir", str(ck), "--total_steps", str(cfg.steps),
@@ -1754,6 +1892,8 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     if launches["short_attention"] != want:
         raise AssertionError(f"cli.train: short_attention launched {launches['short_attention']} times, "
                              f"want {want} ({config.num_layers} layers x {cfg.steps} forwards)")
+    # every forward under autograd: the twins, no epilogue kernel
+    launches["encoder_epilogue"] = epilogue_launches(0, config.num_layers, "cli.train")
     packed = dict(train_metrics(ck, cfg.steps, cfg.save_every), wall_s=wall, launches=launches,
                   peak_gb=torch.cuda.max_memory_allocated() / 2**30)
     packed["steady_docs_per_s"] = packed["steady_steps_per_s"] * 2 * cfg.groups
@@ -1814,6 +1954,7 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     del trained
     torch.cuda.empty_cache()
     out["launches"] = launches["short_attention"]
+    out["epilogue_launches"] = launches["encoder_epilogue"]
     out["train_args"] = common
     return out
 
@@ -2629,7 +2770,9 @@ def run_rerank(cfg, workdir: Path, ckpt: Path) -> dict:
 
     single = [{t: v for t, v in doc if "|" not in t} for doc in batched(model)]
     del model
-    plain_config = dataclasses.replace(config, use_short_attention=False)
+    # off both kernel routes: at S=256 without short attention the shape
+    # would take flash attention
+    plain_config = dataclasses.replace(config, use_short_attention=False, use_flash_attention=False)
     errs = {}
     for route, m in (("plain", DeepImpact(plain_config, tok, state_dict=trunk, device=cfg.device)),
                      ("kernel", DeepImpact(config, tok, state_dict=trunk, device=cfg.device))):
@@ -4620,10 +4763,12 @@ def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
     S=512, where short attention does not apply and the default route is
     flash attention, through ``DeepImpact.get_impact_scores_batch``
     ([64, 12, 512, 64] a layer): 12 forward launches a batch, impacts
-    within phase 7's rule of the ``use_kernels=False`` route."""
+    within phase 7's rule of the ``use_kernels=False`` route; 4 epilogue
+    launches a layer (``epilogue_launches``)."""
     from improving_learned_index_tpu_torch.core.config import EncoderConfig
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
     from improving_learned_index_tpu_torch.models.encoder import attention_route
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
     from improving_learned_index_tpu_torch.ops import flash_attention as fa
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
 
@@ -4635,6 +4780,7 @@ def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
     sd = load_hf_checkpoint(workdir / "bert", config)
     docs = passages[: cfg.enc_docs]
     fa.KERNEL.calls.clear()
+    epi.KERNEL.calls.clear()
     model = DeepImpact(config, tok, state_dict=sd, device=cfg.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4643,15 +4789,17 @@ def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
     launches = dict(fa.KERNEL.calls)
     if launches != {"ili_flash_fwd": config.num_layers}:
         raise AssertionError(f"the S=512 encode launched {launches}")
+    epilogue = epilogue_launches(1, config.num_layers, "the S=512 encode")
     plain = DeepImpact(config, tok, state_dict=sd, device=cfg.device, use_kernels=False)
     ref = [dict(x) for x in plain.get_impact_scores_batch(docs)]
     peak = max(max(d.values(), default=0.0) for d in ref)
     err = impacts_close(got, ref, 0.05 * peak, 0.002 * peak, "encoder flash route vs plain")
     log(f"BERT-base at S=512 through flash_attention: {len(docs)} passages in {seconds:.2f} s, "
-        f"{launches['ili_flash_fwd']} launches, impacts against the plain route {err}")
+        f"{launches['ili_flash_fwd']} launches ({epilogue} encoder_epilogue), impacts against the plain route {err}")
     del model, plain
     torch.cuda.empty_cache()
-    return {"docs": len(docs), "seconds": seconds, "launches": launches["ili_flash_fwd"], "errors": err}
+    return {"docs": len(docs), "seconds": seconds, "launches": launches["ili_flash_fwd"],
+            "epilogue_launches": epilogue, "errors": err}
 
 
 def run_expansion(cfg, workdir: Path) -> dict:
@@ -5241,7 +5389,7 @@ WALKTHROUGHS = ("quickstart_torch.py", "index_lifecycle_torch.py")
 def run_walkthroughs(cfg, workdir: Path) -> dict:
     """Phase 17: the port's two walkthroughs (``examples/``), in process as a
     user runs them, with ``--device`` and a work directory of their own.
-    The counts of the seven kernels are set to 0 just before each and read
+    The counts of the eight kernels are set to 0 just before each and read
     just after; the exact top-k must have run on the card in each
     (quickstart step 6's hybrid engine takes ``topk_select``, the
     lifecycle's served device engine ``count_ge``).
@@ -5361,7 +5509,11 @@ def main() -> int:
                                  "cli.rank (msgpack-built index)": rem["topk_select"]}
     b_row["launches_by_path"] = {"PallasBlockedEngine": b_row["launches"]}
     f_row = expansion.pop("row")
-    for row in (g_row, s_row, a_row, c_row, b_row, f_row, t_row):
+    e_row = encode.pop("epilogue_row")
+    e_row["launches_by_path"].update({"cli.train (autograd: the twins)": train["epilogue_launches"],
+                                      "DeepImpact S=512 encode (the default route)":
+                                          expansion["encoder_s512"]["epilogue_launches"]})
+    for row in (g_row, s_row, a_row, c_row, b_row, f_row, t_row, e_row):
         for name, counts in walkthroughs["launches"].items():
             row["launches_by_path"][name] = counts[row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
@@ -5377,7 +5529,7 @@ def main() -> int:
     log(json.dumps({"expansion": expansion}))
     log(json.dumps({"t5": t5}))
     log(json.dumps({"walkthroughs": walkthroughs}))
-    print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row, f_row, t_row]}))
+    print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row, f_row, t_row, e_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

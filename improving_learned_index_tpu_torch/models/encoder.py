@@ -17,6 +17,19 @@ Precision is the JAX package's, written as explicit casts (no autocast):
 - the last hidden state is cast to fp32 and the impact head is an fp32
   Linear.
 
+A layer's passes between its matrix products (the six bias adds, the two
+residual adds and LayerNorms, the GELU) run in three hand-written kernels
+(``ops.encoder_epilogue``: ``csrc/encoder_epilogue.cu``, four launches a
+layer) where ``epilogue_route`` says so: on CUDA with ``use_kernels``, no
+autograd (``inference_mode`` or ``no_grad``), bf16 compute and widths the
+kernels take.  The rounding points above do not move there: the matrix
+products stay bias-free and the kernels add the bias to the rounded
+product, rounding once more; only the order of the LayerNorm's fp32 sums
+differs.  Elsewhere (training, the CPU, fp32) the same passes run as the
+PyTorch ops above, each bias added as its product comes, so a forward
+under autograd holds what it held before the kernels; the kernels' plain
+versions (``encoder_epilogue.*_plain``) compute the same values.
+
 Attention takes one of three routes, chosen from the shape in
 ``attention_route``.  With a mask, ``use_short_attention``, S <= 256,
 S % 128 == 0 and head dim % 8 == 0 it calls ``ops.short_attention`` (the
@@ -62,6 +75,7 @@ from torch import nn
 
 from ..core.config import EncoderConfig
 from ..core.profiling import annotate
+from ..ops import encoder_epilogue
 from ..ops.flash_attention import KERNEL_DIMS, flash_attention
 from ..ops.short_attention import can_use_short_attention, short_attention
 
@@ -115,10 +129,25 @@ def attention_route(config: EncoderConfig, seq: int, device: torch.device, use_k
     return "plain"
 
 
+def epilogue_route(device_type: str, use_kernels: bool, grad_enabled: bool, dtype: torch.dtype, hidden: int,
+                   intermediate: int) -> bool:
+    """True where a layer's bias, residual, LayerNorm and GELU passes run in
+    ``csrc/encoder_epilogue.cu`` (see the module docstring): a CUDA device
+    with ``use_kernels``, grad off, bf16 compute and widths the kernels
+    take.  The kernels have no backward."""
+    return (device_type == "cuda" and use_kernels and not grad_enabled and dtype == torch.bfloat16
+            and encoder_epilogue.takes(hidden, intermediate))
+
+
+def _product(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``'s product in ``dtype``, before its bias."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype))
+
+
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dtype)``: product in ``dtype``, then the bias in
-    ``dtype``."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+    ``dtype``; the product is freed before the next op."""
+    return encoder_epilogue.bias_add_plain(_product(x, layer, dtype), layer.bias)
 
 
 class Embeddings(nn.Module):
@@ -152,23 +181,29 @@ class SelfAttention(nn.Module):
         self.value = nn.Linear(h, h)
         self.output_dense = nn.Linear(h, h)
 
-    def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True, flash=False):
+    def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True, flash=False,
+                epilogue=False):
         """``attention_bias`` None selects a kernel route (mask as int32
         padding mask or segment ids): ``flash_attention`` with ``flash``,
         else ``short_attention``; otherwise the additive fp32 bias of the
-        plain route.  Returns (output, probabilities), the probabilities
-        [B, heads, S, S] in the compute dtype on the plain route and None on
-        the kernels'."""
+        plain route.  ``epilogue``: q, k and v take their biases in
+        ``encoder_epilogue``'s kernel (``epilogue_route``), and the output
+        projection is returned before its bias, which the layer's kernel
+        adds with the residual.  Returns (output, probabilities), the
+        probabilities [B, heads, S, S] in the compute dtype on the plain
+        route and None on the kernels'."""
         c = self.config
         b, s, hid = x.shape
         heads = c.num_heads
         hd = hid // heads
         dt = compute_dtype(c)
+        lins = (self.query, self.key, self.value)
+        if epilogue:  # the three products, then their biases in one launch
+            qkv = encoder_epilogue.bias_add(*(_product(x, lin, dt) for lin in lins), *(lin.bias for lin in lins))
+        else:  # each product and its bias in turn
+            qkv = (_linear(x, lin, dt) for lin in lins)
         # [B, S, heads, hd] memory; the kernel reads it as [B, heads, S, hd]
-        q, k, v = (
-            _linear(x, lin, dt).view(b, s, heads, hd).permute(0, 2, 1, 3)
-            for lin in (self.query, self.key, self.value)
-        )
+        q, k, v = (t.view(b, s, heads, hd).permute(0, 2, 1, 3) for t in qkv)
         probs = None
         if attention_bias is None and flash:
             ctx = flash_attention(q, k, v, attention_mask, attention_mask, causal=False,
@@ -182,7 +217,7 @@ class SelfAttention(nn.Module):
             probs = torch.softmax(logits + attention_bias, dim=-1).to(dt)
             ctx = torch.matmul(probs, v)
         ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, hid)
-        return _linear(ctx, self.output_dense, dt), probs
+        return (_product if epilogue else _linear)(ctx, self.output_dense, dt), probs
 
 
 class EncoderLayer(nn.Module):
@@ -198,12 +233,22 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True, flash=False):
         """Returns (hidden, the attention's probabilities or None)."""
-        dt = compute_dtype(self.config)
-        attn, probs = self.attention(x, attention_bias, attention_mask, packed, use_kernels, flash)
-        x = self.attention_norm((x + attn).float()).to(dt)
-        h = F.gelu(_linear(x, self.intermediate, dt), approximate="none")
-        h = _linear(h, self.output, dt)
-        return self.output_norm((x + h).float()).to(dt), probs
+        c = self.config
+        dt = compute_dtype(c)
+        fused = epilogue_route(x.device.type, use_kernels, torch.is_grad_enabled(), dt, c.hidden_size,
+                               c.intermediate_size)
+        attn, probs = self.attention(x, attention_bias, attention_mask, packed, use_kernels, flash, fused)
+        if not fused:  # the PyTorch ops, each bias added as its product comes
+            x = self.attention_norm((x + attn).float()).to(dt)
+            h = F.gelu(_linear(x, self.intermediate, dt), approximate="none")
+            h = _linear(h, self.output, dt)
+            return self.output_norm((x + h).float()).to(dt), probs
+        an, on = self.attention_norm, self.output_norm
+        x = encoder_epilogue.bias_residual_layernorm(attn, self.attention.output_dense.bias, x, an.weight, an.bias,
+                                                     an.eps)
+        h = encoder_epilogue.bias_gelu(_product(x, self.intermediate, dt), self.intermediate.bias)
+        return encoder_epilogue.bias_residual_layernorm(_product(h, self.output, dt), self.output.bias, x, on.weight,
+                                                        on.bias, on.eps), probs
 
 
 class TransformerEncoder(nn.Module):

@@ -26,8 +26,13 @@ twin) and the log-sum-exp within 1e-4, and two backward runs, whose fp32
 dq sums are atomic adds in another order each run, to each other within
 the same 1e-2; the tile pairs they computed, by their own count, equal the
 tile rule's (``tile_pairs``); the Llama forward and a fine-tune step through
-them to the twin route within stated tolerances.  The T5 route reaches no
-kernel: a tiny fp32 T5's greedy tokens on the card equal the CPU's.
+them to the twin route within stated tolerances.  The encoder's epilogue
+kernels (bias, residual, LayerNorm, GELU) are held to their twins within 1
+bf16 ulp of each output (the same roundings; only the LayerNorm's fp32 sums
+run in another order), engage on every forward without grad and on none
+with it, and keep an encode batch within the encode cells' impact-gap
+limits of the twin route.  The T5 route reaches no kernel: a tiny fp32
+T5's greedy tokens on the card equal the CPU's.
 """
 
 import numpy as np
@@ -40,6 +45,7 @@ from improving_learned_index_tpu_torch.ops import scatter_scores as ss
 from improving_learned_index_tpu_torch.ops import pallas_scoring as ps
 from improving_learned_index_tpu_torch.ops import flash_attention as fa
 from improving_learned_index_tpu_torch.ops import short_attention as sa
+from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
 from improving_learned_index_tpu_torch.ops.count_ge import KERNEL as COUNT_KERNEL
 from improving_learned_index_tpu_torch.ops.count_ge import count_ge, count_ge_plain
 from improving_learned_index_tpu_torch.ops import topk_select as tks
@@ -1155,6 +1161,163 @@ def test_encoder_route_on_the_card(cuda, seq, maps, route):
     real = seg > 0
     assert (got[real] - want[real]).abs().max() <= 2e-2 * want[real].abs().max()
 
+
+# (token rows, hidden width): the BERT cell's [512, 256] and the XLM-R cell's
+# [64, 512] batches, XLM-R-large's width, and a T that no block's rows divide
+_EPILOGUE_SHAPES = [(512 * 256, 768), (64 * 512, 768), (4096, 1024), (37, 768), (1001, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", _EPILOGUE_SHAPES)
+def test_encoder_epilogue_kernels_equal_twins(cuda, rows, width):
+    """Each ``encoder_epilogue`` kernel against its twin (the former
+    PyTorch ops, on the card) within 1 bf16 ulp of each output: the same
+    roundings in the same places.  The LayerNorm's fp32 sums run in another
+    order, so its outputs are held within 1 bf16 ulp plus what that order
+    may move them by (``chip_smoke.layernorm_order_slack``).  One launch
+    each, q, k and v in one."""
+    from chip_smoke import bf16_ulps, layernorm_order_slack
+
+    g, dev, bf = cuda, "cuda", torch.bfloat16
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    def fp32(n, scale, shift=0.0):
+        return torch.randn(n, generator=g, device=dev) * scale + shift
+
+    calls = dict(epi.KERNEL.calls)
+    ys, bs = [bf16(rows, width) for _ in range(3)], [fp32(width, 0.5) for _ in range(3)]
+    want = [epi.bias_add_plain(y, b) for y, b in zip(ys, bs)]
+    got = epi.bias_add(*(y.clone() for y in ys), *bs)
+    h, hb = bf16(rows, 4 * width, scale=2.0), fp32(4 * width, 0.5)
+    got_gelu, want_gelu = epi.bias_gelu(h, hb), epi.bias_gelu_plain(h, hb)
+    h2, b2, x = bf16(rows, width), fp32(width, 0.5), bf16(rows, width, scale=4.0)
+    w, nb = fp32(width, 0.2, 1.0), fp32(width, 0.2)
+    got_ln = epi.bias_residual_layernorm(h2, b2, x, w, nb, 1e-12)
+    want_ln = epi.bias_residual_layernorm_plain(h2, b2, x, w, nb, 1e-12)
+    torch.cuda.synchronize()
+    assert {k: epi.KERNEL.calls.get(k, 0) - calls.get(k, 0) for k in epi.KERNEL.functions} == {
+        "ili_bias_add": 1, "ili_bias_gelu": 1, "ili_bias_residual_layernorm": 1}
+    for a, b in [*zip(got, want), (got_gelu, want_gelu)]:
+        assert a.dtype == bf and a.shape == b.shape
+        assert float(bf16_ulps(a, b).max()) <= 1.0
+    assert got_ln.dtype == bf and got_ln.shape == want_ln.shape
+    assert bool((bf16_ulps(got_ln, want_ln) <= 1.0 + layernorm_order_slack(h2, b2, x, w, nb, 1e-12, want_ln)).all())
+
+
+@pytest.mark.cuda
+def test_encoder_epilogue_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    dev = "cuda"
+    y, b = torch.zeros(16, 768, dtype=torch.bfloat16, device=dev), torch.zeros(768, device=dev)
+    w, nb = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        epi.bias_gelu(y.float(), b)
+    with pytest.raises(ValueError, match="bf16"):
+        epi.bias_residual_layernorm(y.float(), b, y.float(), w, nb, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        epi.bias_add(y, y, torch.zeros(16, 1536, dtype=torch.bfloat16, device=dev)[:, :768], b, b, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        epi.bias_residual_layernorm(y, b, torch.zeros(768, 16, dtype=torch.bfloat16, device=dev).t(), w, nb, 1e-5)
+    wide = torch.zeros(4, 1032, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="width 1032"):
+        epi.bias_residual_layernorm(wide, torch.zeros(1032, device=dev), wide, torch.ones(1032, device=dev),
+                                    torch.zeros(1032, device=dev), 1e-5)
+    odd = torch.zeros(4, 100, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        epi.bias_gelu(odd, torch.zeros(100, device=dev))
+    with pytest.raises(ValueError, match="no backward"):
+        epi.bias_gelu(y, b.clone().requires_grad_())
+    assert not epi.takes(1032, 4128) and not epi.takes(100, 400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,seq", [("bert", 128), ("xlmr", 512)])
+def test_encoder_epilogue_engages_on_every_inference_forward(cuda, family, seq):
+    """BERT-base and XLM-R-base geometry (12 layers): one forward under
+    ``inference_mode`` and one under ``no_grad`` launch 12 x (1 + 1 + 2)
+    epilogue kernels, one ``ili_bias_add``, one ``ili_bias_gelu`` and two
+    ``ili_bias_residual_layernorm`` a layer; a forward under autograd
+    launches none, and its output equals the ``no_grad`` forward's on the
+    twins."""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models import encoder as enc
+    config = (EncoderConfig.bert_base if family == "bert" else EncoderConfig.xlmr_base)(vocab_size=1000)
+    model = enc.DeepImpactModel(config)
+    enc.init_weights(model, torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    ids = torch.randint(4, 1000, (2, seq), generator=cuda, device="cuda")
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    mask[1, seq // 2:] = 0
+    per_layer = {"ili_bias_add": 1, "ili_bias_gelu": 1, "ili_bias_residual_layernorm": 2}
+
+    def launched(run):
+        before = dict(epi.KERNEL.calls)
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: epi.KERNEL.calls.get(k, 0) - before.get(k, 0) for k in per_layer}
+
+    for mode in (torch.inference_mode, torch.no_grad):
+        with mode():
+            _, counts = launched(lambda: model(ids, mask))
+        assert counts == {k: config.num_layers * n for k, n in per_layer.items()}
+    out, counts = launched(lambda: model(ids, mask))
+    assert out.requires_grad and counts == dict.fromkeys(per_layer, 0)
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(enc, "epilogue_route", lambda *a: False)
+        twin, counts = launched(lambda: model(ids, mask))
+    assert counts == dict.fromkeys(per_layer, 0) and torch.equal(out.detach(), twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,seq,limits", [("bert", 256, (0.5, 0.055)), ("xlmr", 512, (0.2, 0.025))])
+def test_encode_packed_on_epilogue_kernels_within_the_cells_limits(cuda, family, seq, limits):
+    """One ``DeepImpact.encode_packed`` batch at the cell's geometry and
+    sequence length on the epilogue kernels against the same batch on their
+    twins (``epilogue_route`` patched off): the widest and mean |impact gap|
+    over the twin route's mean impact within the cell's limits
+    (``impact_gap_max``, ``impact_gap_mean``).  Weights as the benchmark
+    draws them: matrices and embeddings N(0, 0.02), BERT's initialization,
+    and the head calibrated to unit spread and median 0 of its input's
+    projection.  (At ``init_weights``' flax scales a random 12-layer trunk
+    drives every token toward one vector, the calibration then magnifies
+    the hidden state's last bits, and a LayerNorm computed in float64 alone
+    moves the impacts past both limits on the CPU.)"""
+    from improving_learned_index_tpu_torch.core.config import EncoderConfig
+    from improving_learned_index_tpu_torch.models import DeepImpact
+    from improving_learned_index_tpu_torch.models import encoder as enc
+    from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
+    from improving_learned_index_tpu_torch.text.packing import pack_documents
+
+    rng = np.random.default_rng(3)
+    words = [f"w{i}q" for i in range(2000)]
+    docs = [" ".join(rng.choice(words, int(rng.integers(20, 400)))) for _ in range(96)]
+    tok = ImpactTokenizer(WordPieceVocab.build(docs, max_size=4000), max_length=seq)
+    config = (EncoderConfig.bert_base if family == "bert" else EncoderConfig.xlmr_base)(vocab_size=len(tok.vocab))
+    model = DeepImpact(config, tok, seed=0, device="cuda")
+    batch = next(iter(pack_documents([tok.process_document(d) for d in docs], seq, 16)))
+    head = model.module.impact_head.dense
+    with torch.no_grad():
+        for p in model.module.parameters():
+            if p.dim() == 2:
+                p.normal_(0.0, 0.02, generator=cuda)
+        seg = torch.as_tensor(batch.segment_ids, device="cuda")
+        hidden = model.module.encoder(torch.as_tensor(batch.input_ids, device="cuda"), (seg > 0).int(),
+                                      torch.as_tensor(batch.type_ids, device="cuda"), segment_ids=seg)
+        z = hidden[seg > 0] @ head.weight[0]
+        scale, mid = float(z.std()), float(z.median())
+        head.weight.div_(scale)
+        head.bias.fill_(-mid / scale)
+    before = epi.KERNEL.launches
+    got = model.encode_packed(batch)
+    assert epi.KERNEL.launches - before == 4 * config.num_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(enc, "epilogue_route", lambda *a: False)
+        want = model.encode_packed(batch)
+    gap = np.abs(got.astype(np.float64) - want) / np.mean(want)
+    assert np.mean(want) > 0 and gap.max() <= limits[0] and gap.mean() <= limits[1], (gap.max(), gap.mean())
+
+
 @pytest.mark.cuda
 def test_llama_flash_forward_and_finetune_step_equal_twin_route(cuda):
     """A 2-layer Llama at head dim 128 (rep 2), bf16: the cache-less forward
@@ -1206,7 +1369,7 @@ def test_t5_greedy_on_card_equals_cpu(cuda):
     """A tiny T5 in fp32 compute (gated, untied, as mT5): greedy tokens on the
     card equal the CPU's with fp32 and int8 trees, teacher-forced logits
     within 1e-4, the bucket function on card tensors equal to the CPU's
-    over [-4096, 4096] both ways; the T5 route launches none of the six
+    over [-4096, 4096] both ways; the T5 route launches none of the port's
     kernels (its attention is plain torch, as the JAX package's is XLA)."""
     import dataclasses
 
@@ -1235,7 +1398,7 @@ def test_t5_greedy_on_card_equals_cpu(cuda):
                      params=tree_to(params, "cuda"))
     assert (card.cpu() - cpu).abs().max() <= 1e-4
     sampler = T5Sampler(cfg, GenerationConfig(max_new_tokens=8, do_sample=False))
-    counters = (fa.KERNEL, sa.KERNEL, gr.KERNEL, ss.KERNEL, ps.KERNEL, COUNT_KERNEL, tks.KERNEL)
+    counters = (fa.KERNEL, sa.KERNEL, gr.KERNEL, ss.KERNEL, ps.KERNEL, COUNT_KERNEL, tks.KERNEL, epi.KERNEL)
     before = [k.launches for k in counters]
     for tree in (params, quantize_params_int8(params)):
         want = sampler.generate(tree, ids, mask, num_return_sequences=2)
