@@ -85,7 +85,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``ili_bias_add``, one ``ili_bias_gelu``, two
    ``ili_bias_residual_layernorm``) a batch, also under ``--pack``.
    Checks: on 512 passages the kernel route
-   equals ``use_kernels=False`` (term lists identical, impacts within a
+   equals the plain route (``ops.plain_versions()``; term lists identical, impacts within a
    stated tolerance) and the CLI's forward index; the inverted index equals
    a numpy inversion of the quantized file; four ranked queries equal the
    numpy scorer rank by rank, and ``DenseSearchEngine`` over the same index
@@ -97,7 +97,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    6's corpus and vocabulary, with seeded triples (each query 3-4 words of
    its positive passage, the negative another passage; 16 steps' worth of
    128 query groups).  Check 1: on one packed batch the kernel route's loss
-   is within 1% of ``use_kernels=False``'s, the global gradient norm within
+   is within 1% of the plain route's, the global gradient norm within
    2%, the gradients' cosine >= 0.99; a profiler window of 2 steps gives the
    device time by kernel kind and by region (forward and loss, the
    attention backward's recompute, the clipped AdamW step).  Check 2:
@@ -151,7 +151,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    batch: 50 queries written, ``short_attention`` launched 12 times an
    encode batch; every score within 1e-5 relative of the fp64 sum of the
    impacts the CLI encoded, in their stable descending order but for
-   near-ties (counted); an in-process ``ReRanker`` with ``use_kernels=False``
+   near-ties (counted); an in-process ``ReRanker`` inside ``plain_versions()``
    on the same checkpoint encodes the same terms with impacts within phase
    7's tolerance, and its run holds the CLI's scores within what those
    impacts add up to, the order exact but for near-ties (counted); MRR@10
@@ -286,8 +286,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    BERT-base at S=512 (phase 7's trunk), whose default route there is
    flash attention, through ``DeepImpact.get_impact_scores_batch`` over 64
    passages: 12 forward launches and 48 ``encoder_epilogue`` launches,
-   impacts within phase 7's rule of
-   ``use_kernels=False``.  (3)
+   impacts within phase 7's rule of the plain route
+   (``plain_versions()``).  (3)
    Llama-2-7B (``LlamaConfig.llama2_7b``, seeded bf16 weights made on the
    card) with a word tokenizer of phase 6's 31,996 most frequent words:
    ``QueryGenerator`` at the JAX CLI's defaults (80 sequences, 50 new
@@ -823,8 +823,13 @@ def topk_row(scores, k: int = 1000):
     version and the n-ary route: values and doc ids, exactly.  ``ms`` is the
     whole histogram route (its three kernels and the selection rank's
     PyTorch steps), beside two reads of the matrix."""
+    from improving_learned_index_tpu_torch.ops import plain_versions
     from improving_learned_index_tpu_torch.ops import topk_select as tks
     from improving_learned_index_tpu_torch.ops.exact_topk import exact_topk_integer
+
+    def plain_topk():
+        with plain_versions():
+            return exact_topk_integer(scores, k, max_score=bound)
 
     q, n = scores.shape
     bound = tks.BINS - 1
@@ -833,7 +838,7 @@ def topk_row(scores, k: int = 1000):
     s_k = tks.kth_scores(hist, k)
     want_counts = tks.block_counts_plain(scores, s_k)
     got = exact_topk_integer(scores, k, max_score=bound)
-    routes = {"plain": exact_topk_integer(scores, k, max_score=bound, use_kernel=False),
+    routes = {"plain": plain_topk(),
               "nary": exact_topk_integer(scores, k)}
     torch.cuda.synchronize()
     checks = {
@@ -859,8 +864,7 @@ def topk_row(scores, k: int = 1000):
         "kernels_ms": {"value_histogram": cuda_ms(lambda: tks.value_histogram(scores)),
                        "kth_scores": cuda_ms(lambda: tks.kth_scores(hist, k)),
                        "block_counts": cuda_ms(lambda: tks.block_counts(scores, s_k, block_max))},
-        "plain_ms": cuda_ms(lambda: exact_topk_integer(scores, k, max_score=bound, use_kernel=False),
-                            iters=3, warmup=1),
+        "plain_ms": cuda_ms(plain_topk, iters=3, warmup=1),
         "nary_ms": cuda_ms(lambda: exact_topk_integer(scores, k)),
         "bound_ms": b,
         "bound_by": by,
@@ -1544,6 +1548,7 @@ def run_encode(cfg, workdir: Path) -> dict:
     from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
     from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+    from improving_learned_index_tpu_torch.ops import plain_versions
     from improving_learned_index_tpu_torch.ops import short_attention as sa
     from improving_learned_index_tpu_torch.search.dense_engine import DenseSearchEngine
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, SequencePacker, WordPieceVocab
@@ -1621,10 +1626,10 @@ def run_encode(cfg, workdir: Path) -> dict:
     # both against the CLI's forward index (same seed, same batches)
     weights = load_hf_checkpoint(bert, config)
     model = DeepImpact(config, tok, state_dict=weights, device=cfg.device)
-    plain = DeepImpact(config, tok, state_dict=weights, device=cfg.device, use_kernels=False)
     head = passages[: cfg.check_docs]
     got = [dict(x) for x in model.get_impact_scores_batch(head)]
-    ref = [dict(x) for x in plain.get_impact_scores_batch(head)]
+    with plain_versions():
+        ref = [dict(x) for x in model.get_impact_scores_batch(head)]
     peak = max(max(d.values(), default=0.0) for d in ref)
     scored = sum(v > 0 for d in ref for v in d.values()) / max(sum(map(len, ref)), 1)
     if not 0.05 < scored < 0.95:
@@ -1645,7 +1650,6 @@ def run_encode(cfg, workdir: Path) -> dict:
     log(f"kernel route vs plain on {len(head)} passages: max |diff| {err_plain} "
         f"(tolerance {tol}, largest impact {peak}, {scored:.3f} of terms above 0); "
         f"vs cli.index {err_cli}")
-    del plain
 
     index = InvertedIndexData.load(idx)
     postings = {}
@@ -1772,19 +1776,23 @@ def write_triples(workdir: Path, passages: list, n: int, seed: int) -> tuple:
 
 def kernel_vs_plain_step(module, loss_name: str, batch: dict) -> dict:
     """One training batch's loss and gradients on the kernel route and on
-    the plain route (``use_kernels=False``): the loss within 1%, the global
+    the plain route (``plain_versions()``): the loss within 1%, the global
     gradient norm within 2%, the gradients' cosine >= 0.99, else
     AssertionError.  The same bf16 argument as phase 7's impact tolerance:
     the forwards differ by at most two bf16 ulps of an attention output, and
     the backwards are one recompute."""
+    from contextlib import nullcontext
+
+    from improving_learned_index_tpu_torch.ops import plain_versions
     from improving_learned_index_tpu_torch.train import make_loss_fn
 
     routes = {}
-    for use_kernels in (True, False):
-        loss = make_loss_fn(module, loss_name, use_kernels=use_kernels)(batch)
-        loss.backward()
+    for kernels in (True, False):
+        with nullcontext() if kernels else plain_versions():
+            loss = make_loss_fn(module, loss_name)(batch)
+            loss.backward()
         grads = torch.cat([p.grad.flatten() for p in module.parameters()])
-        routes[use_kernels] = (loss.item(), grads)
+        routes[kernels] = (loss.item(), grads)
         for p in module.parameters():
             p.grad = None
     (lk, gk), (lp, gp) = routes[True], routes[False]
@@ -2458,6 +2466,7 @@ def run_rerank(cfg, workdir: Path, ckpt: Path) -> dict:
     from improving_learned_index_tpu_torch.models import (
         DeepImpact, DeepImpactCrossEncoder, DeepPairwiseImpact, load_hf_checkpoint,
     )
+    from improving_learned_index_tpu_torch.ops import plain_versions
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
     from improving_learned_index_tpu_torch.text.processor import batch_arrays
     from improving_learned_index_tpu_torch.train import COLLATES, Trainer
@@ -2553,9 +2562,10 @@ def run_rerank(cfg, workdir: Path, ckpt: Path) -> dict:
         swaps += float_rows_close(got[qid], sorted(sums, key=lambda x: x[1], reverse=True))
     # the plain route on the same checkpoint: impacts within phase 7's
     # tolerance, the run within what those impacts add up to
-    plain = DeepImpact(config, tok, state_dict=load_params(ckpt), device=cfg.device, use_kernels=False)
+    plain = DeepImpact(config, tok, state_dict=load_params(ckpt), device=cfg.device)
     rr_plain = ReRanker(plain, run_path, qpath, coll, d / "reranked.plain.run", batch_size=cfg.batch)
-    rr_plain.run()
+    with plain_versions():
+        rr_plain.run()
     encoded = sorted(rr.cache)
     ref = [rr_plain.cache[p] for p in encoded]
     peak = max(max(c.values(), default=0.0) for c in ref)
@@ -2692,8 +2702,9 @@ def run_rerank(cfg, workdir: Path, ckpt: Path) -> dict:
                              f"times in {calls} batches, want {config.num_layers} x {want_calls}")
     launches_by_path["cli.cross_encoder_rerank"] = launches["short_attention"]
     got = read_run(ce_run)
-    plain = DeepImpactCrossEncoder(config, tok, state_dict=load_params(final), device=cfg.device, use_kernels=False)
-    CrossEncoderReRanker(plain, ce_topk, coll, d / "ce_reranked.plain.run", batch_size=cfg.ce_batch).run()
+    plain = DeepImpactCrossEncoder(config, tok, state_dict=load_params(final), device=cfg.device)
+    with plain_versions():
+        CrossEncoderReRanker(plain, ce_topk, coll, d / "ce_reranked.plain.run", batch_size=cfg.ce_batch).run()
     want = read_run(d / "ce_reranked.plain.run")
     spread = float(np.std([s for rows in want.values() for _, s in rows]))
     if spread == 0:
@@ -4215,7 +4226,7 @@ def remainder_checks(cfg, workdir: Path, texts: list, gated: list, t_phase: floa
     with torch.inference_mode():
         ids, mask, types = (torch.from_numpy(np.asarray([getattr(e, k) for e in encs], np.int32)).to(cfg.device)
                             for k in ("ids", "attention_mask", "type_ids"))
-        _, maps = model.module.encoder(ids, mask, types, use_kernels=model.use_kernels, output_attentions=True)
+        _, maps = model.module.encoder(ids, mask, types, output_attentions=True)
         maps = torch.stack(maps).cpu().numpy()
     n_pairs = 0
     for b, (enc, doc_pairs) in enumerate(zip(encs, pairs)):
@@ -4441,6 +4452,7 @@ def greedy_check(cfg, config, tok, passages, steps: int = 8) -> dict:
     from improving_learned_index_tpu_torch.core.config import GenerationConfig
     from improving_learned_index_tpu_torch.expand import QueryGenerator
     from improving_learned_index_tpu_torch.models.llama import LlamaModel, init_llama_params
+    from improving_learned_index_tpu_torch.ops import plain_versions
 
     fcfg = dataclasses.replace(config, dtype="float32")
     gen = GenerationConfig(num_return_sequences=1, max_new_tokens=steps, do_sample=False, max_tokens=cfg.max_tokens)
@@ -4453,9 +4465,9 @@ def greedy_check(cfg, config, tok, passages, steps: int = 8) -> dict:
     lengths = np.where(ended.any(1), ended.argmax(1) + 1, steps)
     x = torch.as_tensor(np.concatenate([ids, got], 1).astype(np.int64), device=cfg.device)
     m = torch.as_tensor(np.concatenate([mask, np.ones_like(got)], 1).astype(np.int64), device=cfg.device)
-    with torch.no_grad():
+    with torch.no_grad(), plain_versions():
         logits, _ = LlamaModel(fcfg, device="meta")(x, m, torch.clamp(torch.cumsum(m, 1) - 1, min=0),
-                                                    params=generator.params, use_kernels=False)
+                                                    params=generator.params)
     logits = logits[:, prompt - 1: prompt - 1 + steps].double().cpu().numpy()
     del generator, x
     torch.cuda.empty_cache()
@@ -4517,9 +4529,12 @@ def finetune_runs(cfg, params, config, tok, passages) -> dict:
     flash attention; the kernel route's loss and adapter gradients against
     the twin route's; steps timed with the flash launches counted; one
     ``trl_4bit`` step."""
+    from contextlib import nullcontext
+
     from improving_learned_index_tpu_torch.expand.finetune import Doc2QueryFineTuner
     from improving_learned_index_tpu_torch.expand.lora import lora_leaves
     from improving_learned_index_tpu_torch.ops import flash_attention as fa
+    from improving_learned_index_tpu_torch.ops import plain_versions
 
     fcfg = dataclasses.replace(config, use_flash_attention=True, max_position_embeddings=cfg.seq)
     doc = " ".join(passages)
@@ -4544,12 +4559,11 @@ def finetune_runs(cfg, params, config, tok, passages) -> dict:
         raise AssertionError(f"fine-tune batch {batch['input_ids'].shape}, "
                              f"{(batch['labels'] != -100).sum()} labels")
     check = {}
-    for use in (True, False):
-        ft.use_kernels = use
-        loss = ft.loss(ft._to_device(batch))
-        grads = torch.autograd.grad(loss, lora_leaves(ft.lora))
-        check[use] = (float(loss.detach()), torch.cat([g_.flatten() for g_ in grads]))
-    ft.use_kernels = True
+    for kernels in (True, False):
+        with nullcontext() if kernels else plain_versions():  # the checkpointed recompute too
+            loss = ft.loss(ft._to_device(batch))
+            grads = torch.autograd.grad(loss, lora_leaves(ft.lora))
+        check[kernels] = (float(loss.detach()), torch.cat([g_.flatten() for g_ in grads]))
     cos = float(torch.nn.functional.cosine_similarity(check[True][1], check[False][1], dim=0))
     rel = abs(check[True][0] - check[False][0]) / abs(check[False][0])
     out["loss_kernel"], out["loss_twin"], out["loss_rel_diff"], out["grad_cosine"] = \
@@ -4763,13 +4777,14 @@ def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
     S=512, where short attention does not apply and the default route is
     flash attention, through ``DeepImpact.get_impact_scores_batch``
     ([64, 12, 512, 64] a layer): 12 forward launches a batch, impacts
-    within phase 7's rule of the ``use_kernels=False`` route; 4 epilogue
+    within phase 7's rule of the ``plain_versions()`` route; 4 epilogue
     launches a layer (``epilogue_launches``)."""
     from improving_learned_index_tpu_torch.core.config import EncoderConfig
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
     from improving_learned_index_tpu_torch.models.encoder import attention_route
     from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
     from improving_learned_index_tpu_torch.ops import flash_attention as fa
+    from improving_learned_index_tpu_torch.ops import plain_versions
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
 
     config = EncoderConfig.bert_base()
@@ -4790,13 +4805,13 @@ def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
     if launches != {"ili_flash_fwd": config.num_layers}:
         raise AssertionError(f"the S=512 encode launched {launches}")
     epilogue = epilogue_launches(1, config.num_layers, "the S=512 encode")
-    plain = DeepImpact(config, tok, state_dict=sd, device=cfg.device, use_kernels=False)
-    ref = [dict(x) for x in plain.get_impact_scores_batch(docs)]
+    with plain_versions():
+        ref = [dict(x) for x in model.get_impact_scores_batch(docs)]
     peak = max(max(d.values(), default=0.0) for d in ref)
     err = impacts_close(got, ref, 0.05 * peak, 0.002 * peak, "encoder flash route vs plain")
     log(f"BERT-base at S=512 through flash_attention: {len(docs)} passages in {seconds:.2f} s, "
         f"{launches['ili_flash_fwd']} launches ({epilogue} encoder_epilogue), impacts against the plain route {err}")
-    del model, plain
+    del model
     torch.cuda.empty_cache()
     return {"docs": len(docs), "seconds": seconds, "launches": launches["ili_flash_fwd"],
             "epilogue_launches": epilogue, "errors": err}

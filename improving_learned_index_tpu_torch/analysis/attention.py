@@ -36,8 +36,7 @@ def extract_term_pair_attention(
     with device_scope(model.device):
         ids, mask, types = (model._upload(arrays[k])
                             for k in ("input_ids", "attention_mask", "type_ids"))
-        _, maps = model.module.encoder(ids, mask, types, use_kernels=model.use_kernels,
-                                       output_attentions=True)
+        _, maps = model.module.encoder(ids, mask, types, output_attentions=True)
         mean_attn = torch.stack(maps).cpu().numpy()  # [layers, B, L, L]
 
     results: List[Dict[Tuple[str, str], np.ndarray]] = []

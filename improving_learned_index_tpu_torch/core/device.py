@@ -24,15 +24,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
-def resolve_use_kernels(device: torch.device, use_kernels: Optional[bool]) -> bool:
-    """An engine's or model's kernel switch: ``None`` -> the kernels on CUDA
-    (the plain versions on the CPU); ``False`` on the card runs the plain
-    versions, for cross-checks only; ``True`` off the card raises."""
-    if use_kernels and device.type != "cuda":
-        raise ValueError("use_kernels=True needs a CUDA device")
-    return device.type == "cuda" if use_kernels is None else bool(use_kernels)
-
-
 def device_scope(device: torch.device):
     """``device`` as the current one while its work is launched (the kernels
     launch on the current device, and an event marks the current stream);

@@ -18,8 +18,6 @@ come back in score order, the lower doc id first among ties.
   ``get_impact_scores_batch``.
 - ``device`` is the engines' device: ``None`` means the model's (``cuda``
   for a model without one; without a CUDA device that raises).
-  ``use_kernels=False`` on the card runs the kernels' plain versions, for
-  cross-checks only.
 """
 
 from __future__ import annotations
@@ -44,14 +42,12 @@ class SparseSearch:
         verbose: bool = False,
         use_packing: bool = True,
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
     ):
         self.model = model
         self.batch_size = batch_size
         self.verbose = verbose
         self.use_packing = use_packing
         self.device = device if device is not None else getattr(model, "device", None)
-        self.use_kernels = use_kernels
         self.engine: Optional[Union[DeviceSearchEngine, HybridSearchEngine]] = None
         self.corpus_ids: List[str] = []
 
@@ -81,9 +77,7 @@ class SparseSearch:
         # corpus scale: the flat [Q, num_docs] accumulator stops being the
         # right shape; the hybrid engine's float mode takes over
         cls = HybridSearchEngine if len(texts) >= HYBRID_MIN_DOCS else DeviceSearchEngine
-        self.engine = cls.from_term_impacts(
-            impacts(), device=self.device, use_kernels=self.use_kernels
-        )
+        self.engine = cls.from_term_impacts(impacts(), device=self.device)
         if self.verbose:
             logger.info(
                 f"built in-memory index ({cls.__name__}): {len(self.engine.vocab)} terms over "

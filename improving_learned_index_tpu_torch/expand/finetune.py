@@ -34,7 +34,7 @@ import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ..core.device import resolve_device, resolve_use_kernels
+from ..core.device import resolve_device
 from ..core.logging import get_logger
 from ..models.llama import (
     LlamaConfig,
@@ -96,7 +96,7 @@ def _deq_merge(subtree, lora_subtree, lora_config, dt):
 
 
 def _layerwise_trunk(config: LlamaConfig, lora_config: LoraConfig, lora, base_params, batch,
-                     module: LlamaModel, use_kernels: bool = True):
+                     module: LlamaModel):
     """Hidden states after the final norm and the (merged) ``[hidden, vocab]``
     head kernel (the tied embedding transposed with ``tie_word_embeddings``);
     each layer dequantized and merged inside its checkpoint region."""
@@ -112,7 +112,7 @@ def _layerwise_trunk(config: LlamaConfig, lora_config: LoraConfig, lora, base_pa
 
     def layer_step(x, layer, layer_q, layer_lora):
         merged = _deq_merge(layer_q, layer_lora, lora_config, dt)
-        out, _ = functional_call(layer, _flat(merged), (x, positions, bias, None, None, seg_ids, use_kernels))
+        out, _ = functional_call(layer, _flat(merged), (x, positions, bias, None, None, seg_ids))
         return out
 
     for i in range(c.num_layers):
@@ -128,9 +128,9 @@ def _layerwise_trunk(config: LlamaConfig, lora_config: LoraConfig, lora, base_pa
     return x, head_kernel
 
 
-def layerwise_lm_logits(config, lora_config, lora, base_params, batch, module, use_kernels=True):
+def layerwise_lm_logits(config, lora_config, lora, base_params, batch, module):
     """Full ``[B, S, vocab]`` fp32 logits through the layerwise trunk."""
-    x, head = _layerwise_trunk(config, lora_config, lora, base_params, batch, module, use_kernels)
+    x, head = _layerwise_trunk(config, lora_config, lora, base_params, batch, module)
     return torch.matmul(x.to(torch.float32), head.to(torch.float32))
 
 
@@ -143,11 +143,10 @@ def _chunk_ce(xc, labc, head):
     return torch.where(valid, tok, 0.0).sum(), valid.sum()
 
 
-def layerwise_lm_loss(config, lora_config, lora, base_params, batch, module, use_kernels=True,
-                      chunk: int = 256) -> torch.Tensor:
+def layerwise_lm_loss(config, lora_config, lora, base_params, batch, module, chunk: int = 256) -> torch.Tensor:
     """Next-token CE through the layerwise trunk with the head computed
     ``chunk`` positions at a time, each chunk in a checkpoint region."""
-    x, head = _layerwise_trunk(config, lora_config, lora, base_params, batch, module, use_kernels)
+    x, head = _layerwise_trunk(config, lora_config, lora, base_params, batch, module)
     labels = batch["labels"]
     bsz, qlen, _ = x.shape
     shifted = torch.cat([labels[:, 1:], torch.full((bsz, 1), IGNORE_INDEX, dtype=labels.dtype,
@@ -179,8 +178,7 @@ class Doc2QueryFineTuner:
 
     ``quantize_base``: ``None`` keeps the frozen base as given; ``"int8"`` /
     ``"int4"`` quantize it on ``device`` (default ``cuda``; raises without
-    one).  Adapters are fp32 and the only parameters.  ``use_kernels=False``
-    on the card runs the flash twin, for cross-checks only.
+    one).  Adapters are fp32 and the only parameters.
     """
 
     def __init__(
@@ -202,10 +200,8 @@ class Doc2QueryFineTuner:
         weight_decay: float = 1e-4,  # optax.adamw's default, not torch's 1e-2
         layerwise: Optional[bool] = None,
         device=None,
-        use_kernels: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
-        self.use_kernels = resolve_use_kernels(self.device, use_kernels)
         self.config = config
         self.tokenizer = tokenizer
         self.lora_config = lora_config
@@ -244,11 +240,10 @@ class Doc2QueryFineTuner:
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if self.layerwise:
             return layerwise_lm_loss(self.config, self.lora_config, self.lora, self.base_params, batch,
-                                     self.module, self.use_kernels)
+                                     self.module)
         base = dequantize_params(self.base_params, compute_dtype(self.config))
         merged = lora_forward_params(base, self.lora, self.lora_config)
-        logits, _ = self.module(batch["input_ids"], batch["attention_mask"], params=merged,
-                                use_kernels=self.use_kernels)
+        logits, _ = self.module(batch["input_ids"], batch["attention_mask"], params=merged)
         return causal_lm_loss(logits, batch["labels"])
 
     def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

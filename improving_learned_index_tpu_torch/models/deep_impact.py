@@ -17,8 +17,6 @@ xlmr_original.py:87-267): ``process_query`` / ``process_document`` /
   batch before this one's scores are read.  ``np.asarray`` on it waits.
 - Eager PyTorch compiles nothing, so batches are not padded to bucket
   sizes as the JAX wrapper pads them for XLA.
-- ``use_kernels=False`` on the card runs the plain attention, for
-  cross-checks only.
 - ``devices=[...]`` (in place of ``device``): data-parallel encode (JAX
   ``DeepImpact(mesh=)``, the reference's DataParallel indexer,
   indexing/indexer.py:25-26).  ``self.module`` lives on ``devices[0]``, and
@@ -31,7 +29,6 @@ xlmr_original.py:87-267): ``process_query`` / ``process_document`` /
   does not depend on the other rows, so the parts are split unpadded.  A
   change to ``self.module``'s tensors in place (a training step,
   ``load_state_dict``) is copied to the replicas before the next encode.
-  ``use_kernels`` is resolved per device.
 
 Random init (no checkpoint) uses ``torch.Generator(seed)`` with flax's
 initializer shapes and scales; it does not reproduce flax's numbers.
@@ -51,7 +48,7 @@ import numpy as np
 import torch
 
 from ..core.config import EncoderConfig
-from ..core.device import device_scope, resolve_device, resolve_use_kernels
+from ..core.device import device_scope, resolve_device
 from ..text.processor import DocumentEncoding, batch_arrays, batch_term_slots
 from .encoder import CrossEncoderModel, DeepImpactModel, init_weights
 
@@ -94,7 +91,6 @@ class DeepImpact:
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
         if devices is not None:
@@ -105,7 +101,6 @@ class DeepImpact:
             device = devices[0]
         self.device = resolve_device(device)
         self.devices = [self.device] if devices is None else [resolve_device(d) for d in devices]
-        self.use_kernels = resolve_use_kernels(self.device, use_kernels)
         self.config = config
         self.tokenizer = tokenizer
         self.module = self.module_class(config)
@@ -115,14 +110,13 @@ class DeepImpact:
             init_weights(self.module, g)
         else:
             self._load_state_dict(state_dict, seed)
-        # one module a distinct device: (module, use_kernels)
+        # one module a distinct device
         self._replicas = {}
         for dev in self.devices:
             if dev not in self._replicas and dev != self.device:
-                self._replicas[dev] = (copy.deepcopy(self.module).to(dev).eval(),
-                                       resolve_use_kernels(dev, use_kernels))
+                self._replicas[dev] = copy.deepcopy(self.module).to(dev).eval()
         self.module.to(self.device).eval()
-        self._replicas[self.device] = (self.module, self.use_kernels)
+        self._replicas[self.device] = self.module
         self._synced = self._weights_stamp()
         self.max_length = getattr(tokenizer, "max_length", config.max_position_embeddings)
 
@@ -140,7 +134,7 @@ class DeepImpact:
         if stamp == self._synced:
             return
         state = self.module.state_dict()
-        for replica, _ in self._replicas.values():
+        for replica in self._replicas.values():
             if replica is not self.module:
                 replica.load_state_dict(state)
         self._synced = stamp
@@ -178,14 +172,13 @@ class DeepImpact:
         for dev, lo, hi in zip(self.devices, bounds[:-1], bounds[1:]):
             if lo == hi:
                 continue
-            module, use_kernels = self._replicas[dev]
+            module = self._replicas[dev]
             with device_scope(dev):
                 ids, second, types = (self._upload(a[lo:hi], dev) for a in arrays)
                 if segmented:
-                    out = module(ids, (second > 0).to(torch.int32), types, segment_ids=second,
-                                 use_kernels=use_kernels)
+                    out = module(ids, (second > 0).to(torch.int32), types, segment_ids=second)
                 else:
-                    out = module(ids, second, types, use_kernels=use_kernels)
+                    out = module(ids, second, types)
             outs.append(out[..., 0].to(self.device))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -198,7 +191,6 @@ class DeepImpact:
             self._upload(np.asarray(input_ids, np.int32)),
             self._upload(np.asarray(attention_mask, np.int32)),
             self._upload(np.asarray(type_ids, np.int32)),
-            use_kernels=self.use_kernels,
         )
         return out.float().cpu().numpy()
 
@@ -329,6 +321,5 @@ class DeepImpactCrossEncoder(DeepImpact):
             self._upload(arrays["input_ids"]),
             self._upload(arrays["attention_mask"]),
             self._upload(arrays["type_ids"]),
-            use_kernels=self.use_kernels,
         )  # [n, 1]
         return out[:, 0].float().cpu().numpy()

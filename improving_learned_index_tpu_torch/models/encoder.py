@@ -20,7 +20,8 @@ Precision is the JAX package's, written as explicit casts (no autocast):
 A layer's passes between its matrix products (the six bias adds, the two
 residual adds and LayerNorms, the GELU) run in three hand-written kernels
 (``ops.encoder_epilogue``: ``csrc/encoder_epilogue.cu``, four launches a
-layer) where ``epilogue_route`` says so: on CUDA with ``use_kernels``, no
+layer) where ``epilogue_route`` says so: where the kernels launch
+(``ops._kernels.launches``: CUDA, outside ``ops.plain_versions()``), no
 autograd (``inference_mode`` or ``no_grad``), bf16 compute and widths the
 kernels take.  The rounding points above do not move there: the matrix
 products stay bias-free and the kernels add the bias to the rounded
@@ -33,23 +34,25 @@ versions (``encoder_epilogue.*_plain``) compute the same values.
 Attention takes one of three routes, chosen from the shape in
 ``attention_route``.  With a mask, ``use_short_attention``, S <= 256,
 S % 128 == 0 and head dim % 8 == 0 it calls ``ops.short_attention`` (the
-hand-written kernel on the card, its plain version on the CPU or with
-``use_kernels=False``, with -1e9 masking and ``* sm_scale``; both forwards
-share the JAX ``custom_vjp``'s backward, a recompute through the XLA
-route's bf16 math).  Where that route does not apply, S % 128 == 0 and
+hand-written kernel on the card, its plain version on the CPU or inside
+``ops.plain_versions()``, with -1e9 masking and ``* sm_scale``; both
+forwards share the JAX ``custom_vjp``'s backward, a recompute through the
+XLA route's bf16 math).  Where that route does not apply, S % 128 == 0 and
 ``use_flash_attention`` is set (the default), it calls
 ``ops.flash_attention`` non-causal with the mask (padding mask, or packed
 segment ids) as segment ids: the hand-written kernel on the card where the
-head dim is 64 or 128, the twin on the CPU or with ``use_kernels=False``,
-its backward the library's; padding queries attend the padding keys there,
-so only the real tokens' outputs equal the other routes'.  So an encoder at
-S=512 (XLM-R's ``max_length``) reaches ``csrc/flash_attention.cu`` on the
-card.  Otherwise it runs the JAX package's XLA-path math in plain torch
-ops: logits in the compute dtype cast to fp32, ``/ sqrt(hd)``,
-``finfo(fp32).min`` masking, an fp32 softmax cast back.  That route is not
-a Pallas kernel in the JAX package either.  Each forward is one
-``core.profiling.annotate`` region named by its route:
-``encoder/route_short``, ``encoder/route_flash`` or ``encoder/route_plain``.
+head dim is 64 or 128, the twin on the CPU or inside
+``ops.plain_versions()``, its backward the library's; padding queries
+attend the padding keys there, so only the real tokens' outputs equal the
+other routes'.  So an encoder at S=512 (XLM-R's ``max_length``) reaches
+``csrc/flash_attention.cu`` on the card.  Otherwise it runs the JAX
+package's XLA-path math in plain torch ops: logits in the compute dtype
+cast to fp32, ``/ sqrt(hd)``, ``finfo(fp32).min`` masking, an fp32 softmax
+cast back.  That route is not a Pallas kernel in the JAX package either.  ``TransformerEncoder`` decides
+the route and ``epilogue_route`` once a forward and hands both to every
+layer.  Each forward is one ``core.profiling.annotate`` region named by its
+route: ``encoder/route_short``, ``encoder/route_flash`` or
+``encoder/route_plain``.
 
 ``output_attentions=True`` takes the plain route at every S, as the JAX
 package turns its kernels off when the maps are asked for, and returns each
@@ -76,6 +79,7 @@ from torch import nn
 from ..core.config import EncoderConfig
 from ..core.profiling import annotate
 from ..ops import encoder_epilogue
+from ..ops._kernels import launches
 from ..ops.flash_attention import KERNEL_DIMS, flash_attention
 from ..ops.short_attention import can_use_short_attention, short_attention
 
@@ -112,30 +116,28 @@ def make_packed_position_ids(segment_ids: torch.Tensor, config: EncoderConfig) -
     return torch.where(segment_ids > 0, within + 1 + config.pad_token_id, config.pad_token_id)
 
 
-def attention_route(config: EncoderConfig, seq: int, device: torch.device, use_kernels: bool = True,
-                    output_attentions: bool = False) -> str:
+def attention_route(config: EncoderConfig, seq: int, device: torch.device, output_attentions: bool = False) -> str:
     """``short``, ``flash`` or ``plain``: the attention route of a forward at
-    sequence length ``seq`` on ``device`` (see the module docstring).  The
-    flash kernel launches on CUDA with ``use_kernels``, where it takes head
-    dim 64 or 128 only; elsewhere the twin takes any."""
+    sequence length ``seq`` on ``device`` (see the module docstring).  Where
+    the flash kernel launches (``launches``) it takes head dim 64 or 128
+    only; elsewhere the twin takes any."""
     hd = config.hidden_size // config.num_heads
     if output_attentions:
         return "plain"
     if config.use_short_attention and can_use_short_attention(seq, hd):
         return "short"
-    kernel = device.type == "cuda" and use_kernels
-    if config.use_flash_attention and seq % 128 == 0 and (hd in KERNEL_DIMS or not kernel):
+    if config.use_flash_attention and seq % 128 == 0 and (hd in KERNEL_DIMS or not launches(device)):
         return "flash"
     return "plain"
 
 
-def epilogue_route(device_type: str, use_kernels: bool, grad_enabled: bool, dtype: torch.dtype, hidden: int,
+def epilogue_route(device: torch.device, grad_enabled: bool, dtype: torch.dtype, hidden: int,
                    intermediate: int) -> bool:
     """True where a layer's bias, residual, LayerNorm and GELU passes run in
-    ``csrc/encoder_epilogue.cu`` (see the module docstring): a CUDA device
-    with ``use_kernels``, grad off, bf16 compute and widths the kernels
-    take.  The kernels have no backward."""
-    return (device_type == "cuda" and use_kernels and not grad_enabled and dtype == torch.bfloat16
+    ``csrc/encoder_epilogue.cu`` (see the module docstring): the kernels
+    launch on ``device`` (``launches``), grad off, bf16 compute and widths
+    the kernels take.  The kernels have no backward."""
+    return (launches(device) and not grad_enabled and dtype == torch.bfloat16
             and encoder_epilogue.takes(hidden, intermediate))
 
 
@@ -181,43 +183,41 @@ class SelfAttention(nn.Module):
         self.value = nn.Linear(h, h)
         self.output_dense = nn.Linear(h, h)
 
-    def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True, flash=False,
-                epilogue=False):
-        """``attention_bias`` None selects a kernel route (mask as int32
-        padding mask or segment ids): ``flash_attention`` with ``flash``,
-        else ``short_attention``; otherwise the additive fp32 bias of the
-        plain route.  ``epilogue``: q, k and v take their biases in
-        ``encoder_epilogue``'s kernel (``epilogue_route``), and the output
+    def forward(self, x, attention_bias, attention_mask, packed, route, fused):
+        """``route`` (``attention_route``): ``flash`` and ``short`` call
+        ``flash_attention`` and ``short_attention`` with the int32 mask
+        (padding mask or segment ids); ``plain`` adds the fp32
+        ``attention_bias``.  ``fused`` (``epilogue_route``): q, k and v take
+        their biases in ``encoder_epilogue``'s kernel, and the output
         projection is returned before its bias, which the layer's kernel
         adds with the residual.  Returns (output, probabilities), the
         probabilities [B, heads, S, S] in the compute dtype on the plain
-        route and None on the kernels'."""
+        route and None on the others."""
         c = self.config
         b, s, hid = x.shape
         heads = c.num_heads
         hd = hid // heads
         dt = compute_dtype(c)
         lins = (self.query, self.key, self.value)
-        if epilogue:  # the three products, then their biases in one launch
+        if fused:  # the three products, then their biases in one launch
             qkv = encoder_epilogue.bias_add(*(_product(x, lin, dt) for lin in lins), *(lin.bias for lin in lins))
         else:  # each product and its bias in turn
             qkv = (_linear(x, lin, dt) for lin in lins)
         # [B, S, heads, hd] memory; the kernel reads it as [B, heads, S, hd]
         q, k, v = (t.view(b, s, heads, hd).permute(0, 2, 1, 3) for t in qkv)
         probs = None
-        if attention_bias is None and flash:
+        if route == "flash":
             ctx = flash_attention(q, k, v, attention_mask, attention_mask, causal=False,
-                                  sm_scale=1.0 / math.sqrt(hd), use_kernel=use_kernels)
-        elif attention_bias is None:  # the short-attention route
-            ctx = short_attention(q, k, v, attention_mask, 1.0 / math.sqrt(hd), packed,
-                                  use_kernel=use_kernels)
+                                  sm_scale=1.0 / math.sqrt(hd))
+        elif route == "short":
+            ctx = short_attention(q, k, v, attention_mask, 1.0 / math.sqrt(hd), packed)
         else:
             logits = torch.matmul(q, k.transpose(-1, -2)).float()
             logits = logits / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
             probs = torch.softmax(logits + attention_bias, dim=-1).to(dt)
             ctx = torch.matmul(probs, v)
         ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, hid)
-        return (_product if epilogue else _linear)(ctx, self.output_dense, dt), probs
+        return (_product if fused else _linear)(ctx, self.output_dense, dt), probs
 
 
 class EncoderLayer(nn.Module):
@@ -231,13 +231,11 @@ class EncoderLayer(nn.Module):
         self.output = nn.Linear(c.intermediate_size, c.hidden_size)
         self.output_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
-    def forward(self, x, attention_bias, attention_mask, packed=False, use_kernels=True, flash=False):
-        """Returns (hidden, the attention's probabilities or None)."""
-        c = self.config
-        dt = compute_dtype(c)
-        fused = epilogue_route(x.device.type, use_kernels, torch.is_grad_enabled(), dt, c.hidden_size,
-                               c.intermediate_size)
-        attn, probs = self.attention(x, attention_bias, attention_mask, packed, use_kernels, flash, fused)
+    def forward(self, x, attention_bias, attention_mask, packed, route, fused):
+        """Returns (hidden, the attention's probabilities or None); ``route``
+        and ``fused`` as ``SelfAttention.forward`` takes them."""
+        dt = compute_dtype(self.config)
+        attn, probs = self.attention(x, attention_bias, attention_mask, packed, route, fused)
         if not fused:  # the PyTorch ops, each bias added as its product comes
             x = self.attention_norm((x + attn).float()).to(dt)
             h = F.gelu(_linear(x, self.intermediate, dt), approximate="none")
@@ -262,14 +260,15 @@ class TransformerEncoder(nn.Module):
         self.embeddings = Embeddings(config)
         self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_layers))
 
-    def forward(self, input_ids, attention_mask, type_ids=None, segment_ids=None, use_kernels=True,
-                output_attentions=False):
-        route = attention_route(self.config, input_ids.shape[1], input_ids.device, use_kernels, output_attentions)
+    def forward(self, input_ids, attention_mask, type_ids=None, segment_ids=None, output_attentions=False):
+        c = self.config
+        route = attention_route(c, input_ids.shape[1], input_ids.device, output_attentions)
+        fused = epilogue_route(input_ids.device, torch.is_grad_enabled(), compute_dtype(c), c.hidden_size,
+                               c.intermediate_size)
         with annotate(f"encoder/route_{route}"):
-            return self._forward(input_ids, attention_mask, type_ids, segment_ids, use_kernels, output_attentions,
-                                 route)
+            return self._forward(input_ids, attention_mask, type_ids, segment_ids, output_attentions, route, fused)
 
-    def _forward(self, input_ids, attention_mask, type_ids, segment_ids, use_kernels, output_attentions, route):
+    def _forward(self, input_ids, attention_mask, type_ids, segment_ids, output_attentions, route, fused):
         c = self.config
         if type_ids is None:
             type_ids = torch.zeros_like(input_ids)
@@ -295,7 +294,7 @@ class TransformerEncoder(nn.Module):
         kernel_mask = kernel_mask.to(torch.int32)
         maps = []
         for layer in self.layers:
-            x, probs = layer(x, bias, kernel_mask, packed, use_kernels, route == "flash")
+            x, probs = layer(x, bias, kernel_mask, packed, route, fused)
             if output_attentions:
                 maps.append(probs.float().mean(dim=1))
         if output_attentions:
@@ -334,9 +333,8 @@ class DeepImpactModel(nn.Module):
         attention_mask,
         type_ids=None,
         segment_ids: Optional[torch.Tensor] = None,
-        use_kernels: bool = True,
     ):
-        hidden = self.encoder(input_ids, attention_mask, type_ids, segment_ids, use_kernels)
+        hidden = self.encoder(input_ids, attention_mask, type_ids, segment_ids)
         return self.impact_head(hidden)
 
 
@@ -351,8 +349,8 @@ class CrossEncoderModel(nn.Module):
         self.encoder = TransformerEncoder(config)
         self.impact_head = ImpactHead(config.hidden_size, config.impact_activation)
 
-    def forward(self, input_ids, attention_mask, type_ids=None, use_kernels: bool = True):
-        hidden = self.encoder(input_ids, attention_mask, type_ids, use_kernels=use_kernels)
+    def forward(self, input_ids, attention_mask, type_ids=None):
+        hidden = self.encoder(input_ids, attention_mask, type_ids)
         return self.impact_head(hidden[:, 0, :])
 
 

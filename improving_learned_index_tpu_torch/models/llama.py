@@ -181,8 +181,7 @@ class LlamaAttention(nn.Module):
         self.v_proj = Dense((c.hidden_size,), (c.num_kv_heads, hd), device)
         self.o_proj = Dense((c.num_heads, hd), (c.hidden_size,), device)
 
-    def forward(self, x, positions, attention_bias, kv_cache=None, cache_index=None, segment_ids=None,
-                use_kernels: bool = True):
+    def forward(self, x, positions, attention_bias, kv_cache=None, cache_index=None, segment_ids=None):
         c = self.config
         dt = compute_dtype(c)
         hd = c.head_dim
@@ -220,7 +219,7 @@ class LlamaAttention(nn.Module):
             seg = segment_ids.to(torch.int32)
             ctx = flash_attention(
                 q.to(dt).permute(0, 2, 1, 3), k.to(dt).permute(0, 2, 1, 3), v.to(dt).permute(0, 2, 1, 3),
-                seg, seg, causal=True, sm_scale=float(1.0 / np.sqrt(hd)), use_kernel=use_kernels,
+                seg, seg, causal=True, sm_scale=float(1.0 / np.sqrt(hd)),
             )
             return self.o_proj(ctx.permute(0, 2, 1, 3).to(dt), dt), new_cache
 
@@ -265,10 +264,9 @@ class LlamaLayer(nn.Module):
         self.input_norm = RMSNorm(c.hidden_size, c.rms_norm_eps, device)
         self.post_attn_norm = RMSNorm(c.hidden_size, c.rms_norm_eps, device)
 
-    def forward(self, x, positions, attention_bias, kv_cache=None, cache_index=None, segment_ids=None,
-                use_kernels: bool = True):
+    def forward(self, x, positions, attention_bias, kv_cache=None, cache_index=None, segment_ids=None):
         h, new_cache = self.attention(self.input_norm(x), positions, attention_bias, kv_cache, cache_index,
-                                      segment_ids, use_kernels)
+                                      segment_ids)
         x = x + h
         x = x + self.mlp(self.post_attn_norm(x))
         return x, new_cache
@@ -324,7 +322,7 @@ class LlamaModel(nn.Module):
             self.lm_head = Dense((c.hidden_size,), (c.vocab_size,), device)
 
     def forward(self, input_ids, attention_mask, positions=None, kv_caches=None, cache_index=None,
-                params: Optional[Dict[str, Any]] = None, use_kernels: bool = True):
+                params: Optional[Dict[str, Any]] = None):
         c = self.config
         dt = compute_dtype(c)
         sub = (lambda name: params[name]) if params is not None else (lambda name: None)
@@ -338,7 +336,7 @@ class LlamaModel(nn.Module):
         for i in range(c.num_layers):
             cache_i = kv_caches[i] if kv_caches is not None else None
             x, new_cache = _call(getattr(self, f"layer_{i}"), sub(f"layer_{i}"), dt, x, positions, bias,
-                                 cache_i, cache_index, seg_ids, use_kernels)
+                                 cache_i, cache_index, seg_ids)
             new_caches.append(new_cache)
         x = _call(self.norm, sub("norm"), dt, x)
         if c.tie_word_embeddings:

@@ -41,12 +41,10 @@ class PairwiseImpactModel(nn.Module):
         self.impact_head = ImpactHead(config.hidden_size, config.impact_activation)
         self.pairwise_head = nn.Linear(2 * config.hidden_size + 1, 1)
 
-    def forward(self, input_ids, attention_mask, type_ids, pair_indices, pair_mask,
-                use_kernels: bool = True):
+    def forward(self, input_ids, attention_mask, type_ids, pair_indices, pair_mask):
         """(single [B, L, 1], pair_scores [B, P], max_attn [B, P]); both pair
         outputs are 0 outside ``pair_mask``."""
-        hidden, maps = self.encoder(input_ids, attention_mask, type_ids, use_kernels=use_kernels,
-                                    output_attentions=True)
+        hidden, maps = self.encoder(input_ids, attention_mask, type_ids, output_attentions=True)
         single = self.impact_head(hidden)
         pair_indices = pair_indices.long()
         i_idx, j_idx = pair_indices[..., 0], pair_indices[..., 1]  # [B, P]
@@ -107,11 +105,10 @@ class DeepPairwiseImpact(DeepImpact):
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
         max_pairs: int = 256,
     ):
         self.max_pairs = max_pairs
-        super().__init__(config, tokenizer, state_dict, seed, device, use_kernels)
+        super().__init__(config, tokenizer, state_dict, seed, device)
 
     def _load_state_dict(self, state_dict: Dict[str, torch.Tensor], seed: int) -> None:
         head = self.module.pairwise_head
@@ -132,7 +129,6 @@ class DeepPairwiseImpact(DeepImpact):
             self._upload(np.asarray(type_ids, np.int32)),
             self._upload(np.asarray(pair_indices, np.int32)),
             self._upload(np.asarray(pair_mask, bool)),
-            use_kernels=self.use_kernels,
         )
         return tuple(t.float().cpu().numpy() for t in out)
 

@@ -1,3 +1,4 @@
+from ._kernels import plain_versions
 from .count_ge import count_ge, count_ge_plain
 from .exact_topk import exact_topk_integer
 from .gather_rows import (
@@ -39,6 +40,7 @@ __all__ = [
     "exact_topk_integer",
     "global_max",
     "group_pairs",
+    "plain_versions",
     "quantize_array",
     "quantize_device",
     "quantize_scale",

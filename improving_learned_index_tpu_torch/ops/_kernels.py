@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels, and decide where
+they run.
 
 Each kernel is one source under ``csrc/`` with a plain C interface.  It is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the
@@ -7,6 +8,12 @@ so a build takes seconds.  The library's file name carries a hash of its
 source and flags, so an edited source is rebuilt and never confused with a
 stale build.  Nothing here runs at import time: the CPU tests import every
 module on a machine without ``nvcc``.
+
+Every op's public entry asks ``launches`` whether to launch its kernel or
+run its plain PyTorch version (its twin, the ``*_plain`` function beside
+it): the kernel on a CUDA tensor, the twin on a CPU tensor, a raise on any
+other device.  ``plain_versions()`` makes every op run its twin on the card
+too, for the cross-checks that hold a kernel to its twin.
 """
 
 from __future__ import annotations
@@ -16,9 +23,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Union
 
 import torch
 
@@ -28,6 +35,45 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+
+# How many ``plain_versions()`` blocks are open, in any thread of the process.
+_plain_depth = 0
+
+
+def launches(x: Union[torch.Tensor, torch.device]) -> bool:
+    """True where an op launches its hand-written kernel on tensor (or
+    device) ``x``: CUDA, outside ``plain_versions()``.  False on the CPU,
+    and on CUDA inside ``plain_versions()``: the op runs its twin.  Raise
+    ``ValueError`` for any other device."""
+    dev = x if isinstance(x, torch.device) else x.device
+    if dev.type == "cuda":
+        return _plain_depth == 0
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain version for device {dev}")
+
+
+@contextmanager
+def plain_versions():
+    """Run every op's plain PyTorch version, on the card too, while the
+    block is open: for cross-checks of a kernel against its twin only.
+    Blocks nest; the switch is restored on exit and on an exception.
+
+    The switch is process-wide, not thread-local: autograd runs a CUDA
+    backward on a thread of its own, and ``torch.utils.checkpoint``
+    recomputes its forward there, so a thread-local switch would miss both."""
+    global _plain_depth
+    _plain_depth += 1
+    try:
+        yield
+    finally:
+        _plain_depth -= 1
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``t``'s device, the stream
+    every launch goes to."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _nvcc() -> str:

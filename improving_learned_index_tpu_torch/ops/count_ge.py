@@ -6,9 +6,9 @@ that each pass of the n-ary threshold search in ``ops.exact_topk`` makes
 version counts one threshold per pass over the row; the kernel counts all of
 them in one read of the row.
 
-``count_ge`` dispatches on the tensors' device: on the CPU it runs the plain
-PyTorch version, on CUDA it launches the hand-written kernel
-``csrc/count_ge.cu`` or raises.  There is no fallback from one to the other.
+``count_ge`` launches the hand-written kernel ``csrc/count_ge.cu`` where
+``_kernels.launches`` says so (CUDA tensors) and runs the plain PyTorch
+version otherwise; there is no fallback from one to the other.
 The TPU kernel's ``N % 16384`` gate does not carry over: the kernel takes
 any N, and any row stride, so a sliced view of a wider score matrix is
 counted in place (never copied).
@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from ._kernels import CudaKernel
+from ._kernels import CudaKernel, launches, stream
 
 KERNEL = CudaKernel(
     "count_ge",
@@ -61,10 +61,8 @@ def count_ge(scores: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     ``scores``: [Q, N] fp32, any N, rows at any stride (columns unit
     stride).  ``thresholds``: [Q, T] fp32 with 1 <= T <= 128.
     """
-    if scores.device.type == "cpu":
+    if not launches(scores):
         return count_ge_plain(scores, thresholds)
-    if scores.device.type != "cuda":
-        raise ValueError(f"no count_ge kernel for device {scores.device}")
     _check(scores, thresholds)
     q, n = scores.shape
     if n > 1 and scores.stride(1) != 1:
@@ -78,6 +76,6 @@ def count_ge(scores: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     KERNEL.call(
         "ili_count_ge",
         scores.data_ptr(), t.data_ptr(), out.data_ptr(), q, n, scores.stride(0), t.shape[1],
-        torch.cuda.current_stream(scores.device).cuda_stream, device=scores.device,
+        stream(scores), device=scores.device,
     )
     return out

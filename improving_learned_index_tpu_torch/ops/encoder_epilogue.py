@@ -12,10 +12,10 @@ its product to the compute dtype, then its bias add once more):
   ``layer_norm((x + (h + b.to(h.dtype))).float()).to(h.dtype)``, the
   LayerNorm in fp32 with fp32 ``weight`` and ``norm_bias``.
 
-Each dispatches on the tensors' device: on the CPU, or with
-``use_kernel=False``, its plain PyTorch version (the ``*_plain`` twin,
-differentiable); on CUDA the hand-written kernels of
-``csrc/encoder_epilogue.cu`` or a raise, never a fallback.  The kernels
+Each launches the hand-written kernels of ``csrc/encoder_epilogue.cu``
+where ``_kernels.launches`` says so (CUDA tensors), and otherwise (the CPU,
+or the card inside ``_kernels.plain_versions()``) runs its plain PyTorch
+version (the ``*_plain`` twin, differentiable), never a fallback.  The kernels
 take bf16 products of width N % 8 == 0 (``bias_residual_layernorm`` N <=
 ``MAX_NORM_WIDTH``), contiguous, 16-byte aligned, and no autograd: they
 raise where an input requires grad.  ``bias_add`` on the card adds in
@@ -31,7 +31,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ._kernels import CudaKernel
+from ._kernels import CudaKernel, launches, stream
 
 MAX_NORM_WIDTH = 1024  # four bf16 x 8 vectors a lane of the row's warp
 _MAX_VECS = 2**31  # the kernels index 16-byte vectors with 32 bits
@@ -68,23 +68,13 @@ def bias_residual_layernorm_plain(h, bias, x, weight, norm_bias, eps: float) -> 
     return F.layer_norm((x + (h + bias.to(dt))).float(), (h.shape[-1],), weight, norm_bias, eps).to(dt)
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _on_card(use_kernel: bool, *ts: torch.Tensor) -> bool:
-    """True where the kernel launches: CUDA operands with ``use_kernel``;
-    False on the CPU or without ``use_kernel``; raise for another device."""
+def _check_launch(*ts: torch.Tensor) -> None:
+    """The kernels' operands: on one device, none needing grad."""
     dev = ts[0].device
-    if not use_kernel or dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"no encoder_epilogue kernel for device {dev}")
     if any(t.device != dev for t in ts):
         raise ValueError(f"operands on {sorted({str(t.device) for t in ts})}, not one device")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise ValueError("the encoder_epilogue kernels have no backward: call them without grad")
-    return True
 
 
 def _check_rows(name: str, t: torch.Tensor, n: int) -> None:
@@ -104,12 +94,13 @@ def _check_vector(name: str, t: torch.Tensor, n: int) -> None:
 
 
 def bias_add(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_bias: torch.Tensor, k_bias: torch.Tensor,
-             v_bias: torch.Tensor, use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             v_bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``y + b.to(y.dtype)`` for the [..., N] products q, k and v, of one
     shape, and their [N] biases.  On the card in place, in one launch."""
     ys, biases = (q, k, v), (q_bias, k_bias, v_bias)
-    if not _on_card(use_kernel, *ys, *biases):
+    if not launches(q):
         return tuple(bias_add_plain(y, b) for y, b in zip(ys, biases))
+    _check_launch(*ys, *biases)
     n = q.shape[-1]
     for y, b in zip(ys, biases):
         if y.shape != q.shape:
@@ -119,32 +110,34 @@ def bias_add(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_bias: torch.Te
     rows = q.numel() // n
     if rows:
         KERNEL.call("ili_bias_add", *(y.data_ptr() for y in ys), *(b.data_ptr() for b in biases), rows, n,
-                    _stream(q), device=q.device)
+                    stream(q), device=q.device)
     return ys
 
 
-def bias_gelu(h: torch.Tensor, bias: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+def bias_gelu(h: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``gelu(h + bias.to(h.dtype))`` (erf) for a [..., N] product and an
     [N] bias."""
-    if not _on_card(use_kernel, h, bias):
+    if not launches(h):
         return bias_gelu_plain(h, bias)
+    _check_launch(h, bias)
     n = h.shape[-1]
     _check_rows("h", h, n)
     _check_vector("bias", bias, n)
     out = torch.empty_like(h)
     if h.numel():
         KERNEL.call("ili_bias_gelu", h.data_ptr(), bias.data_ptr(), out.data_ptr(), h.numel() // n, n,
-                    _stream(h), device=h.device)
+                    stream(h), device=h.device)
     return out
 
 
 def bias_residual_layernorm(h: torch.Tensor, bias: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
-                            norm_bias: torch.Tensor, eps: float, use_kernel: bool = True) -> torch.Tensor:
+                            norm_bias: torch.Tensor, eps: float) -> torch.Tensor:
     """``layer_norm((x + (h + bias.to(h.dtype))).float()).to(h.dtype)``: a
     [..., H] product ``h``, its [H] bias, the [..., H] residual ``x``, and
     the LayerNorm's [H] fp32 ``weight`` and ``norm_bias``."""
-    if not _on_card(use_kernel, h, bias, x, weight, norm_bias):
+    if not launches(h):
         return bias_residual_layernorm_plain(h, bias, x, weight, norm_bias, eps)
+    _check_launch(h, bias, x, weight, norm_bias)
     n = h.shape[-1]
     if x.shape != h.shape:
         raise ValueError(f"residual {tuple(x.shape)} and product {tuple(h.shape)} differ")
@@ -157,6 +150,6 @@ def bias_residual_layernorm(h: torch.Tensor, bias: torch.Tensor, x: torch.Tensor
     out = torch.empty_like(h)
     if h.numel():
         KERNEL.call("ili_bias_residual_layernorm", h.data_ptr(), bias.data_ptr(), x.data_ptr(), weight.data_ptr(),
-                    norm_bias.data_ptr(), out.data_ptr(), h.numel() // n, n, float(eps), _stream(h),
+                    norm_bias.data_ptr(), out.data_ptr(), h.numel() // n, n, float(eps), stream(h),
                     device=h.device)
     return out

@@ -33,7 +33,8 @@ which admits an exact selection in a few bandwidth passes:
    so boundary ties stay in doc-id order.
 
 Both routes give the same ``s_k``, so the same answer byte for byte.  Of
-the plain versions (the CPU's, and the card's with ``use_kernel=False``),
+the plain versions (the CPU's, and the card's inside
+``_kernels.plain_versions()``),
 the search's count and the block counts stay at one bool [Q, N] temporary
 at a time: the plain count (``count_ge_plain``) takes one pass per
 threshold, and the greater/equal block counts are two passes instead of
@@ -49,7 +50,7 @@ import torch
 
 from ..core.profiling import annotate
 from . import topk_select
-from .count_ge import count_ge, count_ge_plain
+from .count_ge import count_ge
 from .topk_select import BINS, BLOCK as _BLOCK
 
 _ARITY = 8  # thresholds per search pass + 1, as in the JAX package
@@ -62,7 +63,7 @@ def _searching(lo: torch.Tensor, hi: torch.Tensor) -> bool:
         return bool((lo < hi).any())
 
 
-def _search(scores: torch.Tensor, k: int, count) -> torch.Tensor:
+def _search(scores: torch.Tensor, k: int) -> torch.Tensor:
     """The n-ary search for each row's s_k over [1, row_max],
     [Q, 1] fp32; if a row has < k positives, its s_k is 1."""
     q, dev = scores.shape[0], scores.device
@@ -73,7 +74,7 @@ def _search(scores: torch.Tensor, k: int, count) -> torch.Tensor:
     while _searching(lo, hi):
         width = hi - lo + 1.0
         t = torch.minimum(lo + torch.ceil(frac[None, :] * width), hi)  # [Q, A-1]
-        counts = count(scores, t)
+        counts = count_ge(scores, t)
         ok = counts >= k  # monotone non-increasing along the threshold axis
         new_lo = torch.where(ok, t, lo).amax(dim=1, keepdim=True)
         new_hi = torch.minimum(torch.where(ok, inf, t).amin(dim=1, keepdim=True) - 1.0, hi)
@@ -81,16 +82,12 @@ def _search(scores: torch.Tensor, k: int, count) -> torch.Tensor:
     return lo
 
 
-def exact_topk_integer(scores: torch.Tensor, k: int, *, use_kernel=None, max_score=None):
+def exact_topk_integer(scores: torch.Tensor, k: int, *, max_score=None):
     """Exact top-k over integer-valued non-negative fp32 scores.
 
     Args:
         scores: [Q, N] float32, integer-valued, >= 0.
         k: number of results per row.
-        use_kernel: run the hand-written kernels (``count_ge``,
-            ``topk_select``).  None: the kernels on CUDA, the plain versions
-            on the CPU; False on the card runs the plain versions, for
-            cross-checks only; True on the CPU raises.
         max_score: a bound the caller guarantees on every score, or None.
             Below ``topk_select.BINS`` the k-th scores come from a value
             histogram with no host read; otherwise from the n-ary search.
@@ -102,25 +99,16 @@ def exact_topk_integer(scores: torch.Tensor, k: int, *, use_kernel=None, max_sco
     q, n = scores.shape
     k = min(k, n)
     dev = scores.device
-    if use_kernel is None:
-        use_kernel = dev.type == "cuda"
-    if use_kernel and dev.type != "cuda":
-        raise ValueError("use_kernel=True needs CUDA tensors")
 
     # -- 1. the k-th score s_k of each row, [Q, 1] -----------------------------
     if max_score is not None and max_score < BINS:
-        if use_kernel:
-            hist, block_max = topk_select.value_histogram(scores)
-            s_k = topk_select.kth_scores(hist, k)
-        else:
-            hist, block_max = topk_select.value_histogram_plain(scores)
-            s_k = topk_select.kth_scores_plain(hist, k)
+        hist, block_max = topk_select.value_histogram(scores)
+        s_k = topk_select.kth_scores(hist, k)
     else:
-        s_k, block_max = _search(scores, k, count_ge if use_kernel else count_ge_plain), None
+        s_k, block_max = _search(scores, k), None
 
     # -- 2. block-level selection-rank table (int32) ---------------------------
-    counts = topk_select.block_counts if use_kernel else topk_select.block_counts_plain
-    blk_hi, blk_eq = counts(scores, s_k, block_max)  # [Q, nb]
+    blk_hi, blk_eq = topk_select.block_counts(scores, s_k, block_max)  # [Q, nb]
     nb = blk_hi.shape[1]
     s_k3 = s_k[:, :, None]
     cum_hi = blk_hi.cumsum(dim=1, dtype=torch.int32)

@@ -19,15 +19,17 @@ backward recomputes p = exp(logit - lse), takes di = rowsum(o * do) in fp32
 (as the library does outside its kernels), ds = p (dp - di) sm_scale, and
 rounds p and ds to bf16 for dv = p^T do, dk = ds^T q and dq = ds k.
 
-``flash_attention`` dispatches on the tensors' device: on the CPU its
-forward and backward run the plain PyTorch versions ``flash_attention_plain``
-and ``flash_attention_plain_bwd`` (the twin); on CUDA they launch the
-hand-written kernels of ``csrc/flash_attention.cu`` (``ili_flash_fwd``; the
-backward ``ili_flash_bwd_prep``, di = rowsum(o * do) and the fp32 dq
-accumulator zeroed, then ``ili_flash_bwd``, dk and dv written once and dq
-added in fp32 by atomic adds) or raise.  There is no fallback from one to
-the other; ``use_kernel=False`` runs the twin on any device.  The kernels
-take S a multiple of 128 and D in {64, 128}.
+Where ``_kernels.launches`` says so (CUDA tensors), ``flash_attention``'s
+forward and backward launch the hand-written kernels of
+``csrc/flash_attention.cu`` (``ili_flash_fwd``; the backward
+``ili_flash_bwd_prep``, di = rowsum(o * do) and the fp32 dq accumulator
+zeroed, then ``ili_flash_bwd``, dk and dv written once and dq added in fp32
+by atomic adds); otherwise (the CPU, or the card inside
+``_kernels.plain_versions()``) they run the plain PyTorch versions
+``flash_attention_plain`` and ``flash_attention_plain_bwd`` (the twin).  The
+backward takes the forward's side, whichever thread runs it.  There is no
+fallback from one to the other.  The kernels take S a multiple of 128 and D
+in {64, 128}.
 
 The kernels compute only the tiles that may hold an allowed (query, key)
 pair: ``tile_pairs`` is their rule in plain PyTorch, and
@@ -47,7 +49,7 @@ from typing import Optional
 
 import torch
 
-from ._kernels import CudaKernel
+from ._kernels import CudaKernel, launches, stream
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -235,7 +237,7 @@ def _launch_fwd(q, k, v, seg_q, seg_kv, causal: bool, sm_scale: float, tiles=Non
         "ili_flash_fwd", qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), sq.data_ptr(), skv.data_ptr(),
         o.data_ptr(), lse.data_ptr(), _strides(qb, kb, vb, o), b, h, hkv, s, d, float(sm_scale),
         int(bool(causal)), has_seg, skip, int(out_dtype == torch.float32), _ptr(tiles),
-        torch.cuda.current_stream(q.device).cuda_stream, device=q.device,
+        stream(q), device=q.device,
     )
     return o, lse
 
@@ -249,11 +251,11 @@ def _launch_bwd(q, k, v, seg_q, seg_kv, o, lse, do, causal: bool, sm_scale: floa
     skip = _skip(seg_q, seg_kv)
     sq, skv, has_seg = _segs(seg_q, seg_kv, q)
     lse = lse.contiguous()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    cuda_stream = stream(q)
     di = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     dq = torch.empty(b, h, s, d, dtype=torch.float32, device=q.device)
     KERNEL.call("ili_flash_bwd_prep", o.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(), _strides(o, do),
-                b, h, s, d, int(o.dtype == torch.float32), int(do.dtype == torch.float32), stream,
+                b, h, s, d, int(o.dtype == torch.float32), int(do.dtype == torch.float32), cuda_stream,
                 device=q.device)
     kv_dtype = torch.float32 if k.dtype == torch.float32 else torch.bfloat16
     dk = torch.empty(b, hkv, s, d, dtype=kv_dtype, device=q.device)
@@ -261,33 +263,23 @@ def _launch_bwd(q, k, v, seg_q, seg_kv, o, lse, do, causal: bool, sm_scale: floa
     KERNEL.call("ili_flash_bwd", qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), sq.data_ptr(), skv.data_ptr(),
                 dob.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 _strides(qb, kb, vb, dob), b, h, hkv, s, d, float(sm_scale), int(bool(causal)), has_seg, skip,
-                int(kv_dtype == torch.float32), _ptr(tiles), stream, device=q.device)
+                int(kv_dtype == torch.float32), _ptr(tiles), cuda_stream, device=q.device)
     # dq is summed in fp32 across key tiles and converted once; dk and dv
     # come out in k's dtype (bf16 for any other)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _route(q, use_kernel: bool) -> bool:
-    if not use_kernel or q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention kernel for device {q.device}")
-    return True
-
-
-def flash_attention_forward(q, k, v, seg_q=None, seg_kv=None, causal: bool = False, sm_scale: float = 1.0,
-                            use_kernel: bool = True):
-    """(o, lse) without autograd: the kernel on CUDA, the twin on the CPU."""
+def flash_attention_forward(q, k, v, seg_q=None, seg_kv=None, causal: bool = False, sm_scale: float = 1.0):
+    """(o, lse) without autograd: the kernel where ``launches``, else the twin."""
     _check(q, k, v, seg_q, seg_kv)
-    if _route(q, use_kernel):
+    if launches(q):
         return _launch_fwd(q, k, v, seg_q, seg_kv, causal, sm_scale)
     return flash_attention_plain(q, k, v, seg_q, seg_kv, causal, sm_scale)
 
 
-def flash_attention_backward(q, k, v, seg_q, seg_kv, o, lse, do, causal: bool = False, sm_scale: float = 1.0,
-                             use_kernel: bool = True):
-    """(dq, dk, dv): the backward kernels on CUDA, the twin on the CPU."""
-    if _route(q, use_kernel):
+def flash_attention_backward(q, k, v, seg_q, seg_kv, o, lse, do, causal: bool = False, sm_scale: float = 1.0):
+    """(dq, dk, dv): the backward kernels where ``launches``, else the twin."""
+    if launches(q):
         return _launch_bwd(q, k, v, seg_q, seg_kv, o, lse, do, causal, sm_scale)
     return flash_attention_plain_bwd(q, k, v, seg_q, seg_kv, o, lse, do, causal, sm_scale)
 
@@ -299,7 +291,7 @@ def computed_tile_pairs(q, k, v, seg_q=None, seg_kv=None, causal: bool = False, 
     them on the card.  Where tiles are dropped, ``tile_pairs``' rule gives
     H times the sum of its ``may``; otherwise every tile is computed."""
     _check(q, k, v, seg_q, seg_kv)
-    if not _route(q, True):
+    if q.device.type != "cuda":
         raise ValueError(f"the kernels count tiles on a CUDA tensor, got {q.device}")
     counts = torch.zeros(2, dtype=torch.int64, device=q.device)
     o, lse = _launch_fwd(q, k, v, seg_q, seg_kv, causal, sm_scale, tiles=counts[0:1])
@@ -310,25 +302,29 @@ def computed_tile_pairs(q, k, v, seg_q=None, seg_kv=None, causal: bool = False, 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_kv, causal, sm_scale, use_kernel):
-        o, lse = flash_attention_forward(q, k, v, seg_q, seg_kv, causal, sm_scale, use_kernel)
+    def forward(ctx, q, k, v, seg_q, seg_kv, causal, sm_scale):
+        _check(q, k, v, seg_q, seg_kv)
+        # the backward follows this side, on whatever thread autograd runs it
+        ctx.launched = launches(q)
+        fwd = _launch_fwd if ctx.launched else flash_attention_plain
+        o, lse = fwd(q, k, v, seg_q, seg_kv, causal, sm_scale)
         ctx.save_for_backward(q, k, v, seg_q, seg_kv, o, lse)
-        ctx.causal, ctx.sm_scale, ctx.use_kernel = causal, sm_scale, use_kernel
+        ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, seg_q, seg_kv, o, lse = ctx.saved_tensors
+        bwd = _launch_bwd if ctx.launched else flash_attention_plain_bwd
         with torch.profiler.record_function("flash_attention.backward"):
-            dq, dk, dv = flash_attention_backward(q, k, v, seg_q, seg_kv, o, lse, do, ctx.causal,
-                                                  ctx.sm_scale, ctx.use_kernel)
-        return dq, dk, dv, None, None, None, None, None
+            dq, dk, dv = bwd(q, k, v, seg_q, seg_kv, o, lse, do, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, seg_q: Optional[torch.Tensor] = None, seg_kv: Optional[torch.Tensor] = None,
-                    causal: bool = False, sm_scale: float = 1.0, use_kernel: bool = True):
+                    causal: bool = False, sm_scale: float = 1.0):
     """Differentiable flash attention: q [B, H, S, D], k and v [B, Hkv, S, D]
     (Hkv divides H), optional int segment ids [B, S] for queries and keys.
     Returns [B, H, S, D] in q's dtype.  The library's signature takes
     ``segment_ids=SegmentIds(q=..., kv=...)``; here they are two tensors."""
-    return _FlashAttention.apply(q, k, v, seg_q, seg_kv, causal, sm_scale, use_kernel)
+    return _FlashAttention.apply(q, k, v, seg_q, seg_kv, causal, sm_scale)

@@ -26,9 +26,9 @@ Two entries compute it:
   ``pair_tables`` (torch ops, no host sync) and calls the kernel.
 
 A slot outside [0, H) and a row outside [0, t_heavy) are skipped.  Each
-entry dispatches on the tensors' device: on the CPU it runs its plain
-PyTorch version, on CUDA it launches the hand-written kernel or raises.
-There is no fallback from one to the other.
+entry launches the hand-written kernel where ``_kernels.launches`` says so
+(CUDA tensors) and runs its plain PyTorch version otherwise; there is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ._kernels import CudaKernel
+from ._kernels import CudaKernel, launches, stream
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
@@ -164,10 +164,8 @@ def accumulate_grouped(dense, table, nq: int) -> torch.Tensor:
     """Return [nq, n_pad] fp32 where row q = sum of the dense rows of q's
     pairs in ``table`` (the layout in the module docstring; ``group_pairs``
     builds it).  ``dense``: [t_heavy, n_pad] bf16 or fp32."""
-    if dense.device.type == "cpu":
+    if not launches(dense):
         return accumulate_grouped_plain(dense, table, nq)
-    if dense.device.type != "cuda":
-        raise ValueError(f"no gather_rows kernel for device {dense.device}")
     _check_table(dense, table, nq)
     t_heavy, n_pad = dense.shape
     vec = 16 // dense.element_size()
@@ -181,7 +179,7 @@ def accumulate_grouped(dense, table, nq: int) -> torch.Tensor:
     KERNEL.call(
         _FN[dense.dtype],
         dense.data_ptr(), table.data_ptr(), table.numel(), out.data_ptr(),
-        nq, t_heavy, n_pad, torch.cuda.current_stream(dense.device).cuda_stream, device=dense.device,
+        nq, t_heavy, n_pad, stream(dense), device=dense.device,
     )
     return out
 
@@ -195,9 +193,7 @@ def accumulate_rows(dense, ids, pairs, counts, nq: int) -> torch.Tensor:
     row, ids slot) incidences in any order (entries past counts[1]
     ignored); ``counts``: [2] int32 (hit rows, pairs), on the same device.
     """
-    if dense.device.type == "cpu":
+    if not launches(dense):
         return accumulate_rows_plain(dense, ids, pairs, counts, nq)
-    if dense.device.type != "cuda":
-        raise ValueError(f"no gather_rows kernel for device {dense.device}")
     _check(dense, ids, pairs, counts, nq)
     return accumulate_grouped(dense, pair_tables(ids, pairs, counts, nq), nq)

@@ -11,10 +11,11 @@ not its production path, and so does the port.
   JAX table format, kept so the two can be compared array for array).
 - **Heavy** lists (>= ``HEAVY_MIN`` postings) go through ``blocked_scores``:
   one [8, 4096] fp32 tile per (8-query group, 4096-doc block) cell, summed
-  from the cell's chunk windows.  On CUDA tensors it launches the
-  hand-written kernel ``csrc/blocked_scoring.cu`` (shared-memory atomics in
-  place of the TPU's one-hot MXU product) or raises; on the CPU it runs the
-  plain version.  There is no fallback from one to the other.
+  from the cell's chunk windows.  Where ``_kernels.launches`` says so (CUDA
+  tensors) it launches the hand-written kernel ``csrc/blocked_scoring.cu``
+  (shared-memory atomics in place of the TPU's one-hot MXU product), and
+  otherwise runs the plain version; there is no fallback from one to the
+  other.
 - **Tail** lists are cut into ``TAIL_CHUNK`` windows and added with
   ``ops.scatter_scores.apply_tail_chunks``, which reads the windows in
   place.
@@ -35,9 +36,9 @@ from typing import List, Optional, Sequence, Set, Tuple, Union
 import numpy as np
 import torch
 
-from ..core.device import resolve_device, resolve_use_kernels
+from ..core.device import resolve_device
 from . import scatter_scores
-from ._kernels import CudaKernel
+from ._kernels import CudaKernel, launches, stream
 from .exact_topk import exact_topk_integer
 
 BLK = 4096  # docs per block (multiple of 128)
@@ -128,11 +129,9 @@ def blocked_scores(cell_offsets, chunk_starts, chunk_meta, docs, vals,
     ``docs``/``vals``) and ``(qi << 28) | (lo << 14) | hi``; ``docs`` int32
     (-1 = padding) and ``vals`` fp32, each window start + CH in bounds.
     """
-    if docs.device.type == "cpu":
+    if not launches(docs):
         return blocked_scores_plain(cell_offsets, chunk_starts, chunk_meta, docs, vals,
                                     num_queries, num_blocks)
-    if docs.device.type != "cuda":
-        raise ValueError(f"no blocked_scoring kernel for device {docs.device}")
     _check(cell_offsets, chunk_starts, chunk_meta, docs, vals, num_queries, num_blocks)
     for name, t in (("cell_offsets", cell_offsets), ("chunk_starts", chunk_starts),
                     ("chunk_meta", chunk_meta), ("docs", docs), ("vals", vals)):
@@ -145,7 +144,7 @@ def blocked_scores(cell_offsets, chunk_starts, chunk_meta, docs, vals,
         "ili_blocked_scoring",
         cell_offsets.data_ptr(), chunk_starts.data_ptr(), chunk_meta.data_ptr(),
         docs.data_ptr(), vals.data_ptr(), out.data_ptr(), num_queries // QG, num_blocks,
-        torch.cuda.current_stream(docs.device).cuda_stream, device=docs.device,
+        stream(docs), device=docs.device,
     )
     return out
 
@@ -160,19 +159,11 @@ class PallasBlockedEngine:
         index,
         approx_top_k: bool = False,
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
     ):
         if approx_top_k:
             raise ValueError("approximate top-k is not ported; the port's top-k is exact")
         self.approx_top_k = False
         self.device = dev = resolve_device(device)
-        self.use_kernels = resolve_use_kernels(dev, use_kernels)
-        if self.use_kernels:
-            self._blocked_scores = blocked_scores
-            self._apply_tail_chunks = scatter_scores.apply_tail_chunks
-        else:
-            self._blocked_scores = blocked_scores_plain
-            self._apply_tail_chunks = scatter_scores.apply_tail_chunks_plain
         self.vocab = index.term_to_id
         self.num_docs = max(int(index.num_docs), 1)
         if self.num_docs >= 2**31:
@@ -289,16 +280,16 @@ class PallasBlockedEngine:
             return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
 
         if cell_offsets[-1] > 0:
-            scores = self._blocked_scores(
+            scores = blocked_scores(
                 put(cell_offsets), put(chunk_starts), put(chunk_lohi), self.docs, self.vals,
                 len(padded), self.num_blocks,
             )
         else:
             scores = torch.zeros(len(padded), self.num_blocks * BLK, dtype=torch.float32, device=dev)
         if tail[1].any():
-            scores = self._apply_tail_chunks(scores, self.docs[0], self.vals[0], *put(tail), TAIL_CHUNK)
+            scores = scatter_scores.apply_tail_chunks(scores, self.docs[0], self.vals[0], *put(tail), TAIL_CHUNK)
         # the padded columns (>= num_docs) score 0 and are never selected
-        vals, idx = exact_topk_integer(scores, min(top_k, self.num_docs), use_kernel=self.use_kernels)
+        vals, idx = exact_topk_integer(scores, min(top_k, self.num_docs))
         del scores
         ts, td = vals[:nq].cpu().numpy(), idx[:nq].cpu().numpy()
         n_pos = (ts > 0).sum(axis=1)  # scores descend: a prefix

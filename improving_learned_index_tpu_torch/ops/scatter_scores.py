@@ -14,8 +14,8 @@ Two entries, one kernel library (``csrc/scatter_scores.cu``):
   computes ``apply_tail_updates(scores, *gather_updates(...))`` without
   materializing the flat arrays.
 
-Each dispatches on the tensors' device: on the CPU it runs the plain PyTorch
-version, on CUDA it launches the hand-written kernel or raises.  There is no
+Each launches the hand-written kernel where ``_kernels.launches`` says so
+(CUDA tensors) and runs the plain PyTorch version otherwise; there is no
 fallback from one to the other.
 
 Unlike the JAX function, which returns a new array, both versions update
@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from ._kernels import CudaKernel
+from ._kernels import CudaKernel, launches, stream
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel(
@@ -76,8 +76,7 @@ def _check_chunks(scores, docs, vals, starts, lengths, rows, chunk):
 def _launch(fn, scores, *args):
     """Launch ``fn`` on ``scores`` and the current stream."""
     nq, n_pad = scores.shape
-    KERNEL.call(fn, scores.data_ptr(), *args, nq, n_pad,
-                torch.cuda.current_stream(scores.device).cuda_stream, device=scores.device)
+    KERNEL.call(fn, scores.data_ptr(), *args, nq, n_pad, stream(scores), device=scores.device)
     return scores
 
 
@@ -105,10 +104,8 @@ def apply_tail_updates(scores, d, v, r) -> torch.Tensor:
     ignored.  Impacts are integers (quantized lattice), so fp32 sums are
     exact in any order below 2^24.
     """
-    if scores.device.type == "cpu":
+    if not launches(scores):
         return apply_tail_updates_plain(scores, d, v, r)
-    if scores.device.type != "cuda":
-        raise ValueError(f"no scatter_scores kernel for device {scores.device}")
     _check(scores, d, v, r)
     _require_contiguous(d=d, v=v, r=r)
     if d.numel() == 0 or scores.numel() == 0:
@@ -145,10 +142,8 @@ def apply_tail_chunks(scores, docs, vals, starts, lengths, rows, chunk: int) -> 
     Every window ``starts[i] .. starts[i] + min(lengths[i], chunk)`` must
     lie inside ``docs``/``vals``; lanes past it are never read.
     """
-    if scores.device.type == "cpu":
+    if not launches(scores):
         return apply_tail_chunks_plain(scores, docs, vals, starts, lengths, rows, chunk)
-    if scores.device.type != "cuda":
-        raise ValueError(f"no scatter_scores kernel for device {scores.device}")
     _check_chunks(scores, docs, vals, starts, lengths, rows, chunk)
     _require_contiguous(docs=docs, vals=vals, starts=starts, lengths=lengths, rows=rows)
     if starts.numel() == 0 or scores.numel() == 0:

@@ -13,11 +13,11 @@ Two masks: ``packed=False`` takes a key-padding mask (0 = padding key);
 packed document), and a token attends only to keys of its own segment
 (padding attends to padding).
 
-``short_attention`` dispatches on the tensors' device: on the CPU it runs
-the plain PyTorch version ``short_attention_plain``, on CUDA it launches the
-hand-written kernel ``csrc/short_attention.cu`` or raises.  There is no
-fallback from one to the other; ``use_kernel=False`` runs the plain version
-on any device (the encoder's ``use_kernels=False`` route).
+``short_attention`` launches the hand-written kernel
+``csrc/short_attention.cu`` where ``_kernels.launches`` says so (CUDA
+tensors) and runs the plain PyTorch version ``short_attention_plain``
+otherwise (the CPU, or the card inside ``_kernels.plain_versions()``).
+There is no fallback from one to the other.
 
 Its backward is the JAX ``custom_vjp``'s: whichever forward ran, it
 recomputes attention through ``reference_attention`` (a copy of the JAX
@@ -44,7 +44,7 @@ import ctypes
 
 import torch
 
-from ._kernels import CudaKernel
+from ._kernels import CudaKernel, launches, stream
 
 KERNEL = CudaKernel(
     "short_attention",
@@ -129,21 +129,19 @@ def _launch(q, k, v, segment_mask, sm_scale: float, packed: bool):
         "ili_short_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(), strides,
         b, h, s, d, float(sm_scale), int(bool(packed)), int(out_dtype == torch.float32),
-        torch.cuda.current_stream(q.device).cuda_stream, device=q.device,
+        stream(q), device=q.device,
     )
     return out
 
 
 class _ShortAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, segment_mask, sm_scale, packed, use_kernel):
+    def forward(ctx, q, k, v, segment_mask, sm_scale, packed):
         ctx.save_for_backward(q, k, v, segment_mask)
         ctx.sm_scale, ctx.packed = sm_scale, packed
-        if not use_kernel or q.device.type == "cpu":
-            return short_attention_plain(q, k, v, segment_mask, sm_scale, packed)
-        if q.device.type != "cuda":
-            raise ValueError(f"no short_attention kernel for device {q.device}")
-        return _launch(q, k, v, segment_mask, sm_scale, packed)
+        if launches(q):
+            return _launch(q, k, v, segment_mask, sm_scale, packed)
+        return short_attention_plain(q, k, v, segment_mask, sm_scale, packed)
 
     @staticmethod
     def backward(ctx, grad):
@@ -152,18 +150,16 @@ class _ShortAttention(torch.autograd.Function):
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             out = reference_attention(*leaves, segment_mask, ctx.sm_scale, ctx.packed)
             dq, dk, dv = torch.autograd.grad(out, leaves, grad)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None
 
 
-def short_attention(q, k, v, segment_mask, sm_scale: float, packed: bool = False,
-                    use_kernel: bool = True):
+def short_attention(q, k, v, segment_mask, sm_scale: float, packed: bool = False):
     """Batched attention for S <= 256.
 
     q, k, v: [B, H, S, D] (bf16 in the model; fp32 is rounded to bf16 as the
     TPU kernel does); segment_mask: [B, S] int.  Returns [B, H, S, D] in q's
     dtype.  On CUDA the kernel takes S in {128, 256} and D in {16, 32, 64,
-    128} and raises on other shapes; ``use_kernel=False`` runs the plain
-    version instead.  Either way the backward recomputes through
-    ``reference_attention``.
+    128} and raises on other shapes.  Either way the backward recomputes
+    through ``reference_attention``.
     """
-    return _ShortAttention.apply(q, k, v, segment_mask, sm_scale, packed, use_kernel)
+    return _ShortAttention.apply(q, k, v, segment_mask, sm_scale, packed)

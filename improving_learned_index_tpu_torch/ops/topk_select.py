@@ -16,11 +16,11 @@ the card, with no host read.
   int32 tables, the docs > s_k and == s_k of each 256-doc block; given the
   block maxima, the kernel reads only the blocks that reach ``s_k``.
 
-Each dispatches on the tensors' device: on the CPU its plain PyTorch
-version, on CUDA the hand-written kernels ``csrc/topk_select.cu`` or a
-raise, never a fallback from one to the other.  Like ``count_ge``, the
-kernels take any N and any row stride (a sliced view of a wider matrix is
-read in place).  Scores must lie in [0, BINS): the caller's bound.
+Each launches the hand-written kernels ``csrc/topk_select.cu`` where
+``_kernels.launches`` says so (CUDA tensors) and runs its plain PyTorch
+version otherwise, never a fallback from one to the other.  Like
+``count_ge``, the kernels take any N and any row stride (a sliced view of a
+wider matrix is read in place).  Scores must lie in [0, BINS): the caller's bound.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._kernels import CudaKernel
+from ._kernels import CudaKernel, launches, stream
 
 BINS = 8192  # csrc/topk_select.cu's kBins: holds 32 terms of 8-bit impacts
 BLOCK = 256  # docs a selection block (ops.exact_topk's rank-j gather)
@@ -52,23 +52,13 @@ def _check_scores(scores: torch.Tensor) -> None:
         raise ValueError(f"scores must be [Q, N] fp32, got {tuple(scores.shape)} {scores.dtype}")
 
 
-def _on_card(scores: torch.Tensor) -> bool:
-    """True for CUDA scores the kernels take; False for CPU ones; raise for
-    anything else."""
+def _check_launch(scores: torch.Tensor) -> None:
+    """The kernels' limits on the scores they read."""
     _check_scores(scores)
-    if scores.device.type == "cpu":
-        return False
-    if scores.device.type != "cuda":
-        raise ValueError(f"no topk_select kernel for device {scores.device}")
     if scores.shape[1] > 1 and scores.stride(1) != 1:
         raise ValueError("scores columns must be contiguous (unit stride)")
     if scores.shape[0] > _MAX_ROWS:
         raise ValueError(f"{scores.shape[0]} rows exceed the kernel's {_MAX_ROWS}")
-    return True
-
-
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _n_blocks(n: int) -> int:
@@ -94,14 +84,15 @@ def value_histogram(scores: torch.Tensor):
     ``scores``: [Q, N] fp32, integer-valued, in [0, BINS); any N, rows at
     any stride (columns unit stride).
     """
-    if not _on_card(scores):
+    if not launches(scores):
         return value_histogram_plain(scores)
+    _check_launch(scores)
     q, n = scores.shape
     hist = torch.zeros(q, BINS, dtype=torch.int32, device=scores.device)
     block_max = torch.empty(q, _n_blocks(n), dtype=torch.int32, device=scores.device)
     if q and n:
         KERNEL.call("ili_topk_histogram", scores.data_ptr(), q, n, scores.stride(0), hist.data_ptr(),
-                    block_max.data_ptr(), _stream(scores), device=scores.device)
+                    block_max.data_ptr(), stream(scores), device=scores.device)
     return hist, block_max
 
 
@@ -116,15 +107,13 @@ def kth_scores(hist: torch.Tensor, k: int) -> torch.Tensor:
     |{v >= s}| >= k in its histogram ([Q, BINS] int32), 1 where none."""
     if hist.dim() != 2 or hist.shape[1] != BINS or hist.dtype != torch.int32:
         raise ValueError(f"hist must be [Q, {BINS}] int32, got {tuple(hist.shape)} {hist.dtype}")
-    if hist.device.type == "cpu":
+    if not launches(hist):
         return kth_scores_plain(hist, k)
-    if hist.device.type != "cuda":
-        raise ValueError(f"no topk_select kernel for device {hist.device}")
     q = hist.shape[0]
     hist = hist.contiguous()
     s_k = torch.empty(q, 1, dtype=torch.float32, device=hist.device)
     if q:
-        KERNEL.call("ili_topk_kth", hist.data_ptr(), s_k.data_ptr(), q, int(k), _stream(hist),
+        KERNEL.call("ili_topk_kth", hist.data_ptr(), s_k.data_ptr(), q, int(k), stream(hist),
                     device=hist.device)
     return s_k
 
@@ -149,8 +138,9 @@ def block_counts(scores: torch.Tensor, s_k: torch.Tensor, block_max=None):
     """
     if s_k.shape != (scores.shape[0], 1) or s_k.dtype != torch.float32:
         raise ValueError(f"s_k must be [Q, 1] fp32, got {tuple(s_k.shape)} {s_k.dtype}")
-    if not _on_card(scores):
+    if not launches(scores):
         return block_counts_plain(scores, s_k, block_max)
+    _check_launch(scores)
     q, n = scores.shape
     nb = _n_blocks(n)
     if block_max is not None and (block_max.shape != (q, nb) or not block_max.is_contiguous()):
@@ -161,5 +151,5 @@ def block_counts(scores: torch.Tensor, s_k: torch.Tensor, block_max=None):
     if q and n:
         KERNEL.call("ili_topk_block_counts", scores.data_ptr(), q, n, scores.stride(0),
                     s_k.data_ptr(), None if block_max is None else block_max.data_ptr(),
-                    gt.data_ptr(), eq.data_ptr(), _stream(scores), device=scores.device)
+                    gt.data_ptr(), eq.data_ptr(), stream(scores), device=scores.device)
     return gt, eq

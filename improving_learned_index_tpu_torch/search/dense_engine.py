@@ -14,8 +14,8 @@ above 256, so the port takes ``ops.gather_rows.accumulate_grouped`` instead:
 the fp32 sum of the bf16 (or fp32) rows each query hits, reading only those
 rows, with the pairs grouped on the host (``group_pairs``) and staged in one
 upload (on the card the hand-written ``gather_rows`` kernel; on the CPU, and
-with ``use_kernels=False``, its plain version: the one-hot product in fp32,
-TF32 off).  Integer impacts (<= 255, exact in bf16) give sums equal to the
+inside ``ops.plain_versions()``, its plain version: the one-hot product in
+fp32, TF32 off).  Integer impacts (<= 255, exact in bf16) give sums equal to the
 host engine's bit for bit; float impacts keep fp32 rows, summed in another
 order than the JAX product (the last ulp may differ).
 
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core.config import SearchConfig
-from ..core.device import resolve_device, resolve_use_kernels
+from ..core.device import resolve_device
 from ..index.inverted import InvertedIndexData
 from ..ops import gather_rows
 
@@ -77,15 +77,9 @@ class DenseSearchEngine:
         impacts: Optional[np.ndarray] = None,
         num_docs: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
     ):
         self.config = config
         self.device = dev = resolve_device(device)
-        self.use_kernels = resolve_use_kernels(dev, use_kernels)
-        self._accumulate_grouped = (
-            gather_rows.accumulate_grouped if self.use_kernels
-            else gather_rows.accumulate_grouped_plain
-        )
         if index is not None:
             vocab = index.term_to_id
             offsets = index.offsets
@@ -124,14 +118,13 @@ class DenseSearchEngine:
         per_doc_impacts,
         config: SearchConfig = SearchConfig(),
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
     ):
         from .device_engine import csr_from_term_impacts
 
         vocab, offsets, doc_ids, impacts, n_docs = csr_from_term_impacts(per_doc_impacts)
         return cls(
             config=config, vocab=vocab, offsets=offsets, doc_ids=doc_ids, impacts=impacts,
-            num_docs=n_docs, device=device, use_kernels=use_kernels,
+            num_docs=n_docs, device=device,
         )
 
     def score_batch(
@@ -152,5 +145,5 @@ class DenseSearchEngine:
             return [[] for _ in range(nq)]
         q_of, tids = np.asarray(pairs, dtype=np.int64).T
         table = torch.from_numpy(gather_rows.group_pairs(q_of, tids, nq)).to(self.device)
-        scores = self._accumulate_grouped(self.impact_matrix, table, nq)
+        scores = gather_rows.accumulate_grouped(self.impact_matrix, table, nq)
         return host_topk(scores[:, : self.num_docs].cpu().numpy(), k)

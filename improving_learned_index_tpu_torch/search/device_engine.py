@@ -14,7 +14,7 @@ replacement for the reference's per-query Python postings loop
 The gather and scatter are XLA in the JAX package, not Pallas.  Here they
 go through ``ops.scatter_scores.apply_tail_chunks``, which reads the chunk
 table and the posting arrays in place: on CUDA tensors the hand-written
-kernel, on the CPU (and on the card with ``use_kernels=False``, for
+kernel, on the CPU (and on the card inside ``ops.plain_versions()``, for
 cross-checks only) its plain version, which materializes the flat updates.
 The table goes in slices of at most ``_MAX_UPDATES`` window positions, which
 bounds the flat arrays the plain route materializes.
@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..core.config import SearchConfig
-from ..core.device import resolve_device, resolve_use_kernels
+from ..core.device import resolve_device
 from ..index.inverted import InvertedIndexData
 from ..ops import scatter_scores
 from ..ops.exact_topk import exact_topk_integer
@@ -119,17 +119,11 @@ class DeviceSearchEngine:
         impacts: Optional[np.ndarray] = None,
         num_docs: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
     ):
         if config.approx_top_k:
             raise ValueError("approximate top-k is not ported; the port's top-k is exact")
         self.config = config
         self.device = resolve_device(device)
-        self.use_kernels = resolve_use_kernels(self.device, use_kernels)
-        self._apply_chunks = (
-            scatter_scores.apply_tail_chunks if self.use_kernels
-            else scatter_scores.apply_tail_chunks_plain
-        )
         if index is not None:
             vocab = index.term_to_id
             offsets = index.offsets
@@ -159,7 +153,6 @@ class DeviceSearchEngine:
         per_doc_impacts,  # iterable of [(term, float score), ...] per doc
         config: SearchConfig = SearchConfig(),
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
     ) -> "DeviceSearchEngine":
         """Build an in-memory float-impact engine straight from encoder
         output — the reference SparseSearch in-memory index semantics
@@ -167,7 +160,7 @@ class DeviceSearchEngine:
         vocab, offsets, doc_ids, impacts, n_docs = csr_from_term_impacts(per_doc_impacts)
         return cls(
             config=config, vocab=vocab, offsets=offsets, doc_ids=doc_ids,
-            impacts=impacts, num_docs=n_docs, device=device, use_kernels=use_kernels,
+            impacts=impacts, num_docs=n_docs, device=device,
         )
 
     def _chunk_table(
@@ -208,9 +201,9 @@ class DeviceSearchEngine:
         per = max(1, _MAX_UPDATES // self.chunk)
         for c0 in range(0, len(starts), per):
             table = (torch.from_numpy(a[c0 : c0 + per]).to(dev) for a in (starts, lengths, rows))
-            self._apply_chunks(scores, self.doc_ids, self.impacts, *table, self.chunk)
+            scatter_scores.apply_tail_chunks(scores, self.doc_ids, self.impacts, *table, self.chunk)
         if self.integer_scores:
-            vals, idx = exact_topk_integer(scores, k, use_kernel=self.use_kernels)
+            vals, idx = exact_topk_integer(scores, k)
         else:
             vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
             vals, idx = vals[:, :k], idx[:, :k]

@@ -32,10 +32,9 @@ replacement for the reference's per-query Python postings loop
   order than XLA does.
 
 On CUDA tensors the two stages and the top-k's passes always launch the
-hand-written kernels (``csrc/``); on the CPU, and on the card with
-``use_kernels=False`` (for cross-checks only), they run the kernels' plain
-PyTorch versions.  The
-TPU's shape gates (VMEM limits) and its XLA-only scatter regimes do not
+hand-written kernels (``csrc/``); on the CPU, and on the card inside
+``ops.plain_versions()`` (for cross-checks only), they run the kernels'
+plain PyTorch versions.  The TPU's shape gates (VMEM limits) and its XLA-only scatter regimes do not
 carry over: the kernels take any batch, any hit-row count and bf16 or fp32
 rows.  Batches are not split into 64-query sub-batches: the score matrix
 costs nq x n_pad x 4 B (9 GB for 256 queries at 8.85M docs), which the
@@ -59,7 +58,7 @@ import numpy as np
 import torch
 
 from ..core.config import SearchConfig
-from ..core.device import device_scope, resolve_device, resolve_use_kernels
+from ..core.device import device_scope, resolve_device
 from ..core.profiling import annotate
 from ..index.inverted import InvertedIndexData
 from ..ops import gather_rows, scatter_scores
@@ -258,8 +257,8 @@ def topk_to_host(vals: torch.Tensor, idx: torch.Tensor, device: torch.device):
     return finalize
 
 
-def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool,
-                 integer_scores: bool, max_score: Optional[float] = None):
+def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, integer_scores: bool,
+                 max_score: Optional[float] = None):
     """Exact top-k over the real docs, (values, int32 doc ids).
 
     Integer scores: ``exact_topk_integer``; when the padded width is a whole
@@ -275,7 +274,7 @@ def _finish_topk(scores: torch.Tensor, num_docs: int, k: int, use_kernel: bool,
             return vals[:, :k], idx[:, :k].to(torch.int32)
         if scores.shape[1] % _BLOCK:
             scores = scores[:, :num_docs]
-        return exact_topk_integer(scores, k, use_kernel=use_kernel, max_score=max_score)
+        return exact_topk_integer(scores, k, max_score=max_score)
 
 
 class HybridSearchEngine:
@@ -296,7 +295,6 @@ class HybridSearchEngine:
         dense_budget_bytes: int = 4 << 30,
         integer_scores: bool = True,
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
         heavy_terms: Optional[np.ndarray] = None,
     ):
         """``heavy_terms``: the dense rows' term ids, ascending, in place of
@@ -307,13 +305,6 @@ class HybridSearchEngine:
         self.config = config
         self.integer_scores = integer_scores
         self.device = resolve_device(device)
-        self.use_kernels = resolve_use_kernels(self.device, use_kernels)
-        if self.use_kernels:
-            self._accumulate_grouped = gather_rows.accumulate_grouped
-            self._apply_tail_chunks = scatter_scores.apply_tail_chunks
-        else:
-            self._accumulate_grouped = gather_rows.accumulate_grouped_plain
-            self._apply_tail_chunks = scatter_scores.apply_tail_chunks_plain
         self.vocab: Dict[str, int] = index.term_to_id
         self.num_docs = max(int(index.num_docs), 1)
         if self.num_docs >= 2**31:
@@ -385,7 +376,6 @@ class HybridSearchEngine:
         heavy_min: int = 1024,
         dense_budget_bytes: int = 4 << 30,
         device: Optional[Union[str, torch.device]] = None,
-        use_kernels: Optional[bool] = None,
     ) -> "HybridSearchEngine":
         """In-memory float-impact engine straight from encoder output (the
         reference SparseSearch index semantics, nano_beir_evaluator.py:78-101:
@@ -397,7 +387,7 @@ class HybridSearchEngine:
         index = SimpleNamespace(term_to_id=vocab, offsets=offsets, doc_ids=doc_ids,
                                 impacts=impacts, num_docs=n_docs)
         return cls(index, config, heavy_min=heavy_min, dense_budget_bytes=dense_budget_bytes,
-                   integer_scores=False, device=device, use_kernels=use_kernels)
+                   integer_scores=False, device=device)
 
     def tail_chunks(self, t_q: np.ndarray, t_tid: np.ndarray):
         """The chunk table (starts, lengths, rows) of the tail terms
@@ -474,12 +464,12 @@ class HybridSearchEngine:
         ``score_bound`` as ``max_score``.  Call it under
         ``device_scope(self.device)``."""
         if heavy is not None:
-            scores = self._accumulate_grouped(self.dense, heavy, nq)
+            scores = gather_rows.accumulate_grouped(self.dense, heavy, nq)
         else:
             scores = torch.zeros(nq, self.n_pad, dtype=torch.float32, device=self.device)
         if tail is not None:
-            scores = self._apply_tail_chunks(scores, self.doc_ids, self.impacts, *tail, TAIL_CHUNK)
-        return _finish_topk(scores, self.num_docs, k, self.use_kernels, self.integer_scores, max_score)
+            scores = scatter_scores.apply_tail_chunks(scores, self.doc_ids, self.impacts, *tail, TAIL_CHUNK)
+        return _finish_topk(scores, self.num_docs, k, self.integer_scores, max_score)
 
     def score_batch_async(
         self,

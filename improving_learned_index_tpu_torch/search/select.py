@@ -47,7 +47,6 @@ def build_engine(
     dense_budget_bytes: int = 4 << 30,
     num_docs: int = 0,
     device: Optional[Union[str, torch.device]] = None,
-    use_kernels: Optional[bool] = None,
 ):
     """Construct a query engine from a saved index — the construction path
     shared by the rank CLI and library users.  ``engine``: auto | device |
@@ -77,7 +76,7 @@ def build_engine(
     if engine == "device":
         from .device_engine import DeviceSearchEngine
 
-        return DeviceSearchEngine(index, SearchConfig(), device=device, use_kernels=use_kernels)
+        return DeviceSearchEngine(index, SearchConfig(), device=device)
     if engine == "hybrid":
         from .hybrid_engine import HybridSearchEngine
 
@@ -86,7 +85,6 @@ def build_engine(
             SearchConfig(),
             dense_budget_bytes=dense_budget_bytes,
             device=device,
-            use_kernels=use_kernels,
         )
     from .engine import InvertedIndex
 

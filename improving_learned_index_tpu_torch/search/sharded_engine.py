@@ -95,12 +95,9 @@ class ShardedSearchEngine:
         config: SearchConfig = SearchConfig(),
         heavy_min: int = 1024,
         dense_budget_bytes: int = 4 << 30,
-        use_kernels: Optional[bool] = None,
     ):
         """``devices``: one shard of docs per entry (repeats allowed); None
-        is one shard on each visible CUDA device, and raises without one.
-        ``use_kernels`` is resolved on each shard's device, as the hybrid
-        engine resolves it."""
+        is one shard on each visible CUDA device, and raises without one."""
         if config.approx_top_k:
             raise ValueError("approximate top-k is not ported; the port's top-k is exact")
         if devices is None:
@@ -143,11 +140,9 @@ class ShardedSearchEngine:
             self.split_seconds += time.perf_counter() - t0
             shard = SimpleNamespace(term_to_id=self.vocab, offsets=sub_offsets, doc_ids=sub_docs,
                                     impacts=sub_vals, num_docs=self.shard_docs)
-            self.shards.append(HybridSearchEngine(shard, config, device=dev, use_kernels=use_kernels,
-                                                  heavy_terms=heavy_tids))
+            self.shards.append(HybridSearchEngine(shard, config, device=dev, heavy_terms=heavy_tids))
             del shard, sub_offsets, sub_docs, sub_vals
         self.build_seconds = time.perf_counter() - t_build
-        self.use_kernels = self.shards[0].use_kernels
         self._released = False
 
     def release(self) -> None:

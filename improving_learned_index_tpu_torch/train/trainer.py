@@ -61,7 +61,7 @@ def packed_doc_scores(token_scores: torch.Tensor, batch: Dict) -> torch.Tensor:
     return batch["doc_base"].index_add(0, idx, vals.reshape(-1))[:-1]
 
 
-def make_loss_fn(module, loss_name: str, use_kernels: bool = True) -> Callable:
+def make_loss_fn(module, loss_name: str) -> Callable:
     """Build loss_fn(batch) -> scalar for the given objective, ``batch`` a
     dict of tensors on the module's device; ``module`` is the objective's
     model (``PairwiseImpactModel`` for ``pairwise_impact``,
@@ -69,17 +69,13 @@ def make_loss_fn(module, loss_name: str, use_kernels: bool = True) -> Callable:
 
     Batches carrying ``segment_ids`` (sequence-packed, train/packed.py) take
     the packed forward (block-diagonal attention, per-segment positions)
-    for the objectives whose mask is per-document (pairwise_ce, distil_*).
-    ``use_kernels=False`` runs attention's plain version on the card (for
-    cross-checks)."""
+    for the objectives whose mask is per-document (pairwise_ce, distil_*)."""
 
     def forward(batch):
         if "segment_ids" in batch:
             seg = batch["segment_ids"]
-            return module(batch["input_ids"], (seg > 0).to(torch.int32), batch["type_ids"],
-                          segment_ids=seg, use_kernels=use_kernels)
-        return module(batch["input_ids"], batch["attention_mask"], batch["type_ids"],
-                      use_kernels=use_kernels)
+            return module(batch["input_ids"], (seg > 0).to(torch.int32), batch["type_ids"], segment_ids=seg)
+        return module(batch["input_ids"], batch["attention_mask"], batch["type_ids"])
 
     def doc_scores(token_scores, batch):
         if "segment_ids" in batch:
@@ -116,7 +112,7 @@ def make_loss_fn(module, loss_name: str, use_kernels: bool = True) -> Callable:
         def loss_fn(batch):
             single, pair_scores, pair_attn = module(
                 batch["input_ids"], batch["attention_mask"], batch["type_ids"],
-                batch["pair_indices"], batch["pair_mask"], use_kernels=use_kernels,
+                batch["pair_indices"], batch["pair_mask"],
             )
             # attention-weighted pairwise contribution per doc (reference
             # training/pairwise_trainer.py:26-36); pair_attn is detached
@@ -207,7 +203,7 @@ class Trainer:
             batch_size=config.batch_size,  # query groups per step (global)
             writer=self.rank == 0,
         )
-        self.loss_fn = make_loss_fn(module, config.loss, use_kernels=model.use_kernels)
+        self.loss_fn = make_loss_fn(module, config.loss)
 
     # -- device placement -------------------------------------------------------
     def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:

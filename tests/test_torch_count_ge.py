@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from improving_learned_index_tpu.ops.count_ge import _TILE, count_ge as jax_count_ge
 from improving_learned_index_tpu.ops.exact_topk import exact_topk_integer as jax_topk
+from improving_learned_index_tpu_torch.ops import plain_versions
 from improving_learned_index_tpu_torch.ops.count_ge import count_ge, count_ge_plain
 from improving_learned_index_tpu_torch.ops.exact_topk import exact_topk_integer
 
@@ -63,14 +64,11 @@ def test_exact_topk_sliced_input_matches_jax(k):
     view = torch.from_numpy(full)[:, :3001]
     assert not view.is_contiguous()
     v_j, i_j = (np.asarray(a) for a in jax_topk(jnp.asarray(full[:, :3001]), k))
-    v_t, i_t = exact_topk_integer(view, k, use_kernel=False)
+    with plain_versions():
+        v_t, i_t = exact_topk_integer(view, k)
     np.testing.assert_array_equal(v_t.numpy(), v_j)
     np.testing.assert_array_equal(i_t.numpy(), i_j)
-    # None on the CPU is the plain count too
+    # outside the switch the CPU runs the plain versions too
     v_n, i_n = exact_topk_integer(view, k)
     assert torch.equal(v_n, v_t) and torch.equal(i_n, i_t)
 
-
-def test_exact_topk_kernel_on_cpu_raises():
-    with pytest.raises(ValueError, match="needs CUDA"):
-        exact_topk_integer(torch.ones(2, 10), 3, use_kernel=True)

@@ -12,6 +12,7 @@ The kernels themselves are held to the twins on the card
 (``tests/test_torch_kernels_cuda.py``).
 """
 
+import contextlib
 import itertools
 
 import pytest
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from improving_learned_index_tpu_torch.core.config import EncoderConfig
 from improving_learned_index_tpu_torch.models.encoder import EncoderLayer, epilogue_route, init_weights
 from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+from improving_learned_index_tpu_torch.ops import plain_versions
 
 T = 37  # token rows: not a multiple of any block's rows
 
@@ -41,8 +43,9 @@ def test_bias_add_twin_equals_former_expression(width):
     ys = [_bf16(T, width, seed=s) for s in range(3)]
     bs = [_fp32(width, seed=10 + s, scale=0.1) for s in range(3)]
     want = [y + b.to(dt) for y, b in zip(ys, bs)]
-    for got in ([epi.bias_add_plain(y, b) for y, b in zip(ys, bs)], epi.bias_add(*ys, *bs),
-                epi.bias_add(*ys, *bs, use_kernel=False)):
+    with plain_versions():
+        switched = epi.bias_add(*ys, *bs)
+    for got in ([epi.bias_add_plain(y, b) for y, b in zip(ys, bs)], epi.bias_add(*ys, *bs), switched):
         assert len(got) == 3
         for g, w in zip(got, want):
             assert g.dtype == dt and torch.equal(g, w)
@@ -86,11 +89,13 @@ _ROUTE_CASES = list(itertools.product(["cuda", "cpu"], [True, False], [False, Tr
                                       [torch.bfloat16, torch.float32], [(768, 3072), (1024, 4096), (100, 400)]))
 
 
-@pytest.mark.parametrize("device_type,use_kernels,grad,dtype,widths", _ROUTE_CASES)
-def test_epilogue_route_is_cuda_kernels_no_grad_bf16_and_a_width_it_takes(device_type, use_kernels, grad, dtype,
+@pytest.mark.parametrize("device_type,kernels,grad,dtype,widths", _ROUTE_CASES)
+def test_epilogue_route_is_cuda_kernels_no_grad_bf16_and_a_width_it_takes(device_type, kernels, grad, dtype,
                                                                           widths):
-    want = device_type == "cuda" and use_kernels and not grad and dtype == torch.bfloat16 and widths[0] % 8 == 0
-    assert epilogue_route(device_type, use_kernels, grad, dtype, *widths) is want
+    """``kernels`` False: inside ``plain_versions()``."""
+    want = device_type == "cuda" and kernels and not grad and dtype == torch.bfloat16 and widths[0] % 8 == 0
+    with contextlib.nullcontext() if kernels else plain_versions():
+        assert epilogue_route(torch.device(device_type), grad, dtype, *widths) is want
 
 
 @pytest.mark.parametrize("hidden,intermediate,ok", [(768, 3072, True), (64, 128, True), (1024, 4096, True),
@@ -125,7 +130,7 @@ def _former_layer_forward(layer, x, mask):
     b, s, hid = x.shape
     hd = hid // c.num_heads
     q, k, v = (linear(x, lin).view(b, s, c.num_heads, hd).permute(0, 2, 1, 3) for lin in (a.query, a.key, a.value))
-    ctx = short_attention(q, k, v, mask, 1.0 / hd ** 0.5, False, use_kernel=True)
+    ctx = short_attention(q, k, v, mask, 1.0 / hd ** 0.5, False)
     attn = linear(ctx.permute(0, 2, 1, 3).reshape(b, s, hid), a.output_dense)
     x = layer.attention_norm((x + attn).float()).to(dt)
     h = F.gelu(linear(x, layer.intermediate), approximate="none")
@@ -148,7 +153,8 @@ def test_encoder_layer_on_cpu_equals_former_layer(dtype, grad):
     mask = torch.ones(2, 128, dtype=torch.int32)
     mask[1, 70:] = 0
     outs, grads = [], []
-    for forward in (lambda x: layer(x, None, mask)[0], lambda x: _former_layer_forward(layer, x, mask)):
+    for forward in (lambda x: layer(x, None, mask, False, "short", False)[0],
+                    lambda x: _former_layer_forward(layer, x, mask)):
         layer.zero_grad()
         x = x0.float().requires_grad_() if grad else x0
         with torch.set_grad_enabled(grad):

@@ -35,6 +35,8 @@ limits of the twin route.  The T5 route reaches no kernel: a tiny fp32
 T5's greedy tokens on the card equal the CPU's.
 """
 
+from contextlib import nullcontext
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +48,8 @@ from improving_learned_index_tpu_torch.ops import pallas_scoring as ps
 from improving_learned_index_tpu_torch.ops import flash_attention as fa
 from improving_learned_index_tpu_torch.ops import short_attention as sa
 from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+from improving_learned_index_tpu_torch.ops import plain_versions
+from improving_learned_index_tpu_torch.ops._kernels import launches
 from improving_learned_index_tpu_torch.ops.count_ge import KERNEL as COUNT_KERNEL
 from improving_learned_index_tpu_torch.ops.count_ge import count_ge, count_ge_plain
 from improving_learned_index_tpu_torch.ops import topk_select as tks
@@ -255,7 +259,8 @@ def test_engine_kernels_equal_plain_and_cpu(cuda):
     got = HybridSearchEngine(idx, device="cuda").score_batch(batch, 50)
     assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and tks.KERNEL.launches > t0
     assert COUNT_KERNEL.launches == c0  # the batch's bound takes the histogram route
-    assert got == HybridSearchEngine(idx, device="cuda", use_kernels=False).score_batch(batch, 50)
+    with plain_versions():
+        assert got == HybridSearchEngine(idx, device="cuda").score_batch(batch, 50)
     assert got == HybridSearchEngine(idx, device="cpu").score_batch(batch, 50)
 
 
@@ -329,8 +334,9 @@ def test_short_attention_kernel_equals_plain(cuda, shape, dtype, layout, packed)
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed", [False, True])
 def test_short_attention_backward_through_plain(cuda, packed):
-    """The kernel route's backward is the plain route's (``use_kernel=False``)
-    and ``reference_attention``'s under autograd: one recompute for both."""
+    """The kernel route's backward is the plain route's (inside
+    ``plain_versions()``) and ``reference_attention``'s under autograd: one
+    recompute for both."""
     b, h, s, d = 2, 2, 128, 16
     rng = np.random.default_rng(9)
     leaves = [torch.from_numpy(rng.standard_normal((b, h, s, d), dtype=np.float32)).cuda().requires_grad_()
@@ -341,10 +347,11 @@ def test_short_attention_backward_through_plain(cuda, packed):
     sa.short_attention(*leaves, seg, 0.25, packed).backward(g)
     assert sa.KERNEL.launches == before + 1
     got = [t.grad.clone() for t in leaves]
-    for route in (lambda *a: sa.short_attention(*a, use_kernel=False), sa.reference_attention):
+    for route in (sa.short_attention, sa.reference_attention):
         for t in leaves:
             t.grad = None
-        route(*leaves, seg, 0.25, packed).backward(g)
+        with plain_versions():
+            route(*leaves, seg, 0.25, packed).backward(g)
         for x, y in zip(got, (t.grad for t in leaves)):
             assert torch.equal(x, y)
     assert sa.KERNEL.launches == before + 1
@@ -384,14 +391,15 @@ def test_train_step_kernel_route_matches_plain(cuda, tmp_path):
                       tmp_path)
     put = trainer._put_batch(batch)
     out = {}
-    for use_kernels in (True, False):
+    for kernels in (True, False):
         before = sa.KERNEL.launches
-        loss = make_loss_fn(model.module, "pairwise_ce", use_kernels=use_kernels)(put)
-        loss.backward()
+        with nullcontext() if kernels else plain_versions():
+            loss = make_loss_fn(model.module, "pairwise_ce")(put)
+            loss.backward()
         torch.cuda.synchronize()
-        assert sa.KERNEL.launches - before == (config.num_layers if use_kernels else 0)
+        assert sa.KERNEL.launches - before == (config.num_layers if kernels else 0)
         grads = torch.cat([p.grad.flatten() for p in model.module.parameters()])
-        out[use_kernels] = (loss.item(), grads)
+        out[kernels] = (loss.item(), grads)
         for p in model.module.parameters():
             p.grad = None
     (lk, gk), (lp, gp) = out[True], out[False]
@@ -435,24 +443,24 @@ def test_cross_encoder_kernel_route_matches_plain(cuda, tmp_path):
     tok = ImpactTokenizer(WordPieceVocab.build(passages, max_size=1000), max_length=256)
     config = EncoderConfig(vocab_size=len(tok.vocab), num_layers=2, impact_activation="softplus")
     model = DeepImpactCrossEncoder(config, tok, seed=0, device="cuda")
-    plain = DeepImpactCrossEncoder(config, tok, state_dict=model.module.state_dict(), device="cuda",
-                                   use_kernels=False)
     encs = model.process_cross_encoder_documents_and_query(passages, " ".join(words[:4]))
     before = sa.KERNEL.launches
     got = model.score_batch(encs)
     torch.cuda.synchronize()
     assert sa.KERNEL.launches - before == config.num_layers
-    _impacts_close(got, plain.score_batch(encs))
+    with plain_versions():
+        _impacts_close(got, model.score_batch(encs))
 
     triples = [(" ".join(passages[i].split()[:3]), passages[i], passages[32 + i]) for i in range(16)]
     trainer = Trainer(model, TrainConfig(batch_size=16, loss="cross_encoder", save_every=10**6,
                                          eval_every=10**9), tmp_path)
     put = trainer._put_batch(COLLATES["cross_encoder"](triples, tok, 256))
     out = {}
-    for use_kernels in (True, False):
-        loss = make_loss_fn(model.module, "cross_encoder", use_kernels=use_kernels)(put)
-        loss.backward()
-        out[use_kernels] = (loss.item(), torch.cat([p.grad.flatten() for p in model.module.parameters()]))
+    for kernels in (True, False):
+        with nullcontext() if kernels else plain_versions():
+            loss = make_loss_fn(model.module, "cross_encoder")(put)
+            loss.backward()
+        out[kernels] = (loss.item(), torch.cat([p.grad.flatten() for p in model.module.parameters()]))
         for p in model.module.parameters():
             p.grad = None
     (lk, gk), (lp, gp) = out[True], out[False]
@@ -577,8 +585,9 @@ def test_topk_select_kernels_equal_plain(cuda, layout):
     for got in counts:
         assert all(torch.equal(a, b) for a, b in zip(got, want_counts))
     v, i = exact_topk_integer(scores, k, max_score=tks.BINS - 1)
-    for other in (exact_topk_integer(scores, k, max_score=tks.BINS - 1, use_kernel=False),
-                  exact_topk_integer(scores, k)):
+    with plain_versions():
+        plain = exact_topk_integer(scores, k, max_score=tks.BINS - 1)
+    for other in (plain, exact_topk_integer(scores, k)):
         assert torch.equal(v, other[0]) and torch.equal(i, other[1])
 
 
@@ -642,7 +651,8 @@ def test_other_engines_on_card_equal_cpu(cuda):
         # the blocked engine's tail and the device engine's scatter take the
         # chunk entry; the dense engine has no tail
         assert (ss.KERNEL.launches > s0) == (cls is not DenseSearchEngine), cls
-        assert got == cls(idx, device="cuda", use_kernels=False).score_batch(batch, 100), cls
+        with plain_versions():
+            assert got == cls(idx, device="cuda").score_batch(batch, 100), cls
         assert got == cls(idx, device="cpu").score_batch(batch, 100), cls
     assert ps.KERNEL.launches > b0 and COUNT_KERNEL.launches > c0
 
@@ -720,10 +730,12 @@ def test_hybrid_float_engine_on_card_equals_cpu(cuda, dyadic):
     assert card.t_heavy == 5 and card.dense.dtype == torch.float32
     got = card.score_batch(batch, num_docs)
     assert gr.KERNEL.launches > g0 and ss.KERNEL.launches > s0 and COUNT_KERNEL.launches == c0
-    plain = HybridSearchEngine.from_term_impacts(docs, heavy_min=1000, device="cuda", use_kernels=False)
+    plain = HybridSearchEngine.from_term_impacts(docs, heavy_min=1000, device="cuda")
     cpu = HybridSearchEngine.from_term_impacts(docs, heavy_min=1000, device="cpu")
     device = DeviceSearchEngine.from_term_impacts(docs, device="cuda")
-    for want in (plain.score_batch(batch, num_docs), cpu.score_batch(batch, num_docs),
+    with plain_versions():
+        plain_lists = plain.score_batch(batch, num_docs)
+    for want in (plain_lists, cpu.score_batch(batch, num_docs),
                  device.score_batch(batch, num_docs)):
         if dyadic:
             assert got == want
@@ -736,7 +748,7 @@ def test_hybrid_float_engine_on_card_equals_cpu(cuda, dyadic):
 @pytest.mark.parametrize("n_docs", [5_000, 100_000])
 def test_sparse_search_on_card_kernels_equal_plain(cuda, n_docs):
     """SparseSearch on the card on both sides of its engine switch, with the
-    kernels and with their plain versions (``use_kernels=False``): equal
+    kernels and with their plain versions (``plain_versions()``): equal
     results for dyadic impacts (a word's length / 8)."""
     from improving_learned_index_tpu_torch.evaluation import SparseSearch
 
@@ -762,7 +774,8 @@ def test_sparse_search_on_card_kernels_equal_plain(cuda, n_docs):
     want_engine = HybridSearchEngine if n_docs >= 100_000 else DeviceSearchEngine
     assert type(card.engine) is want_engine and card.engine.device.type == "cuda"
     assert ss.KERNEL.launches > s0 and (gr.KERNEL.launches > g0) == (want_engine is HybridSearchEngine)
-    assert got == SparseSearch(Stub(), batch_size=4096, use_kernels=False).search(queries, corpus, k=100)
+    with plain_versions():
+        assert got == SparseSearch(Stub(), batch_size=4096).search(queries, corpus, k=100)
     assert got == SparseSearch(Stub(), batch_size=4096, device="cpu").search(queries, corpus, k=100)
 
 
@@ -829,7 +842,7 @@ def _zipf_index(num_docs, n_terms=200, seed=5):
 @pytest.mark.cuda
 def test_sharded_engine_on_card_equals_hybrid(cuda):
     """Four shards on one card: the single hybrid engine's ranked lists,
-    ``use_kernels=False``'s and the CPU shards'; each shard launches the
+    ``plain_versions()``' and the CPU shards'; each shard launches the
     heavy and the tail kernel once a batch, and its top-k's histogram."""
     from improving_learned_index_tpu_torch.search import ShardedSearchEngine
 
@@ -838,14 +851,15 @@ def test_sharded_engine_on_card_equals_hybrid(cuda):
     batch += [set(), {"t0"}, {"t150"}, {"t1", "zz"}, {"zz"}]
     want = HybridSearchEngine(idx, heavy_min=256, device="cuda").score_batch(batch, 100)
     eng = ShardedSearchEngine(idx, ["cuda:0"] * 4, heavy_min=256)
-    assert eng.t_heavy > 0 and eng.use_kernels and all(s.doc_ids.numel() > 0 for s in eng.shards)
+    assert eng.t_heavy > 0 and all(s.doc_ids.numel() > 0 for s in eng.shards)
     g0, s0 = gr.KERNEL.launches, ss.KERNEL.launches
     h0, c0 = tks.KERNEL.calls.get("ili_topk_histogram", 0), COUNT_KERNEL.launches
     got = eng.score_batch(batch, 100)
     assert gr.KERNEL.launches - g0 == 4 and ss.KERNEL.launches - s0 == 4
     assert tks.KERNEL.calls["ili_topk_histogram"] - h0 == 4 and COUNT_KERNEL.launches == c0
     assert got == want
-    assert got == ShardedSearchEngine(idx, ["cuda:0"] * 4, heavy_min=256, use_kernels=False).score_batch(batch, 100)
+    with plain_versions():
+        assert got == ShardedSearchEngine(idx, ["cuda:0"] * 4, heavy_min=256).score_batch(batch, 100)
     assert got == ShardedSearchEngine(idx, ["cpu"] * 4, heavy_min=256).score_batch(batch, 100)
     assert list(eng.score_stream([batch, batch[:7]], top_k=100)) == [got, got[:7]]
 
@@ -948,7 +962,7 @@ def test_sharded_engine_across_card_and_cpu_equals_hybrid(cuda, devices):
     batch = [{f"t{t}" for t in rng.choice(200, 4, replace=False)} for _ in range(40)]
     batch += [set(), {"t0"}, {"t150"}, {"zz"}]
     eng = ShardedSearchEngine(idx, devices, heavy_min=256)
-    assert eng.t_heavy > 0 and [s.use_kernels for s in eng.shards] == [d == "cuda:0" for d in devices]
+    assert eng.t_heavy > 0 and [launches(s.dense) for s in eng.shards] == [d == "cuda:0" for d in devices]
     g0, s0 = gr.KERNEL.launches, ss.KERNEL.launches
     got = eng.score_batch(batch, 100)
     assert gr.KERNEL.launches - g0 == 1 and ss.KERNEL.launches - s0 == 1
@@ -1114,7 +1128,8 @@ def test_flash_autograd_launches_kernels_and_refuses_other_shapes(cuda):
     out.backward(do)
     assert fa.KERNEL.launches == before + 3
     ref = [t.detach().requires_grad_() for t in (q, k, v)]
-    fa.flash_attention(*ref, seg, seg, causal=True, sm_scale=0.125, use_kernel=False).backward(do)
+    with plain_versions():
+        fa.flash_attention(*ref, seg, seg, causal=True, sm_scale=0.125).backward(do)
     assert fa.KERNEL.launches == before + 3
     for a, w in zip(leaves, ref):
         assert (a.grad.float() - w.grad.float()).abs().max() <= 1e-2 * w.grad.float().abs().max()
@@ -1132,7 +1147,7 @@ def test_encoder_route_on_the_card(cuda, seq, maps, route):
     rows: at S=512 its default route launches ``ili_flash_fwd`` once a
     layer, at S=256 the short-attention kernel, and with attention maps
     neither; the hidden state within 2e-2 of the largest entry of the
-    ``use_kernels=False`` route's (bf16 states, probabilities rounded to
+    ``plain_versions()`` route's (bf16 states, probabilities rounded to
     bf16 against another running maximum in each kernel)."""
     from improving_learned_index_tpu_torch.core.config import EncoderConfig
     from improving_learned_index_tpu_torch.models.encoder import TransformerEncoder, attention_route, init_weights
@@ -1153,7 +1168,8 @@ def test_encoder_route_on_the_card(cuda, seq, maps, route):
     before = {name: k.launches for name, k in counters.items()}
     with torch.no_grad():
         got = trunk(ids, (seg > 0).int(), segment_ids=seg, output_attentions=maps)
-        want = trunk(ids, (seg > 0).int(), segment_ids=seg, use_kernels=False, output_attentions=maps)
+        with plain_versions():
+            want = trunk(ids, (seg > 0).int(), segment_ids=seg, output_attentions=maps)
     if maps:
         got, want = got[0], want[0]
     launched = {name: k.launches - before[name] for name, k in counters.items()}
@@ -1321,7 +1337,7 @@ def test_encode_packed_on_epilogue_kernels_within_the_cells_limits(cuda, family,
 @pytest.mark.cuda
 def test_llama_flash_forward_and_finetune_step_equal_twin_route(cuda):
     """A 2-layer Llama at head dim 128 (rep 2), bf16: the cache-less forward
-    through the kernels against ``use_kernels=False`` (logits within 0.1,
+    through the kernels against ``plain_versions()`` (logits within 0.1,
     bf16 rounding of the attention output moved by the kernel's order), and
     one layerwise int8-base fine-tune step's loss within 1% and adapter
     gradients' cosine >= 0.99."""
@@ -1341,7 +1357,8 @@ def test_llama_flash_forward_and_finetune_step_equal_twin_route(cuda):
     before = fa.KERNEL.calls.get("ili_flash_fwd", 0)
     a, _ = model(ids, mask, params=params)
     assert fa.KERNEL.calls["ili_flash_fwd"] == before + cfg.num_layers
-    b, _ = model(ids, mask, params=params, use_kernels=False)
+    with plain_versions():
+        b, _ = model(ids, mask, params=params)
     assert (a[0, :200] - b[0, :200]).abs().max() <= 0.1 and (a[1] - b[1]).abs().max() <= 0.1
 
     class Tok:
@@ -1351,12 +1368,12 @@ def test_llama_flash_forward_and_finetune_step_equal_twin_route(cuda):
     pairs = [("a passage about flash attention kernels " * 5, "flash kernels"),
              ("another passage on the decoder " * 4, "decoder")]
     grads, losses = [], []
-    for use in (True, False):
-        ft = Doc2QueryFineTuner(params, cfg, Tok(), quantize_base="int8", layerwise=True, device="cuda",
-                                use_kernels=use)
+    for kernels in (True, False):
+        ft = Doc2QueryFineTuner(params, cfg, Tok(), quantize_base="int8", layerwise=True, device="cuda")
         batch = ft._to_device(ft.make_batch(pairs))
-        loss = ft.loss(batch)
-        g = torch.autograd.grad(loss, lora_leaves(ft.lora))
+        with nullcontext() if kernels else plain_versions():  # the checkpointed recompute too
+            loss = ft.loss(batch)
+            g = torch.autograd.grad(loss, lora_leaves(ft.lora))
         grads.append(torch.cat([x.flatten() for x in g]))
         losses.append(float(loss.detach()))
     assert abs(losses[0] - losses[1]) <= 0.01 * abs(losses[1])

@@ -58,8 +58,7 @@ def test_replicas_share_one_module_per_device(models):
     _, _, single, replicas = models
     assert replicas.devices == [replicas.device] * 3 and replicas.device.type == "cpu"
     assert list(replicas._replicas) == [replicas.device]
-    assert replicas._replicas[replicas.device][0] is replicas.module
-    assert not replicas.use_kernels
+    assert replicas._replicas[replicas.device] is replicas.module
 
 
 @pytest.mark.parametrize("n_docs", [11, 2, 1])
@@ -110,7 +109,7 @@ def _two_module_model(single):
     model = DeepImpact(single.config, single.tokenizer, state_dict=single.module.state_dict(),
                        devices=["cpu", "cpu:0"])
     assert len(model._replicas) == 2
-    assert model._replicas[torch.device("cpu:0")][0] is not model.module
+    assert model._replicas[torch.device("cpu:0")] is not model.module
     return model
 
 

@@ -190,7 +190,7 @@ def test_pairwise_loss_and_grads_match_jax(pair32):
     jl, jg = jax.jit(jax.value_and_grad(jax_make_loss_fn(jm.module, "pairwise_impact")))(jm.params, batch)
     want = flax_params_to_port(jax.tree_util.tree_map(np.asarray, jg), tc)
     tm.module.zero_grad(set_to_none=True)
-    loss = make_loss_fn(tm.module, "pairwise_impact", use_kernels=False)(
+    loss = make_loss_fn(tm.module, "pairwise_impact")(
         {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()})
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)

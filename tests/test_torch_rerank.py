@@ -289,8 +289,7 @@ def test_cross_encoder_model_matches_jax(seq, tol):
     want = np.asarray(jm.apply({"params": params}, arrays["input_ids"], arrays["attention_mask"],
                                arrays["type_ids"]))
     with torch.no_grad():
-        got = tm(*(torch.from_numpy(arrays[k]) for k in ("input_ids", "attention_mask", "type_ids")),
-                 use_kernels=False).numpy()
+        got = tm(*(torch.from_numpy(arrays[k]) for k in ("input_ids", "attention_mask", "type_ids"))).numpy()
     assert got.shape == want.shape == (len(PASSAGES), 1)
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
@@ -327,7 +326,7 @@ def test_cross_encoder_loss_and_grads_match_jax(cross32):
     jl, jg = jax.jit(jax.value_and_grad(jax_make_loss_fn(jm.module, "cross_encoder")))(jm.params, batch)
     want = flax_params_to_port(jax.tree_util.tree_map(np.asarray, jg), tc)
     tm.module.zero_grad(set_to_none=True)
-    loss = make_loss_fn(tm.module, "cross_encoder", use_kernels=False)(
+    loss = make_loss_fn(tm.module, "cross_encoder")(
         {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()})
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)

@@ -209,5 +209,5 @@ def test_apply_tail_chunks_checks_arguments():
     for args, match in bad:
         with pytest.raises(ValueError, match=match):
             ss.apply_tail_chunks(*args)
-    with pytest.raises(ValueError, match="no scatter_scores kernel"):
+    with pytest.raises(ValueError, match="no kernel and no plain version for device meta"):
         ss.apply_tail_chunks(scores.to("meta"), *(t.to("meta") for t in ok), 4)

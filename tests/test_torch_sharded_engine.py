@@ -96,7 +96,7 @@ def test_sharded_equals_jax_sharded_and_hybrid(jax_runs, name):
     run = jax_runs[name]
     idx = _port_index(run.index)
     eng = ShardedSearchEngine(idx, CPU8, heavy_min=heavy_min)
-    assert eng.n_shards == 8 and not eng.use_kernels
+    assert eng.n_shards == 8
     assert eng.shard_docs == run.shard_docs
     assert np.array_equal(eng.doc_lo, run.doc_lo)
     assert np.array_equal(eng.heavy_row_arr, run.heavy_row_arr)

@@ -11,9 +11,11 @@ the XLA route's math (``_reference_attention`` and its copy
 ``reference_attention``: bf16 products with bf16-rounded logits and
 probabilities), so gradients agree to a bf16 rounding that the fp32
 summation order moves by one ulp: within 2^-6 of each gradient's largest
-entry.  The encoder's plain route (``use_kernels=False``, every CPU run)
-reaches the same backward.
+entry.  The plain route (inside ``ops.plain_versions()``, and every CPU
+run) reaches the same backward.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +24,9 @@ import pytest
 import torch
 
 import improving_learned_index_tpu.ops.short_attention as jsa
+from improving_learned_index_tpu_torch.ops import plain_versions
 from improving_learned_index_tpu_torch.ops import short_attention as sa
+from improving_learned_index_tpu_torch.ops._kernels import launches
 
 
 @pytest.fixture(autouse=True)
@@ -89,17 +93,17 @@ def test_gradients_match_jax_vjp(packed):
 
 @pytest.mark.parametrize("packed", [False, True])
 def test_plain_route_reaches_the_same_backward(packed, monkeypatch):
-    """``use_kernel=False`` (the encoder's plain route) runs the plain
-    forward and the same ``reference_attention`` recompute as the default
-    route: equal gradients, and the encoder's ``use_kernels=False`` layer
-    calls it."""
+    """Inside ``plain_versions()`` the op runs the plain forward and the
+    same ``reference_attention`` recompute as outside it: equal gradients,
+    and the encoder's layers call it there."""
     q, k, v, pad, seg = _inputs(4)
     mask = torch.from_numpy(seg if packed else pad)
     g = torch.from_numpy(np.random.default_rng(5).standard_normal(q.shape).astype(np.float32))
     grads = []
-    for use_kernel in (True, False):
+    for switch in (contextlib.nullcontext, plain_versions):
         leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
-        sa.short_attention(*leaves, mask, 0.25, packed, use_kernel=use_kernel).backward(g)
+        with switch():
+            sa.short_attention(*leaves, mask, 0.25, packed).backward(g)
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
@@ -114,10 +118,11 @@ def test_plain_route_reaches_the_same_backward(packed, monkeypatch):
     seen = []
     real = encoder.short_attention
     monkeypatch.setattr(encoder, "short_attention",
-                        lambda *a, **kw: seen.append(kw["use_kernel"]) or real(*a, **kw))
+                        lambda *a, **kw: seen.append(launches(a[0])) or real(*a, **kw))
     model = encoder.DeepImpactModel(EncoderConfig.tiny(vocab_size=64))
     ids = torch.from_numpy(np.random.default_rng(6).integers(5, 64, (2, 128)).astype(np.int32))
-    model(ids, torch.ones_like(ids), use_kernels=False)[..., 0].sum().backward()
+    with plain_versions():
+        model(ids, torch.ones_like(ids))[..., 0].sum().backward()
     assert seen == [False, False]
 
 

@@ -6,6 +6,7 @@ is profiled as the benchmark profiles it, every thread included, and with
 torch's default (the calling thread only)."""
 
 import dataclasses
+import importlib
 from collections import Counter
 
 import numpy as np
@@ -22,6 +23,8 @@ from improving_learned_index_tpu_torch.parallel.dataloader import BatchLoader
 from improving_learned_index_tpu_torch.search.hybrid_engine import HybridSearchEngine
 from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
 from improving_learned_index_tpu_torch.train import COLLATES, Trainer
+
+count_ge_module = importlib.import_module("improving_learned_index_tpu_torch.ops.count_ge")
 
 CORPUS = [
     "the quick brown fox jumps over the lazy dog",
@@ -93,7 +96,7 @@ def test_search_regions_once_a_batch(engine, tokenizer, all_threads, monkeypatch
     no search pass, so no ``search/topk_sync`` (the n-ary search's regions
     are counted by ``test_topk_sync_counts_the_loop_tests``)."""
     passes, calls, hists = [0], [0], [0]
-    inner_count, inner_topk = exact_topk.count_ge_plain, exact_topk.exact_topk_integer
+    inner_count, inner_topk = count_ge_module.count_ge_plain, exact_topk.exact_topk_integer
     inner_hist = topk_select.value_histogram_plain
 
     def count_ge_plain(*args):
@@ -108,7 +111,7 @@ def test_search_regions_once_a_batch(engine, tokenizer, all_threads, monkeypatch
         calls[0] += 1
         return inner_topk(*args, **kwargs)
 
-    monkeypatch.setattr(exact_topk, "count_ge_plain", count_ge_plain)
+    monkeypatch.setattr(count_ge_module, "count_ge_plain", count_ge_plain)
     monkeypatch.setattr(topk_select, "value_histogram_plain", value_histogram_plain)
     from improving_learned_index_tpu_torch.search import hybrid_engine
 
@@ -134,13 +137,13 @@ def test_topk_sync_counts_the_loop_tests(monkeypatch):
     """On rows whose k-th score sits at the top of a wide range the search
     takes its longest path: ``search/topk_sync`` equals the passes + 1."""
     passes = [0]
-    inner = exact_topk.count_ge_plain
+    inner = count_ge_module.count_ge_plain
 
     def count_ge_plain(*args):
         passes[0] += 1
         return inner(*args)
 
-    monkeypatch.setattr(exact_topk, "count_ge_plain", count_ge_plain)
+    monkeypatch.setattr(count_ge_module, "count_ge_plain", count_ge_plain)
     scores = torch.zeros(3, 4096)
     scores[:, :4096] = torch.arange(4096, dtype=torch.float32)  # row max 4095: widths 4095 -> 512 -> 64 -> 8 -> 1
     (vals, idx), regions = profiled(lambda: exact_topk.exact_topk_integer(scores, 10), False)

@@ -252,7 +252,7 @@ def test_loss_and_grads_match_jax(tiny_tokenizer, port_tokenizer, models, loss, 
         jm.params, {k: v for k, v in want_arrays.items() if k != "group_size"})
     want_grads = flax_params_to_port(jax.tree_util.tree_map(np.asarray, jg), tc)
 
-    tl = make_loss_fn(tm.module, loss, use_kernels=False)(_torch_batch(got_arrays))
+    tl = make_loss_fn(tm.module, loss)(_torch_batch(got_arrays))
     tl.backward()
     tl = float(tl.detach())
     got_grads = _port_grads(tm)

@@ -21,6 +21,7 @@ for or ``use_flash_attention`` is off.  ``tests/test_torch_kernels_cuda.py``
 runs the route on the card.
 """
 
+import contextlib
 import dataclasses
 import importlib.util
 from pathlib import Path
@@ -33,6 +34,7 @@ from improving_learned_index_tpu_torch.core.config import EncoderConfig
 from improving_learned_index_tpu_torch.models.encoder import TransformerEncoder, attention_route
 from improving_learned_index_tpu_torch.models.factory import deep_impact_xlmr
 from improving_learned_index_tpu_torch.models.hf_import import hf_deep_impact_to_port
+from improving_learned_index_tpu_torch.ops import plain_versions
 
 _spec = importlib.util.spec_from_file_location(
     "xlmr_deep_impact", Path(__file__).parent / "reference" / "xlmr_deep_impact.py")
@@ -148,7 +150,7 @@ CUDA, CPU = torch.device("cuda"), torch.device("cpu")
     (512, 64, CUDA, {"output_attentions": True}, "plain"),
     (256, 64, CUDA, {"output_attentions": True}, "plain"),
     (512, 16, CUDA, {}, "plain"),
-    (512, 16, CUDA, {"use_kernels": False}, "flash"),
+    (512, 16, CUDA, {"plain_versions": True}, "flash"),
     (512, 16, CPU, {}, "flash"),
     (500, 64, CUDA, {}, "plain"),
     (512, 64, CUDA, {"use_flash_attention": False}, "plain"),
@@ -157,7 +159,8 @@ def test_attention_route(seq, hd, device, kw, route):
     kw = dict(kw)
     cfg = dataclasses.replace(EncoderConfig.xlmr_base(), hidden_size=hd * 12,
                               use_flash_attention=kw.pop("use_flash_attention", True))
-    assert attention_route(cfg, seq, device, **kw) == route
+    with plain_versions() if kw.pop("plain_versions", False) else contextlib.nullcontext():
+        assert attention_route(cfg, seq, device, **kw) == route
 
 
 @pytest.mark.parametrize("seq,maps,route", [(512, False, "flash"), (256, False, "short"), (512, True, "plain"),

@@ -40,7 +40,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from improving_learned_index_tpu_torch.ops import _kernels, count_ge, topk_select  # noqa: E402
+from improving_learned_index_tpu_torch.ops import _kernels, count_ge, plain_versions, topk_select  # noqa: E402
 from improving_learned_index_tpu_torch.ops.count_ge import KERNEL as COUNT_GE  # noqa: E402
 from improving_learned_index_tpu_torch.ops.exact_topk import exact_topk_integer  # noqa: E402
 
@@ -152,7 +152,8 @@ def main() -> int:
 
     # -- check: every route the same answer ----------------------------------
     v_h, i_h = exact_topk_integer(scores, k, max_score=bound)
-    v_p, i_p = exact_topk_integer(scores, k, max_score=bound, use_kernel=False)
+    with plain_versions():
+        v_p, i_p = exact_topk_integer(scores, k, max_score=bound)
     v_n, i_n = exact_topk_integer(scores, k)
     v_l = torch.topk(scores, k, dim=1).values
     hist, block_max = topk_select.value_histogram(scores)
@@ -173,7 +174,8 @@ def main() -> int:
     }
     for name, (x, kk) in shape_cases(args.seed).items():
         v1, i1 = exact_topk_integer(x, kk, max_score=topk_select.BINS - 1)
-        v2, i2 = exact_topk_integer(x, kk, max_score=topk_select.BINS - 1, use_kernel=False)
+        with plain_versions():
+            v2, i2 = exact_topk_integer(x, kk, max_score=topk_select.BINS - 1)
         v3, i3 = exact_topk_integer(x, kk)
         check[name] = bool(torch.equal(v1, v2) and torch.equal(i1, i2) and torch.equal(v1, v3)
                            and torch.equal(i1, i3)
@@ -199,8 +201,9 @@ def main() -> int:
         "nary": lambda: exact_topk_integer(scores, k),
         "torch_topk": lambda: torch.topk(scores, k, dim=1),
     })
-    result["routes_ms"]["histogram_plain"] = cuda_ms(
-        lambda: exact_topk_integer(scores, k, max_score=bound, use_kernel=False), iters=3, warmup=1)
+    with plain_versions():
+        result["routes_ms"]["histogram_plain"] = cuda_ms(
+            lambda: exact_topk_integer(scores, k, max_score=bound), iters=3, warmup=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
