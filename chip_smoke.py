@@ -19,10 +19,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.
-2. Build: the eight CUDA kernel sources (``gather_rows``,
+2. Build: the nine CUDA kernel sources (``gather_rows``,
    ``scatter_scores``, ``short_attention``, ``count_ge``,
    ``blocked_scoring``, ``flash_attention``, ``topk_select``,
-   ``encoder_epilogue``) from ``csrc/``,
+   ``encoder_epilogue``, ``linear_gelu``) from ``csrc/``,
    one ``nvcc`` per source, started together, and the native C++ engine
    (``g++``).
 3. Query set-up, then the query kernels against their plain versions: a
@@ -76,14 +76,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
    768] (the FFN 4 x 768): within 1 bf16 ulp of each output, the
    LayerNorm's besides within what the order of its fp32 sums may move an
    output by; kernel and twin ms beside the bound (a layer's 40 x 768
-   bytes a token row at HBM bandwidth).
+   bytes a token row at HBM bandwidth).  ``linear_gelu`` (the FFN's first
+   product, bias and GELU in one kernel) at [T, 768] x [768, 3072] on
+   seeded card tensors: its GELU equal to ``ili_bias_gelu``'s at every
+   finite bf16 value, and at T = 1, 37, 1,000, 32,845 and each timed T
+   every output the twin's bias and GELU of the library's product or of
+   one of its two bf16 neighbours (the share off the twin printed); kernel
+   and twin ms, ``F.linear`` alone and ``F.linear`` + ``ili_bias_gelu``,
+   beside the bound (2 T N K at 989 TFLOP/s) at T = 512, 2,048, 8,192 and
+   the two cells' 32,768 and 131,072.
 7. Encode main path: ``cli.index`` (BERT-base, seeded random init,
    ``--max_length 256 --model_batch_size 512``) -> ``cli.quantize`` ->
    ``cli.invert`` -> ``cli.rank``, with the launch counts set to 0 just
    before ``cli.index`` and read just after: ``short_attention`` must have
-   launched 12 times per batch, and ``encoder_epilogue`` 12 x (one
-   ``ili_bias_add``, one ``ili_bias_gelu``, two
-   ``ili_bias_residual_layernorm``) a batch, also under ``--pack``.
+   launched 12 times per batch, ``encoder_epilogue`` 12 x (one
+   ``ili_bias_add``, two ``ili_bias_residual_layernorm``, no
+   ``ili_bias_gelu``) and ``linear_gelu`` 12 a batch, also under
+   ``--pack``.
    Checks: on 512 passages the kernel route
    equals the plain route (``ops.plain_versions()``; term lists identical, impacts within a
    stated tolerance) and the CLI's forward index; the inverted index equals
@@ -104,7 +113,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``cli.train`` (packed, its default) for 12 steps with launch counts set
    to 0 just before and read just after: ``short_attention`` must have
    launched 12 x 12 times (the backward launches none), ``encoder_epilogue``
-   none (training's forwards run under autograd); every logged loss
+   and ``linear_gelu`` none (training's forwards run under autograd); every logged loss
    finite; snapshots at steps 6 and 12, latest and final, with their step.
    Check 3: ``cli.train --no_pack`` for 4 steps.  Steady steps/s and docs/s
    (the first 2 steps and the steps that wrote checkpoints left out) and
@@ -285,7 +294,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    to the tile rule's, and their share.  (2)
    BERT-base at S=512 (phase 7's trunk), whose default route there is
    flash attention, through ``DeepImpact.get_impact_scores_batch`` over 64
-   passages: 12 forward launches and 48 ``encoder_epilogue`` launches,
+   passages: 12 forward launches, 36 ``encoder_epilogue`` launches and 12
+   ``linear_gelu`` launches,
    impacts within phase 7's rule of the plain route
    (``plain_versions()``).  (3)
    Llama-2-7B (``LlamaConfig.llama2_7b``, seeded bf16 weights made on the
@@ -319,7 +329,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    gated-GELU d_ff 2048, vocabulary 250,112, an untied fp32 head; seeded
    fp32 weights made on the card) with a T5-style word tokenizer of phase
    15's 31,996 words.  The T5 route reaches no kernel: the counts of the
-   eight are set to 0 when the phase starts and must read 0 at its end.  (1)
+   nine are set to 0 when the phase starts and must read 0 at its end.  (1)
    ``T5QueryGenerator`` at the JAX CLI's defaults (80 sequences, 50 new
    tokens, top-k 50, top-p 0.95, documents within 350 tokens) for 2
    batches of 4 passages (320 decoder rows) with the fp32 tree and its int8
@@ -349,12 +359,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``examples/index_lifecycle_torch.py`` (store, quantize, invert, an
    incremental merge, a deletion, a router over two shard daemons against
    one engine, the serving daemon over ``build_engine(engine="auto")``),
-   each in process with ``--device cuda``, the counts of the eight kernels
+   each in process with ``--device cuda``, the counts of the nine kernels
    set to 0 just before and read just after: the exact top-k must have run
    on the card in each (``topk_select`` in the quickstart's hybrid engine,
    ``count_ge`` in the lifecycle's device engine); their seconds.
 
-The second-to-last line is the ``kernels`` JSON object (eight rows; each
+The second-to-last line is the ``kernels`` JSON object (nine rows; each
 row's launches sum its ``launches_by_path``: ``short_attention`` over
 ``cli.index``, ``cli.train``, ``cli.nano_beir``, ``cli.train`` with eval,
 ``cli.rerank``, ``cli.train --cross_encoder``, ``cli.cross_encoder_rerank``,
@@ -369,8 +379,8 @@ data-parallel encode add a path each, phase 14 its trainer, its
 ``flash_attention``, counts forward and backward launches over phase 15's
 7B fine-tune steps and the S=512 encode, and the 7B
 generation, which runs the cache route and launches none; row 8,
-``encoder_epilogue``, over ``cli.index``, ``cli.index --pack``,
-``cli.train`` (0) and the S=512 encode; every row also
+``encoder_epilogue``, and row 9, ``linear_gelu``, over ``cli.index``,
+``cli.index --pack``, ``cli.train`` (0) and the S=512 encode; every row also
 counts phase 17's two walkthroughs), the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -1025,9 +1035,9 @@ def all_kernels():
 
 
 def card_kernels():
-    from improving_learned_index_tpu_torch.ops import encoder_epilogue, flash_attention
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue, flash_attention, linear_gelu
 
-    return all_kernels() + [flash_attention.KERNEL, encoder_epilogue.KERNEL]
+    return all_kernels() + [flash_attention.KERNEL, encoder_epilogue.KERNEL, linear_gelu.KERNEL]
 
 
 def build_kernels() -> None:
@@ -1506,19 +1516,158 @@ def epilogue_row(seed: int) -> dict:
     }
 
 
-def epilogue_launches(forwards: int, layers: int, what: str) -> int:
-    """``encoder_epilogue.KERNEL.calls`` since it was last cleared: one
-    ``ili_bias_add``, one ``ili_bias_gelu`` and two
-    ``ili_bias_residual_layernorm`` a layer of each forward without grad
-    (``forwards`` of them), else AssertionError.  Returns their sum."""
+def epilogue_launches(forwards: int, layers: int, what: str) -> dict:
+    """``encoder_epilogue.KERNEL.calls`` and ``linear_gelu.KERNEL.calls``
+    since they were last cleared: one ``ili_bias_add``, two
+    ``ili_bias_residual_layernorm`` and one ``ili_linear_gelu`` a layer of
+    each forward without grad (``forwards`` of them), and no
+    ``ili_bias_gelu`` (the FFN's bias and GELU run inside
+    ``ili_linear_gelu``), else AssertionError.  Returns each kernel's sum."""
     from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+    from improving_learned_index_tpu_torch.ops import linear_gelu as lg
 
-    per_layer = {"ili_bias_add": 1, "ili_bias_gelu": 1, "ili_bias_residual_layernorm": 2}
-    got = {fn: epi.KERNEL.calls.get(fn, 0) for fn in per_layer}
-    if got != {fn: n * layers * forwards for fn, n in per_layer.items()} or epi.KERNEL.launches != sum(got.values()):
-        raise AssertionError(f"{what}: encoder_epilogue launched {dict(epi.KERNEL.calls)}, want {per_layer} "
+    per_layer = {"ili_bias_add": 1, "ili_bias_gelu": 0, "ili_bias_residual_layernorm": 2, "ili_linear_gelu": 1}
+    calls = {**epi.KERNEL.calls, **lg.KERNEL.calls}
+    got = {fn: calls.get(fn, 0) for fn in per_layer}
+    if (got != {fn: n * layers * forwards for fn, n in per_layer.items()}
+            or epi.KERNEL.launches + lg.KERNEL.launches != sum(got.values())):
+        raise AssertionError(f"{what}: encoder_epilogue and linear_gelu launched {calls}, want {per_layer} "
                              f"x {layers} layers x {forwards} forwards")
-    return epi.KERNEL.launches
+    return {"encoder_epilogue": epi.KERNEL.launches, "linear_gelu": lg.KERNEL.launches}
+
+
+def bf16_neighbours(p: torch.Tensor) -> tuple:
+    """The bf16 values one ulp below and one ulp above each of ``p``'s."""
+    bits = p.view(torch.int16).int()
+    neg = bits < 0
+    down = torch.where(bits == 0, -32767, torch.where(neg, bits + 1, bits - 1))
+    up = torch.where(bits == -32768, 1, torch.where(neg, bits - 1, bits + 1))
+    return tuple(t.to(torch.int16).view(torch.bfloat16) for t in (down, up))
+
+
+def linear_gelu_check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, chunk: int = 16384) -> dict:
+    """``ops.linear_gelu``'s kernel against its twin on card tensors.  The
+    two sum the fp32 product over K in other orders, so one's bf16 product
+    may lie one ulp from the other's, and the bias add and the GELU then
+    move the output by one ulp or (where the sum nearly cancels, or on the
+    GELU's left tail) by many.  So every output must equal the twin's bias
+    and GELU (``bias_gelu_plain``) of the library's product or of one of its
+    two bf16 neighbours; else AssertionError.  Returns the share of outputs
+    off the twin's, the share explained only by a neighbour, and the largest
+    gap in bf16 ulps of the output."""
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+    from improving_learned_index_tpu_torch.ops import linear_gelu as lg
+
+    got = lg.linear_gelu(x, w, b)
+    differ = outside = 0
+    worst = 0.0
+    for r in range(0, x.shape[0], chunk):
+        p = torch.nn.functional.linear(x[r:r + chunk], w)
+        g, want = got[r:r + chunk], epi.bias_gelu_plain(p, b)
+        off = g != want
+        differ += int(off.sum())
+        if bool(off.any()):
+            worst = max(worst, float(bf16_ulps(g[off], want[off]).max()))
+            near = torch.zeros_like(off)
+            for q in bf16_neighbours(p):
+                near |= g == epi.bias_gelu_plain(q, b)
+            outside += int((off & ~near).sum())
+    n = got.numel()
+    out = {"rows": x.shape[0], "differ_share": differ / n, "max_out_ulps": worst, "outside": outside}
+    if outside:
+        raise AssertionError(f"linear_gelu at [{x.shape[0]}, {w.shape[1]}] x [{w.shape[1]}, {w.shape[0]}]: {out}: "
+                             "outputs no product within 1 bf16 ulp of the library's explains")
+    return out
+
+
+def linear_gelu_every_input(device: str = "cuda") -> dict:
+    """``linear_gelu``'s bias and GELU at every finite bf16 value: a one-row
+    product whose k = 0 term is 1 x the value (W's first column holds every
+    finite bf16 bit pattern, the rest 0, the bias 0), so each output is the
+    GELU of one value.  Held equal to ``ili_bias_gelu`` on the library's
+    product of the same operands (AssertionError otherwise); PyTorch's own
+    GELU (the twin) is counted beside it."""
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+    from improving_learned_index_tpu_torch.ops import linear_gelu as lg
+
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=device).to(torch.int16)
+    vals = bits.view(torch.bfloat16)
+    vals = torch.where(torch.isfinite(vals), vals, torch.zeros_like(vals))
+    n = vals.numel()
+    w = torch.zeros(n, lg.K_STEP, dtype=torch.bfloat16, device=device)
+    w[: vals.numel(), 0] = vals
+    x = torch.zeros(1, lg.K_STEP, dtype=torch.bfloat16, device=device)
+    x[0, 0] = 1.0
+    b = torch.zeros(n, device=device)
+    got = lg.linear_gelu(x, w, b)
+    p = torch.nn.functional.linear(x, w)
+    off_kernel = int((got != epi.bias_gelu(p, b)).sum())
+    off_twin = int((got != epi.bias_gelu_plain(p, b)).sum())
+    out = {"values": int(torch.isfinite(bits.view(torch.bfloat16)).sum()), "off_ili_bias_gelu": off_kernel,
+           "off_torch_gelu": off_twin}
+    if off_kernel:
+        raise AssertionError(f"linear_gelu's GELU differs from ili_bias_gelu's: {out}")
+    return out
+
+
+LINEAR_GELU_ROWS = (512, 2048, 8192, 64 * 512, 512 * 256)
+
+
+def linear_gelu_row(seed: int) -> dict:
+    """Row 9: ``linear_gelu`` at the encoder FFN's [T, 768] x [768, 3072]
+    on seeded card tensors (x at a LayerNorm's scale, W and b at BERT's
+    initialization): held to its twin at ragged T and at every timed T
+    (``linear_gelu_check``), then the kernel's ms, the twin's, and as
+    ``library_ms`` ``F.linear`` alone and ``F.linear`` + ``ili_bias_gelu``
+    (the pair the kernel replaced), beside the bound (2 T N K at 989
+    TFLOP/s against x, W and out once at HBM bandwidth) at each T of
+    ``LINEAR_GELU_ROWS``: the small-T encoders (a rerank or eval batch), the
+    XLM-R cell's 32,768 rows and the BERT cell's 131,072."""
+    from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+    from improving_learned_index_tpu_torch.ops import linear_gelu as lg
+    from improving_learned_index_tpu_torch.ops import plain_versions
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    k, n = 768, 3072
+    w = (torch.randn(n, k, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    b = torch.randn(n, generator=g, device="cuda") * 0.1
+    every = linear_gelu_every_input()
+    checks, shapes = [], {}
+    for rows in (1, 37, 1000, 64 * 512 + 77):
+        x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+        checks.append(linear_gelu_check(x, w, b))
+    for rows in LINEAR_GELU_ROWS:
+        x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+        checks.append(linear_gelu_check(x, w, b))
+        with plain_versions():
+            plain_ms = cuda_ms(lambda: lg.linear_gelu(x, w, b), iters=20)
+        bound, by = bound_ms(2 * (rows * k + n * k + rows * n) + 4 * n, 2 * rows * n * k, BF16_OPS_PER_S)
+        shapes[str(rows)] = {
+            "ms": cuda_ms(lambda: lg.linear_gelu(x, w, b), iters=20), "plain_ms": plain_ms,
+            "library_ms": {"F.linear": cuda_ms(lambda: torch.nn.functional.linear(x, w), iters=20),
+                           "F.linear + ili_bias_gelu": cuda_ms(
+                               lambda: epi.bias_gelu(torch.nn.functional.linear(x, w), b), iters=20)},
+            "bound_ms": bound, "bound_by": by}
+        del x
+    xlmr = shapes[str(64 * 512)]
+    return {
+        "name": "linear_gelu",
+        "route": "cuda",
+        "source": "improving_learned_index_tpu_torch/csrc/linear_gelu.cu",
+        "replaces": "none: XLA fused the bias and GELU into the product's consumer in the JAX package",
+        "every_bf16_input": every,
+        "differ_share": max(c["differ_share"] for c in checks),
+        "max_out_ulps": max(c["max_out_ulps"] for c in checks),
+        "checks": checks,
+        "ms": xlmr["ms"],
+        "plain_ms": xlmr["plain_ms"],
+        "library_ms": xlmr["library_ms"],
+        "bound_ms": xlmr["bound_ms"],
+        "bound_by": xlmr["bound_by"],
+        "note": "ms, plain_ms, library_ms and bound_ms at [64 x 512, 768] x [768, 3072]; shapes by T",
+        "shapes": shapes,
+    }
 
 
 def steady_docs_per_s(indexer, docs, first_batch_docs: int) -> dict:
@@ -1548,6 +1697,7 @@ def run_encode(cfg, workdir: Path) -> dict:
     from improving_learned_index_tpu_torch.index.inverted import InvertedIndexData
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
     from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+    from improving_learned_index_tpu_torch.ops import linear_gelu as lg
     from improving_learned_index_tpu_torch.ops import plain_versions
     from improving_learned_index_tpu_torch.ops import short_attention as sa
     from improving_learned_index_tpu_torch.search.dense_engine import DenseSearchEngine
@@ -1567,7 +1717,8 @@ def run_encode(cfg, workdir: Path) -> dict:
         timings[name] = time.perf_counter() - t0
         return out
 
-    log("== phase 6: synthetic corpus, vocab, short_attention and encoder_epilogue against their plain versions")
+    log("== phase 6: synthetic corpus, vocab, short_attention, encoder_epilogue and linear_gelu against their "
+        "plain versions")
     passages = timed("corpus_s", lambda: make_passages(cfg))
     coll = workdir / "collection.tsv"
     coll.write_text("".join(f"{i}\t{p}\n" for i, p in enumerate(passages)), encoding="utf-8")
@@ -1599,6 +1750,9 @@ def run_encode(cfg, workdir: Path) -> dict:
     e_row = epilogue_row(cfg.seed + 3)
     log(f"encoder_epilogue: within 1 bf16 ulp of its twins (the LayerNorm's order slack besides); "
         f"{json.dumps(e_row)}")
+    l_row = linear_gelu_row(cfg.seed + 5)
+    log(f"linear_gelu: every output the twin's bias and GELU of the library's product or of a bf16 neighbour; "
+        f"{json.dumps(l_row)}")
 
     log("== phase 7: encode main path (cli.index -> quantize -> invert -> rank on the card)")
     fwd, qfwd, idx = workdir / "forward.txt", workdir / "forward.q.txt", workdir / "index"
@@ -1607,17 +1761,18 @@ def run_encode(cfg, workdir: Path) -> dict:
     common = ["--collection_path", str(coll), "--vocab_path", str(vocab_path),
               "--max_length", str(cfg.max_length), "--model_batch_size", str(cfg.batch),
               "--hf_name", str(bert), "--device", cfg.device]
-    for kern in kernels + [epi.KERNEL]:
+    for kern in kernels + [epi.KERNEL, lg.KERNEL]:
         kern.calls.clear()
     timed("cli_index_s", lambda: index_main(common + ["--output_file_path", str(fwd)]))
-    launches = {kern.name: kern.launches for kern in kernels + [epi.KERNEL]}
+    launches = {kern.name: kern.launches for kern in kernels + [epi.KERNEL, lg.KERNEL]}
     log(f"cli.index: {len(passages)} passages in {timings['cli_index_s']:.1f} s; launches {launches}")
     want = config.num_layers * corpus["batches"]
     if launches["short_attention"] != want:
         raise AssertionError(f"short_attention launched {launches['short_attention']} times, want {want}")
     a_row["launches"] = launches["short_attention"]
-    e_row["launches_by_path"] = {"cli.index": epilogue_launches(corpus["batches"], config.num_layers,
-                                                                "cli.index")}
+    counts = epilogue_launches(corpus["batches"], config.num_layers, "cli.index")
+    e_row["launches_by_path"] = {"cli.index": counts["encoder_epilogue"]}
+    l_row["launches_by_path"] = {"cli.index": counts["linear_gelu"]}
 
     timed("cli_quantize_s", lambda: quantize_main(["-i", str(fwd), "-o", str(qfwd)]))
     timed("cli_invert_s", lambda: invert_main(["-i", str(qfwd), "-o", str(idx)]))
@@ -1700,15 +1855,16 @@ def run_encode(cfg, workdir: Path) -> dict:
     del dense
 
     fwd_p = workdir / "forward.packed.txt"
-    for kern in kernels + [epi.KERNEL]:
+    for kern in kernels + [epi.KERNEL, lg.KERNEL]:
         kern.calls.clear()
     timed("cli_index_packed_s", lambda: index_main(common + ["--output_file_path", str(fwd_p), "--pack"]))
     packed_launches = sa.KERNEL.launches
     if packed_launches != config.num_layers * corpus["packed_batches"]:
         raise AssertionError(f"packed: short_attention launched {packed_launches} times, "
                              f"want {config.num_layers * corpus['packed_batches']}")
-    e_row["launches_by_path"]["cli.index --pack"] = epilogue_launches(corpus["packed_batches"], config.num_layers,
-                                                                      "cli.index --pack")
+    counts = epilogue_launches(corpus["packed_batches"], config.num_layers, "cli.index --pack")
+    e_row["launches_by_path"]["cli.index --pack"] = counts["encoder_epilogue"]
+    l_row["launches_by_path"]["cli.index --pack"] = counts["linear_gelu"]
     # other rows, other batch composition: the same bf16 argument, plus
     # the two files' round(v, 3)
     err_packed = impacts_close(parse_forward(fwd_p), fwd_docs, tol[0] + 1e-3, tol[1] + 5e-4,
@@ -1741,6 +1897,7 @@ def run_encode(cfg, workdir: Path) -> dict:
     return {
         "row": a_row,
         "epilogue_row": e_row,
+        "linear_gelu_row": l_row,
         "passages": passages,
         "corpus": corpus,
         "timings_s": timings,
@@ -1836,6 +1993,7 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     from improving_learned_index_tpu_torch.data.datasets import MSMarcoTriples
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
     from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+    from improving_learned_index_tpu_torch.ops import linear_gelu as lg
     from improving_learned_index_tpu_torch.ops import short_attention as sa
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
     from improving_learned_index_tpu_torch.train import COLLATES, Trainer
@@ -1888,7 +2046,7 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
               "--batch_size", str(cfg.groups), "--no_beir_eval", "--device", cfg.device]
     ck = workdir / "ckpt"
     torch.cuda.reset_peak_memory_stats()
-    for kern in kernels + [epi.KERNEL]:
+    for kern in kernels + [epi.KERNEL, lg.KERNEL]:
         kern.calls.clear()
     t0 = time.perf_counter()
     train_main(common + ["--checkpoint_dir", str(ck), "--total_steps", str(cfg.steps),
@@ -1901,7 +2059,7 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
         raise AssertionError(f"cli.train: short_attention launched {launches['short_attention']} times, "
                              f"want {want} ({config.num_layers} layers x {cfg.steps} forwards)")
     # every forward under autograd: the twins, no epilogue kernel
-    launches["encoder_epilogue"] = epilogue_launches(0, config.num_layers, "cli.train")
+    launches.update(epilogue_launches(0, config.num_layers, "cli.train"))
     packed = dict(train_metrics(ck, cfg.steps, cfg.save_every), wall_s=wall, launches=launches,
                   peak_gb=torch.cuda.max_memory_allocated() / 2**30)
     packed["steady_docs_per_s"] = packed["steady_steps_per_s"] * 2 * cfg.groups
@@ -1963,6 +2121,7 @@ def run_train(cfg, workdir: Path, passages: list) -> dict:
     torch.cuda.empty_cache()
     out["launches"] = launches["short_attention"]
     out["epilogue_launches"] = launches["encoder_epilogue"]
+    out["linear_gelu_launches"] = launches["linear_gelu"]
     out["train_args"] = common
     return out
 
@@ -4777,13 +4936,14 @@ def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
     S=512, where short attention does not apply and the default route is
     flash attention, through ``DeepImpact.get_impact_scores_batch``
     ([64, 12, 512, 64] a layer): 12 forward launches a batch, impacts
-    within phase 7's rule of the ``plain_versions()`` route; 4 epilogue
-    launches a layer (``epilogue_launches``)."""
+    within phase 7's rule of the ``plain_versions()`` route; 3 epilogue
+    launches and one ``linear_gelu`` a layer (``epilogue_launches``)."""
     from improving_learned_index_tpu_torch.core.config import EncoderConfig
     from improving_learned_index_tpu_torch.models import DeepImpact, load_hf_checkpoint
     from improving_learned_index_tpu_torch.models.encoder import attention_route
     from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
     from improving_learned_index_tpu_torch.ops import flash_attention as fa
+    from improving_learned_index_tpu_torch.ops import linear_gelu as lg
     from improving_learned_index_tpu_torch.ops import plain_versions
     from improving_learned_index_tpu_torch.text import ImpactTokenizer, WordPieceVocab
 
@@ -4796,6 +4956,7 @@ def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
     docs = passages[: cfg.enc_docs]
     fa.KERNEL.calls.clear()
     epi.KERNEL.calls.clear()
+    lg.KERNEL.calls.clear()
     model = DeepImpact(config, tok, state_dict=sd, device=cfg.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4810,11 +4971,12 @@ def encoder_flash_route(cfg, workdir: Path, passages: list) -> dict:
     peak = max(max(d.values(), default=0.0) for d in ref)
     err = impacts_close(got, ref, 0.05 * peak, 0.002 * peak, "encoder flash route vs plain")
     log(f"BERT-base at S=512 through flash_attention: {len(docs)} passages in {seconds:.2f} s, "
-        f"{launches['ili_flash_fwd']} launches ({epilogue} encoder_epilogue), impacts against the plain route {err}")
+        f"{launches['ili_flash_fwd']} launches ({epilogue}), impacts against the plain route {err}")
     del model
     torch.cuda.empty_cache()
     return {"docs": len(docs), "seconds": seconds, "launches": launches["ili_flash_fwd"],
-            "epilogue_launches": epilogue, "errors": err}
+            "epilogue_launches": epilogue["encoder_epilogue"], "linear_gelu_launches": epilogue["linear_gelu"],
+            "errors": err}
 
 
 def run_expansion(cfg, workdir: Path) -> dict:
@@ -5404,7 +5566,7 @@ WALKTHROUGHS = ("quickstart_torch.py", "index_lifecycle_torch.py")
 def run_walkthroughs(cfg, workdir: Path) -> dict:
     """Phase 17: the port's two walkthroughs (``examples/``), in process as a
     user runs them, with ``--device`` and a work directory of their own.
-    The counts of the eight kernels are set to 0 just before each and read
+    The counts of the nine kernels are set to 0 just before each and read
     just after; the exact top-k must have run on the card in each
     (quickstart step 6's hybrid engine takes ``topk_select``, the
     lifecycle's served device engine ``count_ge``).
@@ -5528,7 +5690,11 @@ def main() -> int:
     e_row["launches_by_path"].update({"cli.train (autograd: the twins)": train["epilogue_launches"],
                                       "DeepImpact S=512 encode (the default route)":
                                           expansion["encoder_s512"]["epilogue_launches"]})
-    for row in (g_row, s_row, a_row, c_row, b_row, f_row, t_row, e_row):
+    l_row = encode.pop("linear_gelu_row")
+    l_row["launches_by_path"].update({"cli.train (autograd: the twins)": train["linear_gelu_launches"],
+                                      "DeepImpact S=512 encode (the default route)":
+                                          expansion["encoder_s512"]["linear_gelu_launches"]})
+    for row in (g_row, s_row, a_row, c_row, b_row, f_row, t_row, e_row, l_row):
         for name, counts in walkthroughs["launches"].items():
             row["launches_by_path"][name] = counts[row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
@@ -5544,7 +5710,7 @@ def main() -> int:
     log(json.dumps({"expansion": expansion}))
     log(json.dumps({"t5": t5}))
     log(json.dumps({"walkthroughs": walkthroughs}))
-    print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row, f_row, t_row, e_row]}))
+    print(json.dumps({"kernels": [g_row, s_row, a_row, c_row, b_row, f_row, t_row, e_row, l_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -18,15 +18,20 @@ Precision is the JAX package's, written as explicit casts (no autocast):
   Linear.
 
 A layer's passes between its matrix products (the six bias adds, the two
-residual adds and LayerNorms, the GELU) run in three hand-written kernels
-(``ops.encoder_epilogue``: ``csrc/encoder_epilogue.cu``, four launches a
-layer) where ``epilogue_route`` says so: where the kernels launch
+residual adds and LayerNorms, the GELU) run in hand-written kernels where
+``epilogue_route`` says so: where the kernels launch
 (``ops._kernels.launches``: CUDA, outside ``ops.plain_versions()``), no
 autograd (``inference_mode`` or ``no_grad``), bf16 compute and widths the
-kernels take.  The rounding points above do not move there: the matrix
-products stay bias-free and the kernels add the bias to the rounded
-product, rounding once more; only the order of the LayerNorm's fp32 sums
-differs.  Elsewhere (training, the CPU, fp32) the same passes run as the
+kernels take.  Three launches a layer go to ``ops.encoder_epilogue``
+(``csrc/encoder_epilogue.cu``: the q, k and v biases, and bias + residual +
+LayerNorm twice); the FFN's first product, its bias and its GELU are one
+launch of ``ops.linear_gelu`` (``csrc/linear_gelu.cu``) where it takes the
+widths (``linear_gelu.takes``), else that product and
+``encoder_epilogue``'s bias + GELU.  The rounding points above do not move
+there: the other products stay bias-free and the kernels add the bias to
+the rounded product, rounding once more, as ``linear_gelu`` does inside its
+product; only the order of the fp32 sums (the LayerNorm's, the FFN
+product's over K) differs.  Elsewhere (training, the CPU, fp32) the same passes run as the
 PyTorch ops above, each bias added as its product comes, so a forward
 under autograd holds what it held before the kernels; the kernels' plain
 versions (``encoder_epilogue.*_plain``) compute the same values.
@@ -78,7 +83,7 @@ from torch import nn
 
 from ..core.config import EncoderConfig
 from ..core.profiling import annotate
-from ..ops import encoder_epilogue
+from ..ops import encoder_epilogue, linear_gelu
 from ..ops._kernels import launches
 from ..ops.flash_attention import KERNEL_DIMS, flash_attention
 from ..ops.short_attention import can_use_short_attention, short_attention
@@ -244,7 +249,10 @@ class EncoderLayer(nn.Module):
         an, on = self.attention_norm, self.output_norm
         x = encoder_epilogue.bias_residual_layernorm(attn, self.attention.output_dense.bias, x, an.weight, an.bias,
                                                      an.eps)
-        h = encoder_epilogue.bias_gelu(_product(x, self.intermediate, dt), self.intermediate.bias)
+        if linear_gelu.takes(self.config.hidden_size, self.config.intermediate_size):
+            h = linear_gelu.linear_gelu(x, self.intermediate.weight.to(dt), self.intermediate.bias)
+        else:
+            h = encoder_epilogue.bias_gelu(_product(x, self.intermediate, dt), self.intermediate.bias)
         return encoder_epilogue.bias_residual_layernorm(_product(h, self.output, dt), self.output.bias, x, on.weight,
                                                         on.bias, on.eps), probs
 

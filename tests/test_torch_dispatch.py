@@ -25,6 +25,7 @@ from improving_learned_index_tpu_torch.ops import (
     encoder_epilogue,
     flash_attention,
     gather_rows,
+    linear_gelu,
     plain_versions,
     scatter_scores,
     short_attention,
@@ -98,6 +99,7 @@ ENTRIES = {
     "encoder_epilogue.bias_residual_layernorm": lambda: encoder_epilogue.bias_residual_layernorm(
         _bf16(4, 8), _meta(8), _bf16(4, 8), _meta(8), _meta(8), 1e-5),
     "exact_topk_integer": lambda: exact_topk_integer(_meta(2, 300), 5, max_score=100),
+    "linear_gelu": lambda: linear_gelu.linear_gelu(_bf16(4, 64), _bf16(192, 64), _meta(192)),
 }
 
 

@@ -186,3 +186,30 @@ def test_kernel_route_selection_matches_jax():
     got, want = _run_both(jm, params, tm, ids, mask)
     real = mask.astype(bool)
     np.testing.assert_allclose(got[real], want[real], rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("family", ["bert", "roberta"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_fused_route_on_cpu_matches_flax_and_the_unfused_route(family, packed, monkeypatch):
+    """The inference route as the card takes it (``epilogue_route`` on, so
+    the FFN's first product goes to ``linear_gelu`` at an intermediate width
+    it takes, 192), run on the CPU through the twins: held to flax at the
+    bf16 tolerance above, and to the port's unfused route bit for bit."""
+    from improving_learned_index_tpu_torch.models import encoder as enc
+    from improving_learned_index_tpu_torch.ops import linear_gelu as lg
+
+    kw = dict(dtype="bfloat16", intermediate_size=192, **(ROBERTA if family == "roberta" else {}))
+    jm, params, tm, tc = _models(**kw)
+    assert lg.takes(tc.hidden_size, tc.intermediate_size)
+    ids, mask, ids_p, seg = _batch(128, tc.pad_token_id)
+    if packed:
+        ids, mask = ids_p, (seg > 0).astype(np.int32)
+    unfused, _ = _run_both(jm, params, tm, ids, mask, seg if packed else None)
+    calls = []
+    monkeypatch.setattr(enc, "launches", lambda device: True)
+    monkeypatch.setattr(lg, "linear_gelu", lambda *a, _f=lg.linear_gelu: calls.append(1) or _f(*a))
+    got, want = _run_both(jm, params, tm, ids, mask, seg if packed else None)
+    assert len(calls) == tc.num_layers
+    real = mask.astype(bool)
+    np.testing.assert_allclose(got[real], want[real], rtol=0, atol=0.05)
+    assert np.array_equal(got, unfused)

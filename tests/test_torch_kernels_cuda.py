@@ -31,7 +31,13 @@ kernels (bias, residual, LayerNorm, GELU) are held to their twins within 1
 bf16 ulp of each output (the same roundings; only the LayerNorm's fp32 sums
 run in another order), engage on every forward without grad and on none
 with it, and keep an encode batch within the encode cells' impact-gap
-limits of the twin route.  The T5 route reaches no kernel: a tiny fp32
+limits of the twin route.  ``linear_gelu`` (the FFN's first product, bias
+and GELU) is held to its twin up to the product's order of summation: each
+output is the twin's bias and GELU of the library's bf16 product or of one
+of its two bf16 neighbours (a one-ulp change of the product moves the
+output by one ulp, or by many where the bias add nearly cancels it or on
+the GELU's left tail); its GELU equals ``ili_bias_gelu``'s at every finite
+bf16 input.  The T5 route reaches no kernel: a tiny fp32
 T5's greedy tokens on the card equal the CPU's.
 """
 
@@ -48,6 +54,7 @@ from improving_learned_index_tpu_torch.ops import pallas_scoring as ps
 from improving_learned_index_tpu_torch.ops import flash_attention as fa
 from improving_learned_index_tpu_torch.ops import short_attention as sa
 from improving_learned_index_tpu_torch.ops import encoder_epilogue as epi
+from improving_learned_index_tpu_torch.ops import linear_gelu as lg
 from improving_learned_index_tpu_torch.ops import plain_versions
 from improving_learned_index_tpu_torch.ops._kernels import launches
 from improving_learned_index_tpu_torch.ops.count_ge import KERNEL as COUNT_KERNEL
@@ -1251,11 +1258,11 @@ def test_encoder_epilogue_wrappers_refuse_what_the_kernels_cannot_take(cuda):
 @pytest.mark.parametrize("family,seq", [("bert", 128), ("xlmr", 512)])
 def test_encoder_epilogue_engages_on_every_inference_forward(cuda, family, seq):
     """BERT-base and XLM-R-base geometry (12 layers): one forward under
-    ``inference_mode`` and one under ``no_grad`` launch 12 x (1 + 1 + 2)
-    epilogue kernels, one ``ili_bias_add``, one ``ili_bias_gelu`` and two
-    ``ili_bias_residual_layernorm`` a layer; a forward under autograd
-    launches none, and its output equals the ``no_grad`` forward's on the
-    twins."""
+    ``inference_mode`` and one under ``no_grad`` launch 12 x (1 + 2 + 1)
+    kernels, one ``ili_bias_add``, two ``ili_bias_residual_layernorm`` and
+    one ``ili_linear_gelu`` a layer, and no ``ili_bias_gelu`` (the FFN's bias
+    and GELU run inside ``linear_gelu``); a forward under autograd launches
+    none, and its output equals the ``no_grad`` forward's on the twins."""
     from improving_learned_index_tpu_torch.core.config import EncoderConfig
     from improving_learned_index_tpu_torch.models import encoder as enc
     config = (EncoderConfig.bert_base if family == "bert" else EncoderConfig.xlmr_base)(vocab_size=1000)
@@ -1265,13 +1272,14 @@ def test_encoder_epilogue_engages_on_every_inference_forward(cuda, family, seq):
     ids = torch.randint(4, 1000, (2, seq), generator=cuda, device="cuda")
     mask = torch.ones_like(ids, dtype=torch.int32)
     mask[1, seq // 2:] = 0
-    per_layer = {"ili_bias_add": 1, "ili_bias_gelu": 1, "ili_bias_residual_layernorm": 2}
+    per_layer = {"ili_bias_add": 1, "ili_bias_gelu": 0, "ili_bias_residual_layernorm": 2, "ili_linear_gelu": 1}
 
     def launched(run):
-        before = dict(epi.KERNEL.calls)
+        before = {**epi.KERNEL.calls, **lg.KERNEL.calls}
         out = run()
         torch.cuda.synchronize()
-        return out, {k: epi.KERNEL.calls.get(k, 0) - before.get(k, 0) for k in per_layer}
+        after = {**epi.KERNEL.calls, **lg.KERNEL.calls}
+        return out, {k: after.get(k, 0) - before.get(k, 0) for k in per_layer}
 
     for mode in (torch.inference_mode, torch.no_grad):
         with mode():
@@ -1324,14 +1332,74 @@ def test_encode_packed_on_epilogue_kernels_within_the_cells_limits(cuda, family,
         scale, mid = float(z.std()), float(z.median())
         head.weight.div_(scale)
         head.bias.fill_(-mid / scale)
-    before = epi.KERNEL.launches
+    before = epi.KERNEL.launches, lg.KERNEL.launches
     got = model.encode_packed(batch)
-    assert epi.KERNEL.launches - before == 4 * config.num_layers
+    assert (epi.KERNEL.launches - before[0], lg.KERNEL.launches - before[1]) == (3 * config.num_layers,
+                                                                               config.num_layers)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(enc, "epilogue_route", lambda *a: False)
         want = model.encode_packed(batch)
     gap = np.abs(got.astype(np.float64) - want) / np.mean(want)
     assert np.mean(want) > 0 and gap.max() <= limits[0] and gap.mean() <= limits[1], (gap.max(), gap.mean())
+
+
+# (token rows, K, N): the XLM-R cell's [64 x 512] and the BERT cell's
+# [512 x 256] batches at the FFN's 768 into 3,072, T that no 128-row tile
+# divides, and XLM-R-large's 1,024 into 4,096 (no multiple of the 192-wide
+# tile: a ragged last column tile)
+_LINEAR_GELU_SHAPES = [(64 * 512, 768, 3072), (512 * 256, 768, 3072), (1, 768, 3072), (37, 768, 3072),
+                       (1000, 1024, 4096), (32845, 1024, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n", _LINEAR_GELU_SHAPES)
+def test_linear_gelu_kernel_equals_twin(cuda, rows, k, n):
+    """``linear_gelu``'s kernel against its twin (``F.linear`` and
+    ``bias_gelu_plain``, on the card): the two sum the product over K in
+    other orders, so every output must equal the twin's bias and GELU of
+    the library's bf16 product or of one of its two bf16 neighbours
+    (``chip_smoke.linear_gelu_check``, which raises otherwise); the share
+    of outputs off the twin's and their widest gap in bf16 ulps are
+    printed.  One launch."""
+    from chip_smoke import linear_gelu_check
+
+    g, dev = cuda, "cuda"
+    x = torch.randn(rows, k, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    b = torch.randn(n, generator=g, device=dev) * 0.1
+    before = lg.KERNEL.launches
+    out = linear_gelu_check(x, w, b)
+    torch.cuda.synchronize()
+    assert lg.KERNEL.launches - before == 1 and out["outside"] == 0
+    print(f"linear_gelu [{rows}, {k}] x [{k}, {n}]: {out}")
+
+
+@pytest.mark.cuda
+def test_linear_gelu_every_bf16_input(cuda):
+    """The kernel's bias and GELU at every finite bf16 value equal
+    ``ili_bias_gelu``'s (``chip_smoke.linear_gelu_every_input``)."""
+    from chip_smoke import linear_gelu_every_input
+
+    out = linear_gelu_every_input()
+    assert out["off_ili_bias_gelu"] == 0 and out["values"] == 65280, out
+
+
+@pytest.mark.cuda
+def test_linear_gelu_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    dev, bf = "cuda", torch.bfloat16
+    x, w, b = torch.zeros(16, 768, dtype=bf, device=dev), torch.zeros(3072, 768, dtype=bf, device=dev), \
+        torch.zeros(3072, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        lg.linear_gelu(x.float(), w, b)
+    with pytest.raises(ValueError, match="float32"):
+        lg.linear_gelu(x, w, b.to(bf))
+    with pytest.raises(ValueError, match="contiguous"):
+        lg.linear_gelu(torch.zeros(16, 1536, dtype=bf, device=dev)[:, :768], w, b)
+    with pytest.raises(ValueError, match="K % 64"):
+        lg.linear_gelu(x[:, :96].contiguous(), w[:, :96].contiguous(), b)
+    with pytest.raises(ValueError, match="no backward"):
+        lg.linear_gelu(x, w, b.clone().requires_grad_())
+    assert lg.linear_gelu(x[:0], w, b).shape == (0, 3072)
 
 
 @pytest.mark.cuda
